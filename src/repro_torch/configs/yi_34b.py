@@ -1,0 +1,9 @@
+"""Yi-34B: llama-architecture dense GQA.  [arXiv:2403.04652; hf]"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="yi-34b", family="dense",
+    num_layers=60, d_model=7168, num_heads=56, num_kv_heads=8,
+    d_ff=20480, vocab_size=64000,
+    source="arXiv:2403.04652; hf",
+)

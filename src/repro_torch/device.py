@@ -1,0 +1,34 @@
+"""Device selection for the port's entry points.
+
+Every public entry point takes a ``device`` argument.  ``None`` means
+``"cuda"``: the port targets the GPU, and a missing GPU is an error, not
+a reason to carry on quietly on the CPU.  The CPU runs only when the
+caller asks for it, as the tests do.
+"""
+
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """``device`` as a ``torch.device``; ``None`` means ``cuda``.
+
+    Raises ``RuntimeError`` when CUDA is asked for (explicitly or by
+    default) and no GPU is available.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on CUDA by default and no GPU is available; "
+            "pass device='cpu' to run the plain PyTorch path")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+__all__ = ["DeviceLike", "resolve_device"]

@@ -1,0 +1,143 @@
+"""Serving CLI of the port: a thin driver over ``repro_torch.serving``
+(paged KV cache + continuous batching), on CUDA by default.
+
+    python -m repro_torch.launch.serve --arch minicpm-2b --full-width
+
+serves the architecture at its published width with random weights;
+without ``--full-width`` it serves the ``.reduced()`` variant, as the
+reference CLI always does.  The flags are those of the reference CLI's
+single-server path, plus ``--device`` and ``--full-width``.  The
+data-parallel path (``--dp``) and the fleet flags are later slices of
+the port (ROADMAP.md) and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+
+from repro_torch.configs import get_config
+from repro_torch.models import init_params, supports_paged
+from repro_torch.serving import (ContinuousBatchingServer, Request,
+                                 SamplingParams)
+from repro_torch.serving.telemetry import ttft_low_confidence
+
+#: fleet flags of the reference CLI and their defaults (single server)
+_FLEET_DEFAULTS = {"replicas": 1, "router": "round_robin",
+                   "queue_cap": None, "tenant_rate": None,
+                   "tenant_burst": None, "arrival": "fixed",
+                   "arrival_rate": 2.0}
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="minicpm-2b")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--block-size", type=int, default=16)
+    ap.add_argument("--prefill-chunk", type=int, default=32)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--prefix-cache", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="content-addressed CoW sharing of prompt-prefix "
+                         "KV blocks across requests")
+    ap.add_argument("--shared-prompts", type=int, default=0, metavar="K",
+                    help="draw each request's prompt prefix from K shared "
+                         "system prompts (0 = fully distinct prompts)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    ap.add_argument("--full-width", action="store_true",
+                    help="serve the published widths instead of the "
+                         ".reduced() variant")
+    ap.add_argument("--dp", action="store_true",
+                    help="data-parallel serving (not ported yet)")
+    ap.add_argument("--replicas", type=int, default=1)
+    ap.add_argument("--router", default="round_robin")
+    ap.add_argument("--queue-cap", type=int, default=None)
+    ap.add_argument("--tenant-rate", type=float, default=None)
+    ap.add_argument("--tenant-burst", type=float, default=None)
+    ap.add_argument("--arrival", default="fixed")
+    ap.add_argument("--arrival-rate", type=float, default=2.0)
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+    if args.dp:
+        raise NotImplementedError(
+            "--dp serving needs the CollectiveEngine over "
+            "torch.distributed, a later slice of the port (ROADMAP.md A)")
+    fleet = [k for k, v in _FLEET_DEFAULTS.items() if getattr(args, k) != v]
+    if fleet:
+        raise NotImplementedError(
+            f"fleet flags {fleet}: the serving fleet is a later slice of "
+            f"the port (ROADMAP.md A)")
+    cfg = get_config(args.arch)
+    if not args.full_width:
+        cfg = cfg.reduced()
+    if not supports_paged(cfg):
+        raise SystemExit(
+            f"--arch {args.arch} (family {cfg.family!r}, frontend "
+            f"{cfg.frontend!r}) is not servable by the port yet: the paged "
+            f"KV cache covers the dense text decoders")
+    params = init_params(cfg, seed=0, device=args.device)
+    max_len = args.prompt_len + args.new_tokens + args.block_size
+    rng = np.random.default_rng(0)
+    shared = [rng.integers(0, cfg.vocab_size,
+                           size=max(args.prompt_len - 4, 1)).astype(np.int32)
+              for _ in range(args.shared_prompts)]
+
+    def make_request(rid):
+        if shared:
+            # shared system prompt + short per-request suffix
+            prompt = np.concatenate(
+                [shared[rid % len(shared)],
+                 rng.integers(0, cfg.vocab_size, size=4).astype(np.int32)])
+        else:
+            prompt = rng.integers(0, cfg.vocab_size,
+                                  size=args.prompt_len).astype(np.int32)
+        return Request(rid=rid, prompt=prompt,
+                       max_new_tokens=args.new_tokens,
+                       sampling=SamplingParams(temperature=args.temperature))
+
+    server = ContinuousBatchingServer(cfg, params, args.batch,
+                                      max_len=max_len, device=args.device,
+                                      block_size=args.block_size,
+                                      prefill_chunk=args.prefill_chunk,
+                                      top_k=args.top_k,
+                                      prefix_cache=args.prefix_cache)
+    t0 = time.time()
+    for rid in range(args.requests):
+        server.submit(make_request(rid))
+    results = server.run()
+    dt = time.time() - t0
+    snap = server.snapshot()
+    total = sum(len(v) for v in results.values())
+    print(f"[serve] {cfg.name} on {server.device}: {len(results)} requests, "
+          f"{total} tokens in {dt:.1f}s ({total / dt:.1f} tok/s)")
+    lc = (f" (low confidence, n={snap.ttft_samples})"
+          if ttft_low_confidence(snap) else "")
+    print(f"[serve] ttft p50={snap.ttft_p50_ms:.0f}ms "
+          f"p99={snap.ttft_p99_ms:.0f}ms{lc} | decode steps "
+          f"{snap.decode_steps} | prefill chunks "
+          f"{snap.prefill_chunks} | preemptions {snap.preemptions} | "
+          f"peak kv occupancy {snap.kv_peak_occupancy:.2f}")
+    print(f"[serve] prefix cache: "
+          f"{'on' if args.prefix_cache else 'off'} | prefill tokens "
+          f"computed {snap.prefill_tokens_computed} | cached "
+          f"{snap.cached_prefix_tokens} "
+          f"({snap.cached_token_fraction:.0%}) | evictions "
+          f"{snap.prefix_evictions} | kv blocks live "
+          f"{snap.kv_blocks_live} / evictable "
+          f"{snap.kv_blocks_evictable}")
+    for rid in sorted(results)[:3]:
+        print(f"  req {rid}: {results[rid][:8]}...")
+
+
+if __name__ == "__main__":
+    main()
