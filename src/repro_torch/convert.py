@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.transformer import Params
+from repro_torch.models.transformer import INIT_FAMILIES, Params
 
 
 def tensor_from_numpy(arr: np.ndarray, device: torch.device
@@ -34,12 +34,14 @@ def tensor_from_numpy(arr: np.ndarray, device: torch.device
 
 def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig,
                     device: DeviceLike = None) -> Params:
-    """The reference's dense-decoder parameter tree (numpy leaves) as the
-    port's parameters on ``device`` (default ``cuda``)."""
-    if cfg.family != "dense":
+    """The reference's dense-decoder or SSM parameter tree (numpy leaves)
+    as the port's parameters on ``device`` (default ``cuda``).  Each
+    leaf keeps its dtype: the SSM's float32 ``a_log`` and ``d_skip`` stay
+    float32 in a bfloat16 model."""
+    if cfg.family not in INIT_FAMILIES:
         raise NotImplementedError(
-            f"params_from_jax: the port covers the dense family, not "
-            f"{cfg.family!r}")
+            f"params_from_jax: the port covers families {INIT_FAMILIES}, "
+            f"not {cfg.family!r}")
     dev = resolve_device(device)
     out: Params = {name: tensor_from_numpy(tree[name], dev)
                    for name in ("embed", "ln_f", "head")}

@@ -30,6 +30,7 @@ BUILD_DIR = REPO_ROOT / "build"
 #: kernel name -> its sources, relative to this directory
 SOURCES: Dict[str, tuple] = {
     "paged_attention": ("csrc/paged_attention.cu",),
+    "selective_scan": ("csrc/selective_scan.cu",),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -9,15 +9,19 @@ interpret mode the same way, in ``repro/kernels/ops.py``.)
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.kernels import paged_attention as _pa
-from repro_torch.kernels.ref import paged_attention_ref
+from repro_torch.kernels import selective_scan as _ss
+from repro_torch.kernels.ref import paged_attention_ref, selective_scan_ref
 
 #: every kernel wrapper with a launch count, by kernel name
-WRAPPERS = {"paged_attention": _pa.paged_attention}
+WRAPPERS = {"paged_attention": _pa.paged_attention,
+            "selective_scan": _ss.selective_scan,
+            "selective_scan_fwd_ckpt": _ss.selective_scan_fwd_ckpt,
+            "selective_scan_bwd": _ss.selective_scan_bwd}
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -32,6 +36,22 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     return _pa.paged_attention(q, k_pages, v_pages, block_tables, lengths)
 
 
+def selective_scan(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
+                   c: torch.Tensor, a: torch.Tensor, h0: torch.Tensor, *,
+                   trainable: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused Mamba-1 scan: dt/x [B, S, D], b/c [B, S, N], a [D, N],
+    h0 [B, D, N] -> (y [B, S, D] in x.dtype, h_final [B, D, N] float32).
+    ``trainable=True`` takes the differentiable kernel pair (checkpointing
+    forward, recomputing backward); on the CPU the plain recurrence is
+    differentiable by autograd either way."""
+    if x.device.type == "cpu":
+        return selective_scan_ref(dt, x, b, c, a, h0)
+    if trainable:
+        return _ss.selective_scan_trainable(dt, x, b, c, a, h0)
+    return _ss.selective_scan(dt, x, b, c, a, h0)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches so far, by kernel name."""
     return {name: fn.launches for name, fn in WRAPPERS.items()}
@@ -43,4 +63,5 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["WRAPPERS", "launch_counts", "paged_attention",
-           "paged_attention_ref", "reset_launch_counts"]
+           "paged_attention_ref", "reset_launch_counts", "selective_scan",
+           "selective_scan_ref"]

@@ -9,6 +9,8 @@ against.
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 
@@ -44,4 +46,30 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     return out.to(q.dtype)
 
 
-__all__ = ["paged_attention_ref"]
+def selective_scan_ref(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
+                       c: torch.Tensor, a: torch.Tensor, h0: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-1 selective scan as the plain sequential recurrence
+    (float32 throughout)::
+
+        h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) B_t
+        y_t = <h_t, C_t>
+
+    dt/x: [B, S, D]; b/c: [B, S, N]; a: [D, N]; h0: [B, D, N].  Returns
+    (y [B, S, D] in x.dtype, h_final [B, D, N] float32).  The plain
+    version of all three scan kernels: its gradient, by autograd, is what
+    the backward kernel computes."""
+    dt32, x32, b32, c32 = (t.float() for t in (dt, x, b, c))
+    a32 = a.float()
+    h = h0.float()
+    ys = []
+    for t in range(dt.shape[1]):
+        a_bar = torch.exp(dt32[:, t, :, None] * a32)           # [B, D, N]
+        b_bar = (dt32[:, t] * x32[:, t])[:, :, None] * b32[:, t, None, :]
+        h = a_bar * h + b_bar
+        ys.append((h * c32[:, t, None, :]).sum(-1))           # [B, D]
+    y = torch.stack(ys, dim=1) if ys else x32.new_zeros(x.shape)
+    return y.to(x.dtype), h
+
+
+__all__ = ["paged_attention_ref", "selective_scan_ref"]
