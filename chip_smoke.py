@@ -27,7 +27,22 @@
    chunked scan, from the same weights and batch;
 6. prefill + decode: prompts through ``prefill`` (the forward-only scan
    kernel), 8 greedy decode steps, each step's logits held against the
-   teacher-forced forward.
+   teacher-forced forward;
+7. collective phase: the CollectiveEngine on P = 8 ``LocalComm`` ranks
+   (threads) on the one card: every algorithm the engine knows for
+   reduce, allreduce, reduce_scatter, allgather, broadcast and
+   all_to_all, and ``"auto"``, at 4 KB, 256 KB, 4 MB and 64 MB per rank;
+   float32 integer-valued inputs bitwise equal to the sum over ranks,
+   bfloat16 within 5e-2 of it.  ``auto``'s decisions are printed with
+   their prices on the reference's TPU fabric model;
+8. fused ring phase: ``fused_matmul_reduce_scatter`` for the TP-8
+   down-projection of ``yi-34b`` at its published widths (d_ff 20480,
+   d_model 7168, batch 2 x 4096 tokens, bf16) on 8 local ranks: 64
+   ``matmul_tiled`` launches, each rank's block against the gathered
+   path and a sampled slice against a float64 product, and one backward
+   through ``matmul_tiled``;
+9. NCCL phase, only with two or more cards: one ``ProcessGroupComm`` rank
+   per card repeats the float32 collective checks and the fused ring.
 
 It exits non-zero, printing no result, without a GPU or outside a
 checkout of the repository.  The last lines are a JSON line of per-kernel
@@ -41,6 +56,7 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -51,12 +67,17 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.collectives import (CollectiveEngine,  # noqa: E402
+                                     ProcessGroupComm, get_engine,
+                                     run_local)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import with_layer_units  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLMDataset  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.collectives import shardmap_impl as impl  # noqa: E402
 from repro_torch.kernels import selective_scan as ss  # noqa: E402
-from repro_torch.kernels.ref import (paged_attention_ref,  # noqa: E402
+from repro_torch.kernels.ref import (matmul_tiled_ref,  # noqa: E402
+                                     multi_add_ref, paged_attention_ref,
                                      selective_scan_ref)
 from repro_torch.models import (decode_step_paged, forward_train,  # noqa
                                 init_params)
@@ -98,6 +119,52 @@ ROUTE = dict(layers=2, batch=2, seq=1024, lr=3e-4)
 DECODE = dict(batch=2, prompt=64, new_tokens=8)
 #: the scan kernels' timing shape: one layer of the train phase
 SCAN_TIMING = (2, 4096, 8192, 16)
+
+#: collective phase: ranks on the one card, bytes per rank (the latency
+#: regime, 256 KB, the trainer's default bucket_bytes, 64 MB), and every
+#: algorithm the engine knows for each op, then the model's pick
+COLLECTIVE_RANKS = 8
+COLLECTIVE_BYTES = (4 << 10, 256 << 10, 4 << 20, 64 << 20)
+ALGORITHMS = {
+    "reduce": ("chain", "tree", "two_phase", "star", "autogen",
+               "autogen_pipelined", "auto"),
+    "allreduce": ("psum", "oneshot", "chain", "tree", "two_phase", "star",
+                  "ring", "autogen", "autogen_pipelined", "auto"),
+    "reduce_scatter": ("psum_scatter", "ring", "autogen", "auto"),
+    "allgather": ("all_gather", "oneshot", "ring", "doubling", "autogen",
+                  "auto"),
+    "broadcast": ("doubling", "chain", "autogen", "auto"),
+    "all_to_all": ("lax", "oneshot", "ring", "halving", "auto"),
+}
+BROADCAST_ROOT = 3
+#: fused ring: the TP-8 down-projection of yi-34b (d_ff 20480 -> d_model
+#: 7168) over 2 x 4096 tokens, bf16
+FUSED_ARCH = "yi-34b"
+FUSED = dict(tp=8, batch=2, seq=4096)
+#: each rank's block of the ring vs the gathered path, and a sampled slice
+#: vs float64: both sides round to bf16 at each of the 8 hops (the block
+#: GEMM's output and the sum), at most 16 roundings of half a bf16 ulp
+#: (2^-8) of the largest partial, relative to the result's max-abs
+FUSED_TOL = 16 * 2.0 ** -8
+#: the shapes of multi_add (one 4 MB bucket from 8 ranks,
+#: K = 2, 32, bf16, ragged N) and of matmul_tiled (one ring step first)
+MULTI_ADD_CASES = (("one 4 MB fp32 bucket from 8 ranks", 8, 1 << 20,
+                    torch.float32),
+                   ("K = 2", 2, 1 << 20, torch.float32),
+                   ("K = 32", 32, 1 << 20, torch.float32),
+                   ("bf16", 8, 1 << 20, torch.bfloat16),
+                   ("ragged N", 8, 1_000_003, torch.float32))
+MATMUL_CASES = (("one ring step of the fused phase", 1024, 2560, 7168,
+                 torch.bfloat16),
+                ("the same in float32", 1024, 2560, 7168, torch.float32),
+                ("ragged M, N (16-byte rows)", 1000, 2560, 7000,
+                 torch.bfloat16),
+                ("ragged K, N (element loads)", 1000, 2555, 7001,
+                 torch.bfloat16))
+#: matmul_tiled vs its plain version, relative to the plain product's
+#: max-abs: float32 adds in another order over K = 2560; bf16 rounds the
+#: float32 sum once, at most one bf16 ulp (2^-7 of the value) apart
+MM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
 def log(msg: str) -> None:
@@ -642,9 +709,9 @@ def train_phase(seed: int, rows: dict) -> None:
 
     assert all(math.isfinite(x) for x in losses), losses
     assert losses[-1] < losses[0], f"loss did not fall: {losses}"
-    want = {"selective_scan": 0, "paged_attention": 0,
-            "selective_scan_fwd_ckpt": 2 * cfg.num_layers * steps,
-            "selective_scan_bwd": cfg.num_layers * steps}
+    want = dict.fromkeys(ops.WRAPPERS, 0)
+    want.update(selective_scan_fwd_ckpt=2 * cfg.num_layers * steps,
+                selective_scan_bwd=cfg.num_layers * steps)
     assert counts == want, (counts, want)
     rows["selective_scan_fwd_ckpt"]["launches"] = counts[
         "selective_scan_fwd_ckpt"]
@@ -746,8 +813,8 @@ def decode_phase(seed: int, rows: dict) -> None:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
-    want = {"selective_scan": cfg.num_layers, "paged_attention": 0,
-            "selective_scan_fwd_ckpt": 0, "selective_scan_bwd": 0}
+    want = dict.fromkeys(ops.WRAPPERS, 0)
+    want.update(selective_scan=cfg.num_layers)
     assert counts == want, (counts, want)
     rows["selective_scan"]["launches"] = counts["selective_scan"]
     seq = torch.cat([prompt] + toks, dim=1)
@@ -768,15 +835,369 @@ def decode_phase(seed: int, rows: dict) -> None:
         f"teacher-forced forward max_abs_err {err:.3e} (tol 1e-3)")
 
 
+# ---------------------- multi_add and matmul_tiled --------------------- #
+def _rel_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / (want.float().abs().max() + 1e-30))
+
+
+def collective_kernel_phase(seed: int) -> list:
+    """Rows 2-3 of the kernel table: ``multi_add`` and ``matmul_tiled``
+    against their plain versions on the card, then timed at their first
+    shape beside the bound, the plain version and one PyTorch call."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 400)
+    ma_err, ma_main = 0.0, None
+    for label, k, n, dtype in MULTI_ADD_CASES:
+        x = torch.randn((k, n), generator=gen, device="cuda").to(dtype)
+        got = ops.multi_add(x)
+        torch.cuda.synchronize()
+        want = multi_add_ref(x)
+        # the kernel adds rows 0..K-1 in order in float32, as the plain
+        # version does, and rounds once: bitwise equal
+        assert torch.equal(got, want), (label, _rel_err(got, want))
+        ma_err = max(ma_err, float((got.float() - want.float()).abs().max()))
+        ms = time_ms(lambda: ops.multi_add(x))
+        bound_ms = (k + 1) * n * x.element_size() / HBM_BYTES_PER_S * 1e3
+        log(f"kernel multi_add {label}: K={k} N={n} "
+            f"{str(dtype).split('.')[-1]} | bitwise equal to the plain "
+            f"version | kernel {ms:.4f} ms | bound {bound_ms:.4f} ms "
+            f"(bytes) | {bound_ms / ms:.1%} of bound")
+        if ma_main is None:
+            ma_main = (x, ms, bound_ms)
+    x, ms, bound_ms = ma_main
+    ma_row = {"name": "multi_add", "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/multi_add.cu",
+              "replaces": "src/repro/kernels/multi_add.py:44",
+              "launches": None, "max_abs_err": ma_err, "ms": ms,
+              "plain_ms": time_ms(lambda: multi_add_ref(x)),
+              "bound_ms": bound_ms, "bound_by": "bytes",
+              "library_ms": time_ms(lambda: torch.sum(
+                  x, 0, dtype=torch.float32).to(x.dtype))}
+    log(f"kernel multi_add timing ({MULTI_ADD_CASES[0][0]}): kernel {ms:.4f} "
+        f"ms | plain {ma_row['plain_ms']:.4f} ms (K-1 elementwise adds) | "
+        f"library {ma_row['library_ms']:.4f} ms (torch.sum over K in "
+        f"float32, cast back) | bound {bound_ms:.4f} ms")
+    del x, ma_main
+
+    mm_err, mm_main = 0.0, None
+    for label, m, k, n, dtype in MATMUL_CASES:
+        x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+        w = (torch.randn((k, n), generator=gen, device="cuda")
+             / math.sqrt(k)).to(dtype)
+        got = ops.matmul_tiled(x, w)
+        torch.cuda.synchronize()
+        want = matmul_tiled_ref(x, w)
+        err = _rel_err(got, want)
+        assert err <= MM_TOL[dtype], (label, err)
+        mm_err = max(mm_err, float((got.float() - want.float()).abs().max()))
+        ms = time_ms(lambda: ops.matmul_tiled(x, w), reps=20)
+        t_ops = 2 * m * n * k / PEAK_OPS_PER_S[dtype]
+        t_bytes = (m * k + k * n + m * n) * x.element_size() / \
+            HBM_BYTES_PER_S
+        bound_ms = max(t_ops, t_bytes) * 1e3
+        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        log(f"kernel matmul_tiled {label}: [{m}, {k}] @ [{k}, {n}] "
+            f"{str(dtype).split('.')[-1]} | err / max|plain| {err:.3e} (tol "
+            f"{MM_TOL[dtype]:.0e}) | kernel {ms:.4f} ms | bound "
+            f"{bound_ms:.4f} ms ({bound_by}) | {bound_ms / ms:.1%} of bound "
+            f"| {2 * m * n * k / ms / 1e9:.1f} TFLOP/s")
+        if mm_main is None:
+            mm_main = (x, w, ms, bound_ms, bound_by)
+    x, w, ms, bound_ms, bound_by = mm_main
+    mm_row = {"name": "matmul_tiled", "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/matmul_tiled.cu",
+              "replaces": "src/repro/kernels/fused_matmul_rs.py:72",
+              "launches": 0, "max_abs_err": mm_err, "ms": ms,
+              "plain_ms": time_ms(lambda: matmul_tiled_ref(x, w), reps=20),
+              "bound_ms": bound_ms, "bound_by": bound_by,
+              "library_ms": time_ms(lambda: torch.matmul(x, w), reps=20)}
+    log(f"kernel matmul_tiled timing ({MATMUL_CASES[0][0]}): kernel {ms:.4f} "
+        f"ms | plain {mm_row['plain_ms']:.4f} ms (float32 product, cast) | "
+        f"library {mm_row['library_ms']:.4f} ms (torch.matmul in bf16, "
+        f"cuBLAS) | bound {bound_ms:.4f} ms ({bound_by})")
+    return [ma_row, mm_row]
+
+
+# -------------------------- collective phase ---------------------------- #
+def collective_inputs(p: int, nbytes: int, dtype, seed: int):
+    """Each rank's 1-D input of ``nbytes``: integer-valued float32 in
+    [-8, 8] (every order of adds is exact), or normal bfloat16."""
+    n = nbytes // torch.tensor([], dtype=dtype).element_size()
+    n -= n % p                  # reduce_scatter and all_to_all split by P
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    if dtype == torch.float32:
+        return [torch.randint(-8, 9, (n,), generator=gen, device="cuda",
+                              dtype=torch.int32).float() for _ in range(p)]
+    return [torch.randn((n,), generator=gen, device="cuda").to(dtype)
+            for _ in range(p)]
+
+
+def collective_expected(op: str, xs, rank: int, root: int = BROADCAST_ROOT):
+    """What ``rank`` must hold after ``op`` (None: nothing to check, a
+    reduce's non-root ranks keep partials)."""
+    p = len(xs)
+    if op in ("reduce", "allreduce", "reduce_scatter"):
+        if op == "reduce" and rank:
+            return None
+        total = torch.stack([x.float() for x in xs]).sum(0)
+        return total.chunk(p)[rank] if op == "reduce_scatter" else total
+    if op == "allgather":
+        return torch.cat(xs)
+    if op == "broadcast":
+        return xs[root]
+    return torch.cat([x.chunk(p)[rank] for x in xs])
+
+
+def check_collective(op: str, got, want) -> float:
+    """Bitwise equality for float32 (and for every op that only moves
+    bf16 values); for a bf16 sum, its error relative to the exact sum's
+    max-abs, which must stay within 5e-2 (one hop's bf16 rounding per add,
+    ROADMAP C4)."""
+    if got.dtype == torch.float32 or op in ("allgather", "broadcast",
+                                            "all_to_all"):
+        assert torch.equal(got.float(), want.float()), op
+        return 0.0
+    err = _rel_err(got, want)
+    assert err <= 5e-2, (op, err)
+    return err
+
+
+def run_collective(eng, op: str, alg: str, xs, comm):
+    fn = getattr(eng, op + "_inside")
+    if op == "broadcast":
+        return fn(xs[comm.rank], comm, BROADCAST_ROOT, alg)
+    return fn(xs[comm.rank], comm, alg)
+
+
+def collective_phase(seed: int) -> None:
+    eng = get_engine()
+    p = COLLECTIVE_RANKS
+    t0 = time.perf_counter()
+    runs, bf16_err = 0, 0.0
+    for nbytes in COLLECTIVE_BYTES:
+        for dtype in (torch.float32, torch.bfloat16):
+            xs = collective_inputs(p, nbytes, dtype, seed + nbytes)
+            for op, algs in ALGORITHMS.items():
+                wants = [collective_expected(op, xs, r) for r in range(p)]
+                for alg in algs:
+                    outs = run_local(
+                        lambda c: run_collective(eng, op, alg, xs, c), p)
+                    torch.cuda.synchronize()
+                    for r in range(p):
+                        if wants[r] is not None:
+                            bf16_err = max(bf16_err, check_collective(
+                                op, outs[r], wants[r]))
+                    runs += 1
+                    del outs
+                del wants
+            del xs
+            torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    log(f"collectives: {runs} runs (6 ops x every algorithm + auto x "
+        f"{len(COLLECTIVE_BYTES)} sizes x float32/bf16) on {p} LocalComm "
+        f"ranks: float32 bitwise equal to the sum over ranks on every "
+        f"checked rank; bf16 sums within {bf16_err:.3e} of the exact sum's "
+        f"max-abs (tol 5e-2); {wall:.1f} s of host wall (threads, barriers "
+        f"and device copies on one card, not a fabric time)")
+    for op in ALGORITHMS:
+        for nbytes in COLLECTIVE_BYTES:
+            model_bytes = nbytes * p if op == "allgather" else nbytes
+            d = eng.select(op, model_bytes, p)
+            log(f"auto {op} {nbytes >> 10} KB/rank, P={p}: {d.algorithm}, "
+                f"predicted {d.predicted:.1f} model cycles (priced on the "
+                f"reference's TPU v5e ICI fabric model, TPU_V5E_AXIS; not an "
+                f"H100 number)")
+    log(f"engine stats: {eng.stats_snapshot()} (ranks share the engine: "
+        f"one miss and {p - 1} hits per auto call)")
+    xs = collective_inputs(p, 4 << 20, torch.float32, seed)
+    prof = profile_step(lambda: run_local(
+        lambda c: eng.allreduce_inside(xs[c.rank], c), p))
+    log(f"profile of one auto allreduce of 4 MB/rank on {p} local ranks: "
+        f"{prof}")
+
+
+# -------------------------- fused ring phase ---------------------------- #
+def fused_inputs(cfg, seed: int):
+    """Each TP rank's activations [tokens, d_ff / TP] (normal) and weight
+    shard [d_ff / TP, d_model] (normal / sqrt(d_ff)), bf16."""
+    tp = FUSED["tp"]
+    tokens = FUSED["batch"] * FUSED["seq"]
+    k_loc = cfg.d_ff // tp
+    xs, ws = [], []
+    for r in range(tp):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed * 1000 + r)
+        xs.append(torch.randn((tokens, k_loc), generator=gen,
+                              device="cuda").to(torch.bfloat16))
+        ws.append((torch.randn((k_loc, cfg.d_model), generator=gen,
+                               device="cuda") / math.sqrt(cfg.d_ff))
+                  .to(torch.bfloat16))
+    return xs, ws
+
+
+def fused_phase(seed: int, rows: dict) -> None:
+    cfg = get_config(FUSED_ARCH)
+    tp = FUSED["tp"]
+    xs, ws = fused_inputs(cfg, seed)
+    m, k_loc = xs[0].shape
+    n = ws[0].shape[1]
+    gb = sum(t.numel() * t.element_size() for t in xs + ws) / 1e9
+    eng = get_engine()
+    price = eng.price_fused_matmul_rs(m, k_loc, n, tp, dtype_bytes=2)
+    log(f"fused {cfg.name} TP-{tp} down-projection: per rank x [{m}, "
+        f"{k_loc}] @ w [{k_loc}, {n}] bf16 -> [{m // tp}, {n}]; {gb:.3f} GB "
+        f"of operands | auto would take the "
+        f"{'fused ring' if price['saved'] > 0 else 'gathered path'} (model "
+        f"on the reference's TPU fabric: fused {price['fused']:.0f}, serial "
+        f"{price['serial']:.0f} cycles)")
+    run_local(lambda c: eng.fused_matmul_reduce_scatter(   # warm-up
+        xs[c.rank][:tp * 16], ws[c.rank], c, algorithm="fused"), tp)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = run_local(lambda c: eng.fused_matmul_reduce_scatter(
+        xs[c.rank], ws[c.rank], c, algorithm="fused"), tp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want_counts = dict.fromkeys(ops.WRAPPERS, 0)
+    want_counts["matmul_tiled"] = tp * tp
+    assert counts == want_counts, (counts, want_counts)
+    rows["matmul_tiled"]["launches"] = counts["matmul_tiled"]
+    # multi_add is on no path of the port, as on none of the reference's
+    # (only repro/kernels/ops.py and its tests call it): its row reads 0
+    rows["multi_add"]["launches"] = counts["multi_add"]
+
+    gathered = run_local(
+        lambda c: impl.matmul_then_rs(xs[c.rank], ws[c.rank], c), tp)
+    torch.cuda.synchronize()
+    errs = []
+    for r in range(tp):
+        assert got[r].shape == (m // tp, n) and got[r].dtype == torch.bfloat16
+        assert torch.isfinite(got[r].float()).all()
+        errs.append(_rel_err(got[r], gathered[r]))
+    rows_s = slice(0, min(64, m // tp))     # rank 0's block: its first rows
+    exact = sum(xs[r][rows_s].double() @ ws[r].double() for r in range(tp))
+    err64 = _rel_err(got[0][rows_s], exact)
+    assert max(errs) <= FUSED_TOL and err64 <= FUSED_TOL, (errs, err64)
+    log(f"fused ring on {tp} LocalComm ranks: {counts['matmul_tiled']} "
+        f"matmul_tiled launches ({tp} per rank) | per-rank block vs the "
+        f"gathered path (float32 GEMM + reduce-scatter), err / max-abs: max "
+        f"{max(errs):.3e} | rank 0 rows 0-{rows_s.stop - 1} vs float64: "
+        f"{err64:.3e} (tol "
+        f"{FUSED_TOL:.4f}: 16 bf16 roundings) | host wall {wall * 1e3:.1f} ms "
+        f"(threads on one card, not a fabric time)")
+    del gathered, got
+    prof = profile_step(lambda: run_local(
+        lambda c: eng.fused_matmul_reduce_scatter(
+            xs[c.rank], ws[c.rank], c, algorithm="fused"), tp))
+    log(f"profile of one fused ring call on {tp} local ranks: {prof}")
+
+    # one backward through the kernel at one ring step's shape
+    x = xs[0][: m // tp].clone().requires_grad_()
+    w = ws[0].clone().requires_grad_()
+    g = torch.randn((m // tp, n), device="cuda").to(torch.bfloat16)
+    out = ops.matmul_tiled(x, w)
+    out.backward(g)
+    torch.cuda.synchronize()
+    dx = torch.matmul(g.float(), ws[0].float().t()).to(torch.bfloat16)
+    dw = torch.matmul(xs[0][: m // tp].float().t(), g.float()).to(
+        torch.bfloat16)
+    fwd_err = _rel_err(out.detach(), matmul_tiled_ref(x.detach(), w.detach()))
+    assert fwd_err <= MM_TOL[torch.bfloat16], fwd_err
+    assert torch.equal(x.grad, dx) and torch.equal(w.grad, dw)
+    log(f"matmul_tiled backward at one ring step ([{m // tp}, {k_loc}] @ "
+        f"[{k_loc}, {n}] bf16): forward err / max|plain| {fwd_err:.3e}; dx, "
+        f"dw bitwise equal to torch.matmul in float32 (the reference's dense "
+        f"backward)")
+
+
+# ------------------------------ NCCL phase ------------------------------ #
+def nccl_worker(rank: int, world: int, init: str, seed: int) -> int:
+    """One rank of the NCCL phase, on card ``rank``: the float32
+    collective checks and one fused ring at the fused phase's shape."""
+    torch.distributed.init_process_group("nccl", init_method=init,
+                                         rank=rank, world_size=world)
+    comm = ProcessGroupComm(device=f"cuda:{rank}")
+    eng = CollectiveEngine(device=comm.device, persist=False)
+    checks = 0
+    for nbytes in COLLECTIVE_BYTES:
+        with torch.cuda.device(comm.device):
+            xs = collective_inputs(world, nbytes, torch.float32,
+                                   seed + nbytes)
+        for op, algs in ALGORITHMS.items():
+            want = collective_expected(op, xs, rank)
+            for alg in algs:
+                if alg in ("tree", "doubling") and world & (world - 1):
+                    continue
+                got = run_collective(eng, op, alg, xs, comm)
+                if want is not None:
+                    check_collective(op, got, want)
+                    checks += 1
+    cfg = get_config(FUSED_ARCH)
+    with torch.cuda.device(comm.device):
+        xs, ws = fused_inputs(cfg, seed)
+    got = impl.fused_matmul_rs(xs[rank], ws[rank], comm)
+    gathered = impl.matmul_then_rs(xs[rank], ws[rank], comm)
+    err = _rel_err(got, gathered)
+    assert err <= FUSED_TOL, err
+    torch.cuda.synchronize(comm.device)
+    torch.distributed.destroy_process_group()
+    print(f"nccl rank {rank}/{world}: {checks} float32 collective checks "
+          f"exact; fused ring vs gathered path err / max-abs {err:.3e}",
+          flush=True)
+    return 0
+
+
+def nccl_phase(seed: int) -> None:
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log(f"nccl phase: not run ({cards} card)")
+        return
+    world = 1 << (cards.bit_length() - 1)   # a power of two (tree, doubling)
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    init = build.BUILD_DIR / f"nccl_rendezvous_{os.getpid()}"
+    init.unlink(missing_ok=True)
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, "--seed", str(seed), "--nccl-worker",
+         str(r), str(world), f"file://{init}"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    t0 = time.perf_counter()
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        init.unlink(missing_ok=True)
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"nccl rank {r} failed:\n{out[-4000:]}"
+        for line in out.splitlines():
+            if line.startswith("nccl rank"):
+                log(line)
+    log(f"nccl phase: {world} ProcessGroupComm ranks, one per card, passed "
+        f"in {time.perf_counter() - t0:.1f} s of host wall")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--nccl-worker", nargs=3, metavar=("RANK", "WORLD",
+                                                       "INIT"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 is float32
     torch.backends.cudnn.allow_tf32 = False
+    if args.nccl_worker:
+        rank, world, init = args.nccl_worker
+        return nccl_worker(int(rank), int(world), init, args.seed)
     card = nvidia_smi()
     log(f"gpu: {card} | torch {torch.__version__} | CUDA "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} x "
@@ -788,17 +1209,25 @@ def main(argv=None) -> int:
         for line in res.log.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {res.name}: {line.strip()}")
-    row = kernel_phase(args.seed)
-    rows = {r["name"]: r for r in [row, *scan_kernel_phase(args.seed)]}
+    rows = {r["name"]: r for r in [kernel_phase(args.seed),
+                                   *collective_kernel_phase(args.seed),
+                                   *scan_kernel_phase(args.seed)]}
     torch.cuda.empty_cache()
-    serve_phase(args.seed, row)
+    serve_phase(args.seed, rows["paged_attention"])
     torch.cuda.empty_cache()
     train_phase(args.seed, rows)
     torch.cuda.empty_cache()
     route_phase(args.seed)
     decode_phase(args.seed, rows)
+    torch.cuda.empty_cache()
+    collective_phase(args.seed)
+    torch.cuda.empty_cache()
+    fused_phase(args.seed, rows)
+    torch.cuda.empty_cache()
+    nccl_phase(args.seed)
     for r in rows.values():
-        assert r["launches"] > 0, f"{r['name']} never ran on its path"
+        assert r["launches"] > 0 or r["name"] == "multi_add", \
+            f"{r['name']} never ran on its path"
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -68,7 +68,7 @@ class ArchConfig:
     fused_tp: bool = False          # TP down-projection psum decomposed
                                     # as reduce-scatter + allgather with
                                     # the RS fused into the GEMM ring
-                                    # (kernels/fused_matmul_rs.py);
+                                    # (shardmap_impl.fused_matmul_rs);
                                     # launchers also flip the module
                                     # switch via layers.set_fused_tp
     remat_policy: str = "full"      # full | dots | dots_no_batch

@@ -31,6 +31,8 @@ BUILD_DIR = REPO_ROOT / "build"
 SOURCES: Dict[str, tuple] = {
     "paged_attention": ("csrc/paged_attention.cu",),
     "selective_scan": ("csrc/selective_scan.cu",),
+    "multi_add": ("csrc/multi_add.cu",),
+    "matmul_tiled": ("csrc/matmul_tiled.cu",),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

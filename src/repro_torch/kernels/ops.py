@@ -13,15 +13,37 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.kernels import matmul_tiled as _mt
+from repro_torch.kernels import multi_add as _ma
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import selective_scan as _ss
-from repro_torch.kernels.ref import paged_attention_ref, selective_scan_ref
+from repro_torch.kernels.ref import (matmul_tiled_ref, multi_add_ref,
+                                     paged_attention_ref, selective_scan_ref)
 
 #: every kernel wrapper with a launch count, by kernel name
 WRAPPERS = {"paged_attention": _pa.paged_attention,
             "selective_scan": _ss.selective_scan,
             "selective_scan_fwd_ckpt": _ss.selective_scan_fwd_ckpt,
-            "selective_scan_bwd": _ss.selective_scan_bwd}
+            "selective_scan_bwd": _ss.selective_scan_bwd,
+            "multi_add": _ma.multi_add,
+            "matmul_tiled": _mt.matmul_tiled_cuda}
+
+
+def multi_add(stacked: torch.Tensor) -> torch.Tensor:
+    """Sum K stacked partials: [K, N] -> [N] with float32 accumulation,
+    in the input dtype."""
+    if stacked.device.type == "cpu":
+        return multi_add_ref(stacked)
+    return _ma.multi_add(stacked)
+
+
+def matmul_tiled(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``[M, K] @ [K, N] -> [M, N]``, float32 accumulation, in x's dtype;
+    differentiable (the kernel's backward is the reference's dense one).
+    The block GEMM of the fused matmul + ring reduce-scatter."""
+    if x.device.type == "cpu":
+        return matmul_tiled_ref(x, w)
+    return _mt.MatmulTiledFn.apply(x, w)
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -62,6 +84,7 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["WRAPPERS", "launch_counts", "paged_attention",
+__all__ = ["WRAPPERS", "launch_counts", "matmul_tiled", "matmul_tiled_ref",
+           "multi_add", "multi_add_ref", "paged_attention",
            "paged_attention_ref", "reset_launch_counts", "selective_scan",
            "selective_scan_ref"]

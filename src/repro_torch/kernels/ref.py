@@ -14,6 +14,39 @@ from typing import Tuple
 import torch
 
 
+def multi_add_ref(stacked: torch.Tensor) -> torch.Tensor:
+    """K-way fused accumulate: [K, N] partials -> [N], the sum over the
+    leading axis taken in float32, row 0 first, then rows 1..K-1 in
+    order (the CUDA kernel's order; the reference oracle leaves the
+    order to XLA), stored in the input dtype."""
+    acc = stacked[0].float()
+    for row in stacked[1:]:
+        acc = acc + row.float()
+    return acc.to(stacked.dtype)
+
+
+def matmul_tiled_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``[M, K] @ [K, N] -> [M, N]``: the product of the inputs cast to
+    float32, in x's dtype (the Pallas kernel's ``jnp.dot`` with float32
+    accumulation).  Differentiable: autograd gives the reference's dense
+    backward."""
+    return torch.matmul(x.float(), w.float()).to(x.dtype)
+
+
+def fused_matmul_rs_ref(x_parts: torch.Tensor, w_parts: torch.Tensor
+                        ) -> torch.Tensor:
+    """Fused matmul + reduce-scatter oracle.
+
+    ``x_parts``: [P, M, K_loc] per-rank activations; ``w_parts``:
+    [P, K_loc, N] per-rank weight shards (K sharded over the axis).
+    Returns [P, M/P, N]: slot ``i`` is rank ``i``'s row block of the
+    summed product, accumulated in float32."""
+    p, m, _ = x_parts.shape
+    n = w_parts.shape[-1]
+    full = torch.einsum("pmk,pkn->mn", x_parts.float(), w_parts.float())
+    return full.reshape(p, m // p, n).to(x_parts.dtype)
+
+
 def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
                         v_pages: torch.Tensor, block_tables: torch.Tensor,
                         lengths: torch.Tensor) -> torch.Tensor:
@@ -72,4 +105,5 @@ def selective_scan_ref(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
     return y.to(x.dtype), h
 
 
-__all__ = ["paged_attention_ref", "selective_scan_ref"]
+__all__ = ["fused_matmul_rs_ref", "matmul_tiled_ref", "multi_add_ref",
+           "paged_attention_ref", "selective_scan_ref"]

@@ -10,7 +10,11 @@ Tolerances: 2e-5 in float32 and 5e-2 in bfloat16 for the paged kernel
 (the reference's own); 2e-4 for float32 model logits; for the scan
 kernels 1e-4 in float32, 5e-2 with bfloat16 inputs, and each gradient's
 max-abs error below 1e-4 of the plain gradient's max-abs (the reference's
-tests/test_kernels.py bounds).
+tests/test_kernels.py bounds).  ``multi_add`` adds in the plain version's
+order, so it is held bitwise; ``matmul_tiled`` within 1e-5 (float32) and
+1e-2 (bfloat16, one bf16 ulp) of the plain product's max-abs.  The
+collective tests use integer-valued inputs (exact in any order); the NCCL
+test skips below two cards.
 """
 
 import dataclasses
@@ -289,3 +293,255 @@ def test_reduced_train_step_kernel_route_matches_plain(cuda_device):
         assert float(mk[key]) == pytest.approx(float(mp[key]), rel=1e-4)
     for a_, b_ in zip(pk, pp):
         torch.testing.assert_close(a_, b_, rtol=0, atol=1e-5)
+
+
+# ----------------------- multi_add, matmul_tiled ----------------------- #
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n", [(8, 1 << 20), (2, 1000003), (32, 4096),
+                                 (17, 1000), (1, 5), (3, 8)])
+def test_multi_add_kernel_matches_plain(cuda_device, dtype, k, n):
+    """The kernel adds rows 0..K-1 in order in float32, as the plain
+    version does: bitwise equal in both types (the same float32 sum,
+    rounded once)."""
+    from repro_torch.kernels.ref import multi_add_ref
+    gen = torch.Generator(device=cuda_device).manual_seed(k * 7 + n)
+    x = torch.randn((k, n), generator=gen, device=cuda_device).to(dtype)
+    ops.reset_launch_counts()
+    got = ops.multi_add(x)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["multi_add"] == 1
+    assert got.dtype == dtype and got.shape == (n,)
+    assert torch.equal(got, multi_add_ref(x))
+
+
+@pytest.mark.gpu
+def test_multi_add_kernel_refuses_what_it_does_not_take(cuda_device):
+    x = torch.zeros((4, 64), device=cuda_device)
+    with pytest.raises(TypeError):
+        ops.multi_add(x.half())
+    with pytest.raises(ValueError):
+        ops.multi_add(x[:, ::2])
+    with pytest.raises(ValueError):
+        ops.multi_add(x[0])
+
+
+def _rel_err(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / (want.float().abs().max() + 1e-30))
+
+
+#: float32: another order of the adds over K; bfloat16: the float32 sums
+#: round to bf16 on either side of a boundary, one bf16 ulp (<= 2^-7 of
+#: the value) apart
+MM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(1024, 2560, 7168), (130, 70, 260),
+                                   (1, 8, 3), (33, 17, 129), (256, 96, 200),
+                                   (128, 0, 64)])
+def test_matmul_tiled_kernel_matches_plain(cuda_device, dtype, m, k, n):
+    from repro_torch.kernels.ref import matmul_tiled_ref
+    gen = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=gen, device=cuda_device).to(dtype)
+    w = torch.randn((k, n), generator=gen, device=cuda_device).to(dtype)
+    ops.reset_launch_counts()
+    got = ops.matmul_tiled(x, w)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["matmul_tiled"] == 1
+    want = matmul_tiled_ref(x, w)
+    assert got.dtype == dtype and got.shape == (m, n)
+    if k == 0:
+        assert torch.all(got == 0)
+    else:
+        assert _rel_err(got, want) <= MM_TOL[dtype]
+
+
+@pytest.mark.gpu
+def test_matmul_tiled_unaligned_bf16_takes_the_masked_loads(cuda_device):
+    """K not a multiple of 8 (rows not 16-byte aligned): the element-wise
+    load path, same result as the aligned path on the same values."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn((100, 37), generator=gen,
+                    device=cuda_device).bfloat16()
+    w = torch.randn((37, 136), generator=gen,
+                    device=cuda_device).bfloat16()
+    xp = torch.zeros((100, 40), device=cuda_device, dtype=torch.bfloat16)
+    wp = torch.zeros((40, 136), device=cuda_device, dtype=torch.bfloat16)
+    xp[:, :37], wp[:37] = x, w
+    assert torch.equal(ops.matmul_tiled(x, w), ops.matmul_tiled(xp, wp))
+
+
+@pytest.mark.gpu
+def test_matmul_tiled_refuses_what_it_does_not_take(cuda_device):
+    x = torch.zeros((8, 16), device=cuda_device)
+    w = torch.zeros((16, 4), device=cuda_device)
+    with pytest.raises(TypeError):
+        ops.matmul_tiled(x, w.bfloat16())
+    with pytest.raises(TypeError):
+        ops.matmul_tiled(x.half(), w.half())
+    with pytest.raises(ValueError):
+        ops.matmul_tiled(x, w[:8])
+    with pytest.raises(ValueError):
+        ops.matmul_tiled(x.t(), torch.zeros((8, 4), device=cuda_device))
+    with pytest.raises(ValueError):
+        ops.matmul_tiled(x, w.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_tiled_backward_is_the_dense_float32_one(cuda_device, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn((96, 80), generator=gen, device=cuda_device).to(dtype)
+    w = torch.randn((80, 72), generator=gen, device=cuda_device).to(dtype)
+    g = torch.randn((96, 72), generator=gen, device=cuda_device).to(dtype)
+    xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+    ops.matmul_tiled(xl, wl).backward(g)
+    dx = torch.matmul(g.float(), w.float().t()).to(dtype)
+    dw = torch.matmul(x.float().t(), g.float()).to(dtype)
+    assert torch.equal(xl.grad, dx) and torch.equal(wl.grad, dw)
+
+
+# ---------------------- collectives on local ranks --------------------- #
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_ring_on_8_local_ranks(cuda_device, dtype):
+    """8 LocalComm ranks on one card: 64 block GEMMs through the kernel;
+    each rank's block against the gathered path.  Tolerance: float32 as
+    the kernel's; bfloat16 rounds at each of the 8 hops on both paths
+    (at most 16 roundings of 2^-8 of the largest partial)."""
+    from repro_torch.collectives import CollectiveEngine, run_local
+    from repro_torch.collectives import shardmap_impl as impl
+    p, m, k, n = 8, 256, 96, 136
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.randn((p, m, k), generator=gen, device=cuda_device).to(dtype)
+    w = (torch.randn((p, k, n), generator=gen, device=cuda_device)
+         / (p * k) ** 0.5).to(dtype)
+    eng = CollectiveEngine(persist=False)
+    ops.reset_launch_counts()
+    got = run_local(lambda c: eng.fused_matmul_reduce_scatter(
+        x[c.rank], w[c.rank], c, algorithm="fused"), p)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["matmul_tiled"] == p * p
+    want = run_local(lambda c: impl.matmul_then_rs(x[c.rank], w[c.rank], c),
+                     p)
+    tol = 1e-5 if dtype == torch.float32 else 16 * 2.0 ** -8
+    for r in range(p):
+        assert got[r].shape == (m // p, n) and got[r].dtype == dtype
+        assert _rel_err(got[r], want[r]) <= tol, r
+
+
+@pytest.mark.gpu
+def test_every_collective_exact_on_8_local_ranks(cuda_device):
+    """Integer-valued float32 inputs: every op x algorithm on 8 local
+    ranks on the card is exact."""
+    from repro_torch.collectives import CollectiveEngine, run_local
+    algorithms = {
+        "reduce": ["chain", "tree", "two_phase", "star", "autogen",
+                   "autogen_pipelined", "auto"],
+        "allreduce": ["psum", "oneshot", "ring", "two_phase", "autogen",
+                      "auto"],
+        "reduce_scatter": ["psum_scatter", "ring", "autogen", "auto"],
+        "allgather": ["all_gather", "ring", "doubling", "autogen", "auto"],
+        "broadcast": ["doubling", "chain", "autogen", "auto"],
+        "all_to_all": ["lax", "ring", "halving", "auto"]}
+    p = 8
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    xs = [torch.randint(-8, 9, (128, 33), generator=gen,
+                        device=cuda_device).float() for _ in range(p)]
+    total = torch.stack(xs).sum(0)
+    eng = CollectiveEngine(persist=False)
+    for op, algs in algorithms.items():
+        fn = getattr(eng, op + "_inside")
+        for alg in algs:
+            if op == "broadcast":
+                out = run_local(lambda c: fn(xs[c.rank], c, 5, alg), p)
+                want = [xs[5]] * p
+            else:
+                out = run_local(lambda c: fn(xs[c.rank], c, alg), p)
+                want = {
+                    "reduce": [total] + [None] * (p - 1),
+                    "allreduce": [total] * p,
+                    "reduce_scatter": list(total.chunk(p)),
+                    "allgather": [torch.cat(xs)] * p,
+                    "all_to_all": [torch.cat([x.chunk(p)[r] for x in xs])
+                                   for r in range(p)]}[op]
+            for r in range(p):
+                if want[r] is not None:
+                    assert torch.equal(out[r], want[r]), (op, alg, r)
+
+
+_NCCL_SCRIPT = r"""
+import sys
+import torch, torch.distributed as dist
+from repro_torch.collectives import CollectiveEngine, ProcessGroupComm
+from repro_torch.collectives import shardmap_impl as impl
+rank, world, init, out = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                          sys.argv[4])
+dist.init_process_group("nccl", init_method=init, rank=rank,
+                        world_size=world)
+comm = ProcessGroupComm(device=f"cuda:{rank}")
+eng = CollectiveEngine(persist=False, device=comm.device)
+gen = torch.Generator().manual_seed(rank)
+x = torch.randint(-8, 9, (64, 5), generator=gen).float().to(comm.device)
+res = {f"{op}/{alg}": getattr(eng, op + "_inside")(x, comm, alg).cpu()
+       for op, alg in [("reduce", "chain"), ("allreduce", "ring"),
+                       ("allreduce", "psum"), ("reduce_scatter", "autogen"),
+                       ("allgather", "doubling"), ("all_to_all", "halving"),
+                       ("all_to_all", "lax")]}
+res["x"] = x.cpu()
+res["fused"] = impl.fused_matmul_rs(x[:, :4].contiguous(),
+                                  x[:4, :3].contiguous(), comm).cpu()
+torch.save(res, out)
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.gpu
+def test_process_group_comm_over_nccl(cuda_device, tmp_path):
+    """One ProcessGroupComm rank per card (at most 4), against the same
+    ops on LocalComm ranks: exact on integer-valued inputs."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    from repro_torch.collectives import CollectiveEngine, run_local
+    from repro_torch.collectives import shardmap_impl as impl
+    world = min(torch.cuda.device_count(), 4)
+    if world < 2:
+        pytest.skip("NCCL needs two cards: it refuses two ranks on one")
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    init = f"file://{tmp_path / 'rendezvous'}"
+    procs = [subprocess.Popen([sys.executable, "-c", _NCCL_SCRIPT, str(r),
+                               str(world), init, str(tmp_path / f"{r}.pt")],
+                              env=env, stderr=subprocess.PIPE, text=True)
+             for r in range(world)]
+    try:
+        errs = [p.communicate(timeout=300)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, err in zip(procs, errs):
+        assert p.returncode == 0, err[-4000:]
+    res = [torch.load(tmp_path / f"{r}.pt") for r in range(world)]
+    xs = [r["x"].to(cuda_device) for r in res]
+    eng = CollectiveEngine(persist=False)
+    for key in res[0]:
+        if key in ("x", "fused"):
+            continue
+        op, alg = key.split("/")
+        local = run_local(lambda c: getattr(eng, op + "_inside")(
+            xs[c.rank], c, alg), world)
+        for r in range(world):
+            if op == "reduce" and r:
+                continue
+            assert torch.equal(res[r][key], local[r].cpu()), (key, r)
+    local = run_local(lambda c: impl.fused_matmul_rs(
+        xs[c.rank][:, :4].contiguous(), xs[c.rank][:4, :3].contiguous(), c),
+        world)
+    for r in range(world):
+        assert torch.equal(res[r]["fused"], local[r].cpu())

@@ -49,4 +49,18 @@ def test_port_imports_neither_jax_nor_repro():
         capture_output=True, text=True, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 25, proc.stdout
+    assert n_modules >= 59, proc.stdout
+
+
+def test_kernels_layer_imports_no_collectives():
+    """The kernels sit below the collectives: importing ``kernels.ops``
+    (as serving and training do) loads none of the engine."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    probe = ("import sys, repro_torch.kernels.ops\n"
+             "up = sorted(n for n in sys.modules\n"
+             "            if n.startswith(('repro_torch.collectives',\n"
+             "                             'repro_torch.core')))\n"
+             "assert not up, up\n")
+    proc = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                          text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]

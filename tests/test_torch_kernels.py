@@ -115,3 +115,106 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         paged_attention(*arrays)
     assert paged_attention.launches == before
+
+
+# ------------------- multi_add and matmul_tiled (rows 2-3) -------------- #
+@pytest.mark.parametrize("k", [2, 3, 8, 17])
+@pytest.mark.parametrize("n", [128, 512, 1000, 4096])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_multi_add_plain_matches_pallas_and_oracle(k, n, dtype):
+    """tests/test_kernels.py::test_multi_add_sweep's shapes; the Pallas
+    kernel in interpret mode and the jnp oracle.  Tolerances: float32
+    sums in another order (1e-6, the reference's), bfloat16 one rounding
+    of the float32 sum, at most one bf16 ulp apart (2e-2, the
+    reference's)."""
+    from repro.kernels.multi_add import multi_add as pallas_multi_add
+    from repro.kernels.ref import multi_add_ref as jax_multi_add_ref
+    x = np.random.default_rng(k * n).normal(size=(k, n)).astype(np.float32)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    got = ops.multi_add(torch.from_numpy(x).to(tdt))
+    assert got.dtype == tdt and got.shape == (n,)
+    xj = jnp.asarray(x).astype(jdt)
+    tol = 1e-6 if dtype == "float32" else 2e-2
+    for want in (pallas_multi_add(xj, interpret=True), jax_multi_add_ref(xj)):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("m,k,n", [(16, 24, 40), (130, 70, 260),
+                                   (1, 8, 3), (128, 256, 256),
+                                   (33, 17, 129)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_tiled_plain_matches_pallas(m, k, n, dtype):
+    """Ragged M and N (the Pallas kernel pads them): 2e-5 in float32
+    (another BLAS order), one bf16 ulp of the result in bfloat16."""
+    from repro.kernels.fused_matmul_rs import matmul_tiled as pallas_mm
+    rng = np.random.default_rng(m * 131 + n)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    w = rng.normal(size=(k, n)).astype(np.float32)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    got = ops.matmul_tiled(torch.from_numpy(x).to(tdt),
+                           torch.from_numpy(w).to(tdt))
+    assert got.dtype == tdt and got.shape == (m, n)
+    want = np.asarray(pallas_mm(jnp.asarray(x).astype(jdt),
+                                jnp.asarray(w).astype(jdt),
+                                interpret=True), np.float32)
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+    else:
+        ulp = np.abs(want) * 2.0 ** -7 + 1e-30
+        assert np.all(np.abs(got.float().numpy() - want) <= ulp)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_tiled_gradient_matches_custom_vjp(dtype):
+    """The plain version's autograd gradient is the reference's dense
+    backward (``_mm_bwd``): float32 products, cast to each input's
+    dtype."""
+    import jax
+    from repro.kernels.fused_matmul_rs import matmul_tiled as pallas_mm
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(24, 40)).astype(np.float32)
+    w = rng.normal(size=(40, 36)).astype(np.float32)
+    g = rng.normal(size=(24, 36)).astype(np.float32)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    xt = torch.from_numpy(x).to(tdt).requires_grad_()
+    wt = torch.from_numpy(w).to(tdt).requires_grad_()
+    out = ops.matmul_tiled(xt, wt)
+    out.backward(torch.from_numpy(g).to(tdt))
+    _, vjp = jax.vjp(lambda a, b: pallas_mm(a, b, interpret=True),
+                     jnp.asarray(x).astype(jdt), jnp.asarray(w).astype(jdt))
+    dx, dw = vjp(jnp.asarray(g).astype(jdt))
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    for got, want in ((xt.grad, dx), (wt.grad, dw)):
+        assert got.dtype == tdt
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   rtol=tol, atol=tol * 10)
+
+
+def test_fused_matmul_rs_oracle_matches_jax():
+    from repro.kernels.ref import fused_matmul_rs_ref as jax_fused_ref
+    from repro_torch.kernels.ref import fused_matmul_rs_ref
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(4, 16, 6)).astype(np.float32)
+    w = rng.normal(size=(4, 6, 10)).astype(np.float32)
+    got = fused_matmul_rs_ref(torch.from_numpy(x), torch.from_numpy(w))
+    want = np.asarray(jax_fused_ref(jnp.asarray(x), jnp.asarray(w)))
+    assert got.shape == (4, 4, 10)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["multi_add", "matmul_tiled"])
+def test_new_cuda_wrappers_refuse_cpu_tensors(name):
+    """The launch wrappers take CUDA tensors only and count nothing when
+    they refuse."""
+    from repro_torch.kernels.matmul_tiled import matmul_tiled_cuda
+    from repro_torch.kernels.multi_add import multi_add
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        if name == "multi_add":
+            multi_add(torch.zeros(3, 8))
+        else:
+            matmul_tiled_cuda(torch.zeros(4, 8), torch.zeros(8, 2))
+    assert ops.launch_counts() == before
