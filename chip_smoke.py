@@ -42,7 +42,20 @@
    path and a sampled slice against a float64 product, and one backward
    through ``matmul_tiled``;
 9. NCCL phase, only with two or more cards: one ``ProcessGroupComm`` rank
-   per card repeats the float32 collective checks and the fused ring.
+   per card repeats the float32 collective checks and the fused ring;
+10. dense train phase: ``minicpm-2b`` at its published width and depth
+   (40 layers, bf16, random weights from ``--seed``), 5 WSD steps of
+   batch 2 x 4096 tokens through ``make_train_step``, every layer's
+   attention (forward and remat recompute) in the flash kernel: loss per
+   step, step time, tokens/s, peak memory, launch counts, one step
+   profiled;
+11. dense route check: one float32 train step of a 2-layer minicpm-2b at
+   full width (1 x 4096 tokens) through the flash kernel and through the
+   plain chunked attention, from the same weights and batch;
+12. dense prefill + decode: 2 x 4096-token prompts through ``prefill`` at
+   full depth (one flash launch per layer), the cache padded by 8
+   positions, 8 greedy ``decode_step``s, each step's logits held against
+   the teacher-forced forward.
 
 It exits non-zero, printing no result, without a GPU or outside a
 checkout of the repository.  The last lines are a JSON line of per-kernel
@@ -76,7 +89,11 @@ from repro_torch.data import DataConfig, SyntheticLMDataset  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.collectives import shardmap_impl as impl  # noqa: E402
 from repro_torch.kernels import selective_scan as ss  # noqa: E402
-from repro_torch.kernels.ref import (matmul_tiled_ref,  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_cuda)
+from repro_torch.kernels.ref import (FLASH_CHUNK,  # noqa: E402
+                                     flash_attention_bwd_ref,
+                                     flash_attention_ref, matmul_tiled_ref,
                                      multi_add_ref, paged_attention_ref,
                                      selective_scan_ref)
 from repro_torch.models import (decode_step_paged, forward_train,  # noqa
@@ -119,6 +136,43 @@ ROUTE = dict(layers=2, batch=2, seq=1024, lr=3e-4)
 DECODE = dict(batch=2, prompt=64, new_tokens=8)
 #: the scan kernels' timing shape: one layer of the train phase
 SCAN_TIMING = (2, 4096, 8192, 16)
+
+DENSE_ARCH = "minicpm-2b"
+#: minicpm-2b at its published width and depth, train_4k's sequence with
+#: the batch cut to 2, 5 steps of the WSD schedule launch/train.py picks
+#: for it, at the train CLI's default learning rate (at 1e-3, the SSM
+#: phase's, the loss rises over five steps on the plain attention route
+#: as on the kernel route: see ``--lr-witness``)
+DENSE_TRAIN = dict(layers=40, batch=2, seq=4096, steps=5, lr=3e-4)
+#: ``--lr-witness``: DENSE_TRAIN at the SSM phase's learning rate through
+#: the kernel route and the plain chunked route, from the same weights and
+#: batches
+WITNESS_LR = 1e-3
+#: kernel vs plain attention route: float32, 2 layers, one 4096 sequence
+DENSE_ROUTE = dict(layers=2, batch=1, seq=4096, lr=3e-4)
+#: prefill at full depth, then greedy decode into 8 positions of headroom
+DENSE_DECODE = dict(batch=2, prompt=4096, new_tokens=8, headroom=8)
+#: flash_attention's shapes (b, h, hkv, s, d, causal, window): the train
+#: phase's layer first (its timing shape), mistral-nemo-12b's GQA heads,
+#: and the local-attention window of recurrentgemma-9b (local_window's
+#: default, 2048) at minicpm-2b's heads
+FLASH_CASES = (("minicpm-2b train layer", 2, 36, 36, 4096, 64, True, None),
+               ("mistral-nemo-12b GQA 32/8", 1, 32, 8, 4096, 128, True,
+                None),
+               ("sliding window 2048", 2, 36, 36, 4096, 64, True, 2048))
+#: kernel vs plain lse (float32 sums of up to 4096 terms in other
+#: orders, lse of magnitude ~10): 1e-4 absolute
+LSE_TOL = 1e-4
+#: the bf16 kernel's output, element by element, against the plain
+#: version's float32 output: within one bf16 ulp of that output (rounding
+#: to bf16 takes half an ulp; the other half covers a value that crosses
+#: a power of two) plus O_FLOOR, which covers the float32 difference of
+#: the two sums (~1e-6) where the output is near 0
+O_FLOOR = 1e-5
+#: deliberate faults the bf16 check must reject, at the train shape
+FLASH_FAULTS = ("P rounded to bf16 before P V",
+                "key i dropped from row i (causal mask off by one)",
+                "first KV tile dropped for rows >= S/2")
 
 #: collective phase: ranks on the one card, bytes per rank (the latency
 #: regime, 256 KB, the trainer's default bucket_bytes, 64 MB), and every
@@ -835,6 +889,394 @@ def decode_phase(seed: int, rows: dict) -> None:
         f"teacher-forced forward max_abs_err {err:.3e} (tol 1e-3)")
 
 
+# ------------------------- flash attention ---------------------------- #
+def flash_case(b, h, hkv, s, d, dtype, seed):
+    """Normal q [b, h, s, d] and k, v [b, hkv, s, d] on the card."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            for shape in ((b, h, s, d), (b, hkv, s, d), (b, hkv, s, d))]
+
+
+def kept_pairs(s: int, causal: bool, window) -> int:
+    """(query, key) pairs of one head that the mask keeps."""
+    q = np.arange(s)
+    lo = np.zeros(s, np.int64) if window is None else \
+        np.maximum(q - window + 1, 0)
+    hi = q + 1 if causal else np.full(s, s)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def flash_bound(q, k, causal, window):
+    """(least ms, "bytes" | "operations") of one call: 4 D operations per
+    kept (query, key) pair and query head (Q K^T and P V) at the inputs'
+    type's peak; q, k, v read once, o and lse written once."""
+    b, h, s, d = q.shape
+    ops_ = 4 * d * kept_pairs(s, causal, window) * b * h
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() + 4 * b * h * s
+    t_ops = ops_ / PEAK_OPS_PER_S[q.dtype]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def sdpa(q, k, v, causal, window):
+    """Context only: one ``scaled_dot_product_attention`` call (GQA by
+    ``enable_gqa``; a window as a boolean mask)."""
+    mask = None
+    if window is not None:
+        s = q.shape[2]
+        i = torch.arange(s, device="cuda")
+        mask = (i[None, :] > i[:, None] - window)
+        if causal:
+            mask &= i[None, :] <= i[:, None]
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=k.shape[1] != q.shape[1])
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at the magnitude of each element (8 significant
+    bits)."""
+    e = torch.floor(torch.log2(x.abs().float().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def bf16_ratio(o: torch.Tensor, o_ref: torch.Tensor) -> float:
+    """The bf16 check: the largest |o - o_ref| / (bf16_ulp(o_ref) +
+    O_FLOOR) over the elements; it passes at 1 or less."""
+    return float(((o.float() - o_ref).abs()
+                  / (bf16_ulp(o_ref) + O_FLOOR)).max())
+
+
+def flash_faulty(q, k, v, fault: str) -> torch.Tensor:
+    """Causal attention with one head per KV head, as the plain version
+    computes it in float32, with one deliberate fault of FLASH_FAULTS;
+    the output rounded to q's dtype."""
+    s = q.shape[2]
+    qf, kf, vf = q.float() / q.shape[3] ** 0.5, k.float(), v.float()
+    keys = torch.arange(s, device=q.device)[None, :]
+    outs = []
+    for q0 in range(0, s, FLASH_CHUNK):
+        rows = torch.arange(q0, q0 + FLASH_CHUNK, device=q.device)[:, None]
+        keep = keys <= rows
+        if fault == FLASH_FAULTS[1]:
+            keep = (keys < rows) | (keys + rows == 0)
+        elif fault == FLASH_FAULTS[2]:
+            keep &= (rows < s // 2) | (keys >= 64)
+        logits = qf[:, :, q0:q0 + FLASH_CHUNK] @ kf.transpose(-1, -2)
+        p = torch.softmax(logits.masked_fill(~keep, float("-inf")), dim=-1)
+        if fault == FLASH_FAULTS[0]:
+            p = p.to(torch.bfloat16).float()
+        outs.append(p @ vf)
+    return torch.cat(outs, dim=2).to(q.dtype)
+
+
+def flash_kernel_phase(seed: int) -> dict:
+    """Row 4 of the kernel table: the flash kernel against its plain
+    version on the card (output and lse) at the train, GQA and window
+    shapes in bf16 and float32, timed beside its bound and one PyTorch
+    call; the bf16 check shown to reject deliberate faults; the gradient
+    of FlashAttentionFn against autograd through the plain version; the
+    plain backward timed at the train shape."""
+    err, main = 0.0, None
+    for i, (label, b, h, hkv, s, d, causal, window) in enumerate(
+            FLASH_CASES):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = flash_case(b, h, hkv, s, d, dtype, seed + 500 + i)
+            o, lse = flash_attention_cuda(q, k, v, causal, window)
+            torch.cuda.synchronize()
+            # float32 inputs hold the same values: the plain output before
+            # its cast to q's dtype
+            o_ref, lse_ref = flash_attention_ref(q.float(), k.float(),
+                                                 v.float(), causal, window)
+            torch.cuda.synchronize()
+            e_o = float((o.float() - o_ref).abs().max())
+            e_l = float((lse - lse_ref).abs().max())
+            if dtype == torch.bfloat16:
+                ratio = bf16_ratio(o, o_ref)
+                check = (f"o max |err| / (1 bf16 ulp of the float32 plain "
+                         f"output + {O_FLOOR:.0e}) {ratio:.4f} (tol 1) | o "
+                         f"max_abs_err {e_o:.3e}")
+                assert ratio <= 1.0 and e_l <= LSE_TOL, (label, dtype,
+                                                         ratio, e_l)
+            else:
+                check = f"o max_abs_err {e_o:.3e} (tol {TOL[dtype]:.0e})"
+                assert e_o <= TOL[dtype] and e_l <= LSE_TOL, (label, dtype,
+                                                              e_o, e_l)
+            if i == 0 and dtype == torch.bfloat16:
+                faults = {f: bf16_ratio(flash_faulty(q, k, v, f), o_ref)
+                          for f in FLASH_FAULTS}
+                assert min(faults.values()) > 1.0, faults
+                log(f"kernel flash_attention bf16 check vs deliberate "
+                    f"faults at the {label} shape: sound kernel {ratio:.4f}"
+                    f" | " + " | ".join(f"{f} {r:.1f}"
+                                        for f, r in faults.items())
+                    + " (each must exceed 1)")
+            del o, lse, o_ref, lse_ref
+            ms = time_ms(lambda: flash_attention_cuda(q, k, v, causal,
+                                                      window), reps=20)
+            lib_ms = time_ms(lambda: sdpa(q, k, v, causal, window), reps=20)
+            bound_ms, bound_by = flash_bound(q, k, causal, window)
+            err = max(err, e_o)
+            log(f"kernel flash_attention {label}: B={b} H={h} Hkv={hkv} "
+                f"S={s} D={d} causal={causal} window={window} "
+                f"{str(dtype).split('.')[-1]} | {check} | lse max_abs_err "
+                f"{e_l:.3e} (tol {LSE_TOL:.0e}) | kernel {ms:.4f} ms | "
+                f"bound {bound_ms:.4f} ms ({bound_by}) | "
+                f"{bound_ms / ms:.1%} of bound | sdpa "
+                f"{lib_ms:.4f} ms")
+            if main is None:
+                main = (q, k, v, causal, window, ms, lib_ms, bound_ms,
+                        bound_by)
+            else:
+                del q, k, v
+            torch.cuda.empty_cache()
+    q, k, v, causal, window, ms, lib_ms, bound_ms, bound_by = main
+    plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, causal, window),
+                       reps=5, warmup=1)
+    o, lse = flash_attention_cuda(q, k, v, causal, window)
+    do = torch.randn(q.shape, device="cuda").to(q.dtype)
+    bwd_ms = time_ms(lambda: flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                                     causal, window),
+                     reps=3, warmup=1)
+    log(f"kernel flash_attention timing ({FLASH_CASES[0][0]}, bf16): kernel "
+        f"{ms:.4f} ms | plain {plain_ms:.4f} ms (float32, query chunks of "
+        f"1024) | library {lib_ms:.4f} ms (scaled_dot_product_attention, "
+        f"is_causal) | bound {bound_ms:.4f} ms ({bound_by}; 989 TFLOP/s bf16 "
+        f"H100 SXM data sheet) | plain backward (flash_attention_bwd_ref, "
+        f"the train step's) {bwd_ms:.4f} ms")
+    del q, k, v, o, lse, do, main
+    torch.cuda.empty_cache()
+
+    # gradient: kernel forward + plain backward vs autograd of the plain
+    ins = flash_case(2, 8, 2, 512, 64, torch.float32, seed + 600)
+    g_out = torch.randn(ins[0].shape, device="cuda")
+    grads = {}
+    for route in ("kernel", "plain"):
+        leaves = [t.clone().requires_grad_() for t in ins]
+        out = (ops.flash_attention(*leaves, causal=True, window=None)
+               if route == "kernel"
+               else flash_attention_ref(*leaves, True, None)[0])
+        grads[route] = torch.autograd.grad(out, leaves, g_out)
+    g_err = max(_rel_err(a, b) for a, b in zip(grads["kernel"],
+                                               grads["plain"]))
+    assert g_err < 1e-4, g_err
+    log(f"flash_attention gradient (FlashAttentionFn: kernel forward, plain "
+        f"backward) vs autograd of the plain version, B=2 H=8 Hkv=2 S=512 "
+        f"D=64 float32: max over q, k, v of err / max|plain| {g_err:.3e} "
+        f"(tol 1e-4)")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:116",
+            "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms}
+
+
+# ------------------------- dense train phase --------------------------- #
+def dense_train_phase(seed: int, rows: dict) -> None:
+    cfg = with_layer_units(get_config(DENSE_ARCH), DENSE_TRAIN["layers"])
+    t0 = time.perf_counter()
+    state = init_train_state(init_params(cfg, seed=seed, device="cuda"))
+    torch.cuda.synchronize()
+    log(f"dense train {cfg.name}: {cfg.num_layers} of 40 layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads} heads x {cfg.resolved_head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}; "
+        f"{cfg.param_count() / 1e9:.3f}B params, random weights (seed "
+        f"{seed}) and AdamW state in {time.perf_counter() - t0:.1f} s")
+    steps = DENSE_TRAIN["steps"]
+    opt_cfg = AdamWConfig(lr=DENSE_TRAIN["lr"],
+                          warmup_steps=max(steps // 20, 1),
+                          total_steps=steps, schedule="wsd")
+    step_fn = make_train_step(cfg, opt_cfg)
+    batches = [lm_batch(cfg, DENSE_TRAIN["batch"], DENSE_TRAIN["seq"], i)
+               for i in range(steps + 1)]
+    tokens = DENSE_TRAIN["batch"] * DENSE_TRAIN["seq"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    ops.reset_launch_counts()
+    losses, walls = [], []
+    for i in range(steps):
+        state, metrics, loss, wall = timed_step(step_fn, state, batches[i])
+        losses.append(loss)
+        walls.append(wall)
+        log(f"dense train step {i}: loss {loss:.4f} | grad_norm "
+            f"{float(metrics['grad_norm']):.3f} | lr {metrics['lr']:.2e} | "
+            f"wall {wall * 1e3:.1f} ms | {tokens / wall:.1f} tok/s")
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], f"loss did not fall: {losses}"
+    want = dict.fromkeys(ops.WRAPPERS, 0)
+    want["flash_attention"] = 2 * cfg.num_layers * steps
+    assert counts == want, (counts, want)
+    rows["flash_attention"]["launches"] = counts["flash_attention"]
+    steady = float(np.median(walls[1:]))
+    log(f"dense train: {steps} steps of {DENSE_TRAIN['batch']} x "
+        f"{DENSE_TRAIN['seq']} tokens, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} | step wall median of steps 1-{steps - 1} "
+        f"{steady * 1e3:.1f} ms (step 0 {walls[0] * 1e3:.1f} ms) = "
+        f"{tokens / steady:.1f} tok/s | max_memory_allocated {peak_gb:.3f} GB")
+    log(f"dense train: flash_attention launches per step "
+        f"{counts['flash_attention'] // steps} (2 x {cfg.num_layers} layers: "
+        f"forward and remat)")
+    holder = {"state": state}
+
+    def one_step():
+        holder["state"], _ = step_fn(holder["state"], batches[steps])
+    log(f"profile of one dense train step (kernel route): "
+        f"{profile_step(one_step)}")
+
+
+def dense_lr_witness(seed: int) -> None:
+    """Whether the dense train phase's loss rise at a learning rate of
+    WITNESS_LR comes from the flash kernel: the same steps through the
+    kernel route and through the plain chunked route (use_kernel=False:
+    no kernel at all), from the same weights and batches."""
+    cfg = with_layer_units(get_config(DENSE_ARCH), DENSE_TRAIN["layers"])
+    steps = DENSE_TRAIN["steps"]
+    opt_cfg = AdamWConfig(lr=WITNESS_LR, warmup_steps=max(steps // 20, 1),
+                          total_steps=steps, schedule="wsd")
+    batches = [lm_batch(cfg, DENSE_TRAIN["batch"], DENSE_TRAIN["seq"], i)
+               for i in range(steps)]
+    for use_kernel in (True, False):
+        state = init_train_state(init_params(cfg, seed=seed, device="cuda"))
+        step_fn = make_train_step(cfg, opt_cfg, use_kernel=use_kernel)
+        torch.cuda.reset_peak_memory_stats()
+        losses, norms, walls = [], [], []
+        for batch in batches:
+            state, metrics, loss, wall = timed_step(step_fn, state, batch)
+            losses.append(loss)
+            norms.append(float(metrics["grad_norm"]))
+            walls.append(wall)
+        log(f"lr witness, {'kernel' if use_kernel else 'plain'} route, "
+            f"{cfg.num_layers} layers, lr {WITNESS_LR:.0e} (wsd): loss "
+            + " ".join(f"{x:.4f}" for x in losses) + " | grad_norm "
+            + " ".join(f"{x:.3f}" for x in norms) + f" | step wall median "
+            f"{float(np.median(walls)) * 1e3:.1f} ms | max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+        del state, step_fn
+        torch.cuda.empty_cache()
+
+
+def dense_route_phase(seed: int) -> None:
+    """One train step of a float32 2-layer minicpm-2b at full width
+    through the flash kernel and through the plain chunked attention,
+    from the same weights and batch; first the gradients themselves."""
+    cfg = dataclasses.replace(
+        with_layer_units(get_config(DENSE_ARCH), DENSE_ROUTE["layers"]),
+        dtype="float32")
+    opt_cfg = AdamWConfig(lr=DENSE_ROUTE["lr"], warmup_steps=1,
+                          total_steps=5, schedule="wsd")
+    batch = lm_batch(cfg, DENSE_ROUTE["batch"], DENSE_ROUTE["seq"], 0)
+    out = {}
+    for use_kernel in (True, False):
+        state = init_train_state(init_params(cfg, seed=seed, device="cuda"))
+        _, _, grads = value_and_grad(state.params, cfg, batch,
+                                     use_kernel=use_kernel)
+        step_fn = make_train_step(cfg, opt_cfg, use_kernel=use_kernel)
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        state, metrics, loss, wall = timed_step(step_fn, state, batch)
+        counts = ops.launch_counts()
+        want = dict.fromkeys(ops.WRAPPERS, 0)
+        if use_kernel:
+            want["flash_attention"] = 2 * cfg.num_layers
+        assert counts == want, (counts, want)
+        out[use_kernel] = (loss, float(metrics["grad_norm"]),
+                           tree_leaves(grads), tree_leaves(state.params))
+        log(f"dense route {'kernel' if use_kernel else 'plain '}: loss "
+            f"{loss:.6f} | grad_norm {out[use_kernel][1]:.6f} | step wall "
+            f"{wall * 1e3:.1f} ms | max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+        del state, step_fn, grads
+        torch.cuda.empty_cache()
+    (lk, nk, gk, pk), (lp, n_p, gp, pp) = out[True], out[False]
+    d_loss = abs(lk - lp) / abs(lp)
+    d_gnorm = abs(nk - n_p) / abs(n_p)
+    d_grad = max(_rel_err(a, b) for a, b in zip(gk, gp))
+    d_param = max(float((a - b).abs().max()) for a, b in zip(pk, pp))
+    # float32 throughout: the kernel and the chunked path sum the softmax
+    # in other orders (and the backward is the flash recomputation vs
+    # autograd of the chunk steps), ~1e-6 relative; the same bounds as
+    # the scan's route check
+    assert d_loss < 1e-4 and d_gnorm < 1e-4 and d_grad < 1e-4 \
+        and d_param < 1e-5, (d_loss, d_gnorm, d_grad, d_param)
+    log(f"dense route kernel vs plain ({cfg.num_layers} layers, float32, "
+        f"{DENSE_ROUTE['batch']} x {DENSE_ROUTE['seq']}): loss rel diff "
+        f"{d_loss:.3e} (tol 1e-4) | grad_norm rel diff {d_gnorm:.3e} (tol "
+        f"1e-4) | gradients, max over leaves of err / max|plain| "
+        f"{d_grad:.3e} (tol 1e-4) | params after the update max abs diff "
+        f"{d_param:.3e} (tol 1e-5)")
+
+
+def dense_decode_phase(seed: int) -> None:
+    """Prompts through ``prefill`` at full depth (the flash kernel in every
+    layer), the cache padded by 8 positions, then greedy decode steps,
+    each held against the teacher-forced forward."""
+    cfg = get_config(DENSE_ARCH)
+    params = init_params(cfg, seed=seed, device="cuda")
+    b, n_prompt = DENSE_DECODE["batch"], DENSE_DECODE["prompt"]
+    prompt = lm_batch(cfg, b, n_prompt, 1)["tokens"]
+    prefill_step = make_prefill_step(cfg)
+    decode_step = make_decode_step(cfg)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill_step(params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want = dict.fromkeys(ops.WRAPPERS, 0)
+    want["flash_attention"] = cfg.num_layers
+    assert counts == want, (counts, want)
+    pad = (0, 0, 0, 0, 0, DENSE_DECODE["headroom"])
+    cache = dict(cache, k=torch.nn.functional.pad(cache["k"], pad),
+                 v=torch.nn.functional.pad(cache["v"], pad))
+    steps, toks = [logits], []
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(DENSE_DECODE["new_tokens"]):
+        nxt = steps[-1][:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        toks.append(nxt)
+        logits, cache = decode_step(params, cache, {"tokens": nxt})
+        steps.append(logits)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    assert not any(ops.launch_counts().values()), ops.launch_counts()
+    del cache
+    # teacher forcing over prompt + generated tokens, filled up to a whole
+    # KV chunk (the chunked branch needs S % 1024 == 0); causal, so the
+    # filler changes no position before it
+    seq = torch.cat([prompt] + toks, dim=1)
+    fill = -seq.shape[1] % 1024
+    seq = torch.nn.functional.pad(seq, (0, fill))
+    with torch.no_grad():
+        full, _ = forward_train(params, cfg, {"tokens": seq})
+    got = torch.cat(steps, dim=1)
+    want_logits = full[:, n_prompt - 1:n_prompt + DENSE_DECODE["new_tokens"]]
+    del full
+    err = float((got - want_logits).abs().max())
+    # bf16 model: both sides round every GEMM output and the logits to
+    # bf16, in GEMMs of other shapes (M = 2 per decode step vs 2 x 5120);
+    # held to two bf16 ulps of the largest logit (ROADMAP C5's floor is
+    # one)
+    tol = 2 * float(bf16_ulp(want_logits.abs().max()))
+    assert torch.isfinite(got).all() and err <= tol, (err, tol)
+    log(f"dense prefill + decode ({cfg.num_layers} layers, {cfg.dtype}): "
+        f"prefill {b} x {n_prompt} tokens in {t_prefill * 1e3:.1f} ms "
+        f"(flash_attention launches {counts['flash_attention']}, one per "
+        f"layer) | cache padded by {DENSE_DECODE['headroom']} | "
+        f"{DENSE_DECODE['new_tokens']} greedy decode steps in "
+        f"{t_decode * 1e3:.1f} ms (no kernel: direct attention over the "
+        f"cache, as in the reference) | logits vs teacher-forced forward "
+        f"max_abs_err {err:.3e} (tol {tol:.3e}: 2 bf16 ulps of the largest "
+        f"logit)")
+
+
 # ---------------------- multi_add and matmul_tiled --------------------- #
 def _rel_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max()
@@ -1189,6 +1631,9 @@ def main(argv=None) -> int:
     ap.add_argument("--nccl-worker", nargs=3, metavar=("RANK", "WORLD",
                                                        "INIT"),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--lr-witness", action="store_true",
+                    help="run only the dense train steps at lr 1e-3 "
+                    "through the kernel and the plain attention route")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1205,12 +1650,16 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     built = build.build_all()
     log(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
+    if args.lr_witness:
+        dense_lr_witness(args.seed)
+        return 0
     for res in built.values():
         for line in res.log.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {res.name}: {line.strip()}")
     rows = {r["name"]: r for r in [kernel_phase(args.seed),
                                    *collective_kernel_phase(args.seed),
+                                   flash_kernel_phase(args.seed),
                                    *scan_kernel_phase(args.seed)]}
     torch.cuda.empty_cache()
     serve_phase(args.seed, rows["paged_attention"])
@@ -1219,6 +1668,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     route_phase(args.seed)
     decode_phase(args.seed, rows)
+    torch.cuda.empty_cache()
+    dense_train_phase(args.seed, rows)
+    torch.cuda.empty_cache()
+    dense_route_phase(args.seed)
+    torch.cuda.empty_cache()
+    dense_decode_phase(args.seed)
     torch.cuda.empty_cache()
     collective_phase(args.seed)
     torch.cuda.empty_cache()

@@ -33,6 +33,7 @@ SOURCES: Dict[str, tuple] = {
     "selective_scan": ("csrc/selective_scan.cu",),
     "multi_add": ("csrc/multi_add.cu",),
     "matmul_tiled": ("csrc/matmul_tiled.cu",),
+    "flash_attention": ("csrc/flash_attention.cu",),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -9,16 +9,18 @@ interpret mode the same way, in ``repro/kernels/ops.py``.)
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import matmul_tiled as _mt
 from repro_torch.kernels import multi_add as _ma
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import selective_scan as _ss
-from repro_torch.kernels.ref import (matmul_tiled_ref, multi_add_ref,
-                                     paged_attention_ref, selective_scan_ref)
+from repro_torch.kernels.ref import (flash_attention_ref, matmul_tiled_ref,
+                                     multi_add_ref, paged_attention_ref,
+                                     selective_scan_ref)
 
 #: every kernel wrapper with a launch count, by kernel name
 WRAPPERS = {"paged_attention": _pa.paged_attention,
@@ -26,7 +28,8 @@ WRAPPERS = {"paged_attention": _pa.paged_attention,
             "selective_scan_fwd_ckpt": _ss.selective_scan_fwd_ckpt,
             "selective_scan_bwd": _ss.selective_scan_bwd,
             "multi_add": _ma.multi_add,
-            "matmul_tiled": _mt.matmul_tiled_cuda}
+            "matmul_tiled": _mt.matmul_tiled_cuda,
+            "flash_attention": _fa.flash_attention_cuda}
 
 
 def multi_add(stacked: torch.Tensor) -> torch.Tensor:
@@ -44,6 +47,18 @@ def matmul_tiled(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return matmul_tiled_ref(x, w)
     return _mt.MatmulTiledFn.apply(x, w)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None
+                    ) -> torch.Tensor:
+    """Attention ``[B, H, S, D] x [B, Hkv, S, D] -> [B, H, S, D]`` with
+    GQA, causal masking and an optional sliding window; differentiable
+    (on a CUDA tensor the kernel forward with the plain flash backward,
+    on a CPU tensor autograd through the plain version)."""
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal, window)[0]
+    return _fa.FlashAttentionFn.apply(q, k, v, causal, window)
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -84,7 +99,8 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["WRAPPERS", "launch_counts", "matmul_tiled", "matmul_tiled_ref",
+__all__ = ["WRAPPERS", "flash_attention", "flash_attention_ref",
+           "launch_counts", "matmul_tiled", "matmul_tiled_ref",
            "multi_add", "multi_add_ref", "paged_attention",
            "paged_attention_ref", "reset_launch_counts", "selective_scan",
            "selective_scan_ref"]

@@ -9,7 +9,7 @@ against.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -79,6 +79,147 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     return out.to(q.dtype)
 
 
+#: the reference's attention chunk (``_KV_CHUNK`` of
+#: ``repro/models/layers.py``): the KV chunk of the plain chunked
+#: attention and the query and key chunk of the flash kernel's plain
+#: versions, which bounds their float32 logits to [B, H, 1024, S]
+#: (forward) and [B, H, 1024, 1024] (backward), never S x S
+FLASH_CHUNK = 1024
+
+
+def _flash_mask(q0: int, nq: int, k0: int, nk: int, causal: bool,
+                window: Optional[int], device) -> Optional[torch.Tensor]:
+    """[nq, nk] mask of the query rows q0.. and key columns k0.. (None:
+    nothing is masked)."""
+    if not causal and window is None:
+        return None
+    q_ids = torch.arange(q0, q0 + nq, device=device)[:, None]
+    k_ids = torch.arange(k0, k0 + nk, device=device)[None, :]
+    mask = torch.ones((nq, nk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= k_ids <= q_ids
+    if window is not None:
+        mask &= k_ids > q_ids - window
+    return mask
+
+
+def _pair_needed(q0: int, q1: int, k0: int, k1: int, causal: bool,
+                 window: Optional[int]) -> bool:
+    """Whether any (query in [q0, q1), key in [k0, k1)) pair is unmasked:
+    the Pallas kernel's tile skip (``flash_attention.py:45-50``)."""
+    needed = True
+    if causal:
+        needed &= k0 <= q1 - 1
+    if window is not None:
+        needed &= k1 - 1 > q0 - window
+    return needed
+
+
+def _grouped(q: torch.Tensor, hkv: int) -> torch.Tensor:
+    """[B, H, S, D] -> [B, Hkv, G, S, D]: query head h reads KV head
+    h // G, as the Pallas kernel's ``kv_index`` does."""
+    b, h, s, d = q.shape
+    return q.reshape(b, hkv, h // hkv, s, d)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Attention ``[B, H, S, D] x [B, Hkv, S, D] -> [B, H, S, D]`` with
+    GQA (H a multiple of Hkv), causal masking and an optional sliding
+    window, as ``repro/kernels/ref.py::flash_attention_ref``; also
+    returns the float32 row log-sum-exp ``lse`` [B, H, S] of the scaled
+    logits, which the backward needs.
+
+    Float32 throughout: q is cast, then scaled by 1/sqrt(D) (the Pallas
+    kernel's order), the output cast to q's dtype.  Query rows go in
+    chunks of ``FLASH_CHUNK`` against every key.  A row whose keys are
+    all masked gives output 0 and lse -inf (the Pallas ``_finalize``
+    guard).  Differentiable by autograd."""
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    scale = 1.0 / (d ** 0.5)
+    qg = _grouped(q, hkv).float() * scale               # [B, Hkv, G, S, D]
+    kf = k.float()[:, :, None]                          # [B, Hkv, 1, S, D]
+    vf = v.float()[:, :, None]
+    outs, lses = [], []
+    for q0 in range(0, s, FLASH_CHUNK):
+        nq = min(FLASH_CHUNK, s - q0)
+        logits = qg[:, :, :, q0:q0 + nq] @ kf.transpose(-1, -2)
+        mask = _flash_mask(q0, nq, 0, s, causal, window, q.device)
+        if mask is not None:
+            # a row with no key left keeps finite logits, so that neither
+            # lse nor its gradient is NaN; its probabilities are zeroed
+            live = mask.any(dim=-1, keepdim=True)
+            logits = logits.masked_fill(~mask & live, float("-inf"))
+        lse = torch.logsumexp(logits, dim=-1)
+        probs = torch.exp(logits - lse[..., None])
+        if mask is not None:
+            probs = probs.masked_fill(~mask, 0.0)
+            lse = lse.masked_fill(~live[:, 0], float("-inf"))
+        outs.append(probs @ vf)
+        lses.append(lse)
+    out = torch.cat(outs, dim=3).reshape(b, h, s, d)
+    return out.to(q.dtype), torch.cat(lses, dim=3).reshape(b, h, s)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            lse: torch.Tensor, do: torch.Tensor,
+                            causal: bool = True,
+                            window: Optional[int] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Gradients (dq, dk, dv), float32, of ``flash_attention_ref``'s
+    output from its saved output ``o`` and row log-sum-exp ``lse``.
+
+    The flash-attention backward in plain PyTorch: over (query chunk, key
+    chunk) pairs of ``FLASH_CHUNK``, skipping pairs the mask empties, it
+    recomputes ``P = exp(scale * Q K^T - lse)`` and accumulates
+    ``dV += P^T dO``, ``dS = P * (dO V^T - rowsum(dO * O))``,
+    ``dQ += scale * dS K`` and ``dK += scale * dS^T Q``, never holding
+    S x S: what autodiff of the reference's checkpointed chunk step
+    (``repro/models/layers.py::_chunked_attention``) computes.  dK and dV
+    sum over the query heads of each GQA group.  Rows with every key
+    masked (lse -inf) get zero gradient."""
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    scale = 1.0 / (d ** 0.5)
+    qg = _grouped(q, hkv).float()                       # [B, Hkv, G, S, D]
+    dog = _grouped(do, hkv).float()
+    kf, vf = k.float(), v.float()                       # [B, Hkv, S, D]
+    lse_g = lse.float().reshape(b, hkv, h // hkv, s)
+    delta = (dog * _grouped(o, hkv).float()).sum(-1)    # [B, Hkv, G, S]
+    dq = torch.zeros_like(qg)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    for q0 in range(0, s, FLASH_CHUNK):
+        q1 = min(q0 + FLASH_CHUNK, s)
+        qc = qg[:, :, :, q0:q1]
+        doc = dog[:, :, :, q0:q1]
+        lc = lse_g[:, :, :, q0:q1, None]
+        for k0 in range(0, s, FLASH_CHUNK):
+            k1 = min(k0 + FLASH_CHUNK, s)
+            if not _pair_needed(q0, q1, k0, k1, causal, window):
+                continue
+            kc = kf[:, :, None, k0:k1]                  # [B, Hkv, 1, c, D]
+            vc = vf[:, :, None, k0:k1]
+            logits = (qc @ kc.transpose(-1, -2)) * scale
+            keep = torch.isfinite(lc)
+            mask = _flash_mask(q0, q1 - q0, k0, k1 - k0, causal, window,
+                               q.device)
+            if mask is not None:
+                keep = keep & mask
+            p = torch.where(keep, torch.exp(logits - lc),
+                            torch.zeros_like(logits))
+            dv[:, :, k0:k1] += (p.transpose(-1, -2) @ doc).sum(2)
+            dp = doc @ vc.transpose(-1, -2)
+            ds = p * (dp - delta[:, :, :, q0:q1, None])
+            dq[:, :, :, q0:q1] += (ds @ kc) * scale
+            dk[:, :, k0:k1] += (ds.transpose(-1, -2) @ qc).sum(2) * scale
+    return dq.reshape(b, h, s, d), dk, dv
+
+
 def selective_scan_ref(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
                        c: torch.Tensor, a: torch.Tensor, h0: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -105,5 +246,6 @@ def selective_scan_ref(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
     return y.to(x.dtype), h
 
 
-__all__ = ["fused_matmul_rs_ref", "matmul_tiled_ref", "multi_add_ref",
+__all__ = ["FLASH_CHUNK", "flash_attention_bwd_ref", "flash_attention_ref",
+           "fused_matmul_rs_ref", "matmul_tiled_ref", "multi_add_ref",
            "paged_attention_ref", "selective_scan_ref"]

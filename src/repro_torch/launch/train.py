@@ -3,16 +3,21 @@ CUDA by default.
 
     python -m repro_torch.launch.train --arch falcon-mamba-7b --reduced \\
         --steps 20 --batch 4 --seq 128 --device cpu
+    python -m repro_torch.launch.train --arch minicpm-2b --reduced \\
+        --steps 5 --batch 4 --seq 64 --device cpu
 
-On a GPU the scan runs the hand-written kernels (forward with chunk
-checkpoints, recomputing backward); on the CPU, which runs only when
-asked for with ``--device cpu``, the plain chunked scan.  The flags are
-the reference CLI's single-device ones plus ``--device``; the weights
-are random from seed 0, as the reference's.  The SSM family trains
-here; the other families, data parallelism (``--dp``, ``--grad-sync``,
-``--fused``, ``--fabric``), expert parallelism, checkpoints and the
-observability flags are later slices of the port (ROADMAP.md A) and
-are not offered yet.
+On a GPU the hand-written kernels run: the SSM's scan (forward with
+chunk checkpoints, recomputing backward) and the dense family's
+attention over sequences longer than 2048 (the flash kernel); on the
+CPU, which runs only when asked for with ``--device cpu``, their plain
+chunked versions.  ``minicpm-2b`` trains with the WSD schedule, every
+other architecture with cosine, as in the reference.  The flags are the
+reference CLI's single-device ones plus ``--device``; the weights are
+random from seed 0, as the reference's.  The dense and SSM families
+train here; the other families, data parallelism (``--dp``,
+``--grad-sync``, ``--fused``, ``--fabric``), expert parallelism,
+checkpoints and the observability flags are later slices of the port
+(ROADMAP.md A) and are not offered yet.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
-"""Transformer primitives of the paged serving path: RMSNorm, rotary
-embeddings and the SwiGLU MLP (counterparts of the functions with the
-same names in ``repro/models/layers.py``).
+"""Transformer primitives: RMSNorm, rotary embeddings, GQA attention
+(direct and chunked) and the SwiGLU MLP (counterparts of the functions
+with the same names in ``repro/models/layers.py``).
 
 Conventions kept from the reference:
 
@@ -9,15 +9,34 @@ Conventions kept from the reference:
 * RoPE is the half-split form: the first and second halves of the head
   dimension form the rotated pairs (not interleaved even/odd lanes).
 
-The reference's sharding hints and its fused tensor-parallel
-down-projection have no counterpart: the port runs one device per
-process until the collective slices land.
+Attention keeps the reference's dispatch: a self-attention longer than
+``_CHUNK_THRESHOLD`` without ``kv_len`` takes the online-softmax chunked
+path, everything else (short sequences, decode over a cache) the direct
+one.  Where the reference's chunked path is the jnp twin of its Pallas
+flash kernel, the port's kernel route on a CUDA tensor calls that
+kernel's port (``kernels.ops.flash_attention``) on the unexpanded K/V;
+the plain route, and any CPU tensor, take ``_chunked_attention``,
+differentiated by autograd.
+
+The reference's sharding hints, its sequence-parallel flash decode and
+its fused tensor-parallel down-projection have no counterpart: the port
+runs one device per process until the collective slices land.
 """
 
 from __future__ import annotations
 
+from typing import Optional, Union
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import FLASH_CHUNK
+
+_CHUNK_THRESHOLD = 2048  # direct attention below this sequence length
+
+IntLike = Union[int, torch.Tensor]
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -51,9 +70,155 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def _repeat_kv(k: torch.Tensor, group: int) -> torch.Tensor:
+    if group == 1:
+        return k
+    return k.repeat_interleave(group, dim=1)
+
+
+def _direct_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool, window: Optional[int],
+                      q_offset: IntLike = 0,
+                      kv_len: Optional[IntLike] = None,
+                      probs_bf16: bool = False) -> torch.Tensor:
+    """q: [B, H, Sq, D]; k/v: [B, H, Skv, D] (already GQA-expanded).
+    The logits are the float32 product of the inputs (bf16 products are
+    exact in float32: the reference's native-dtype matmul with float32
+    accumulation)."""
+    _, _, sq, d = q.shape
+    skv = k.shape[2]
+    scale = 1.0 / (d ** 0.5)
+    logits = (q.float() @ k.float().transpose(-1, -2)) * scale
+    q_ids = q_offset + torch.arange(sq, device=q.device)[:, None]
+    k_ids = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_ids <= q_ids
+    if window is not None:
+        mask &= k_ids > q_ids - window
+    if kv_len is not None:
+        mask &= k_ids < kv_len
+    logits = logits.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    probs = torch.where(torch.isnan(probs), torch.zeros_like(probs), probs)
+    if probs_bf16:
+        # bf16 operands, float32 products and sums, a bf16 result
+        out = (probs.to(torch.bfloat16).float()
+               @ v.to(torch.bfloat16).float()).to(torch.bfloat16)
+    else:
+        out = probs @ v.float()
+    return out.to(q.dtype)
+
+
+def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool, window: Optional[int],
+                       chunk: int = FLASH_CHUNK,
+                       probs_bf16: bool = False) -> torch.Tensor:
+    """Online-softmax attention scanning KV chunks; never materialises
+    S x S logits.  q: [B, H, S, D]; k/v: [B, H, S, D] (GQA-expanded).
+
+    Under autograd each chunk step is checkpointed (non-reentrant
+    ``torch.utils.checkpoint``, the reference's ``jax.checkpoint``): the
+    backward recomputes the chunk's logits instead of saving them."""
+    b, h, s, d = q.shape
+    scale = 1.0 / (d ** 0.5)
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"chunked attention: sequence {s} is not a "
+                         f"multiple of the KV chunk {chunk}")
+    qf = q.float() * scale
+    q_ids = torch.arange(s, device=q.device)
+
+    def step(m, l, acc, k0: int, kb, vb):
+        k_ids = k0 + torch.arange(chunk, device=q.device)
+        logits = qf @ kb.float().transpose(-1, -2)
+        mask = torch.ones((s, chunk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= k_ids[None, :] <= q_ids[:, None]
+        if window is not None:
+            mask &= k_ids[None, :] > q_ids[:, None] - window
+        logits = logits.masked_fill(~mask, float("-inf"))
+        m_cur = logits.amax(dim=-1)
+        m_new = torch.maximum(m, m_cur)
+        safe_m = torch.where(torch.isfinite(m_new), m_new,
+                             torch.zeros_like(m_new))
+        p = torch.exp((logits - safe_m[..., None]).masked_fill(
+            ~mask, float("-inf")))
+        corr = torch.where(torch.isfinite(m), torch.exp(m - safe_m),
+                           torch.zeros_like(m))
+        l_new = l * corr + p.sum(dim=-1)
+        if probs_bf16:
+            pv = (p.to(torch.bfloat16).float()
+                  @ vb.to(torch.bfloat16).float()).to(torch.bfloat16).float()
+        else:
+            pv = p @ vb.float()
+        return m_new, l_new, acc * corr[..., None] + pv
+
+    m = torch.full((b, h, s), float("-inf"), device=q.device)
+    l = torch.zeros((b, h, s), device=q.device)
+    acc = torch.zeros((b, h, s, d), device=q.device)
+    for k0 in range(0, s, chunk):
+        args = (m, l, acc, k0, k[:, :, k0:k0 + chunk], v[:, :, k0:k0 + chunk])
+        if torch.is_grad_enabled():
+            m, l, acc = checkpoint(step, *args, use_reentrant=False)
+        else:
+            m, l, acc = step(*args)
+    l = torch.where(l == 0.0, torch.ones_like(l), l)
+    return (acc / l[..., None]).to(q.dtype)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: Optional[int] = None,
+              q_offset: IntLike = 0, kv_len: Optional[IntLike] = None,
+              probs_bf16: bool = False,
+              use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """GQA attention.  q: [B, Sq, H, D]; k/v: [B, Skv, Hkv, D].  Returns
+    [B, Sq, H, D].
+
+    ``use_kernel`` picks the chunked branch's route: the kernel route
+    (``True``, or ``None`` on a CUDA tensor) launches the flash kernel on
+    a CUDA tensor; the plain route (``False``, or ``None`` on the CPU) and
+    every CPU tensor take the plain chunked path.  The kernel does not
+    round the probabilities to bf16, so ``probs_bf16`` on the kernel
+    route raises."""
+    _, sq, h, _ = q.shape
+    hkv = k.shape[2]
+    group = h // hkv
+    qt = q.transpose(1, 2)                             # [B, H, Sq, D]
+    kt = k.transpose(1, 2)                             # [B, Hkv, Skv, D]
+    vt = v.transpose(1, 2)
+    skv = kt.shape[2]
+    if sq == skv and sq > _CHUNK_THRESHOLD and kv_len is None:
+        if sq % min(FLASH_CHUNK, sq):
+            raise ValueError(f"attention: sequence {sq} is not a multiple "
+                             f"of the KV chunk {FLASH_CHUNK}")
+        on_card = q.device.type == "cuda"
+        if use_kernel is None:
+            use_kernel = on_card
+        if use_kernel and probs_bf16:
+            raise NotImplementedError(
+                "attention: probs_bf16 rounds the probabilities to bf16 "
+                "before P V, which the flash kernel does not do; a kernel "
+                "variant for it is ROADMAP.md C11")
+        if use_kernel and on_card:
+            out = ops.flash_attention(qt, kt, vt, causal=causal,
+                                      window=window)
+        else:
+            out = _chunked_attention(qt, _repeat_kv(kt, group),
+                                     _repeat_kv(vt, group), causal, window,
+                                     probs_bf16=probs_bf16)
+    else:
+        out = _direct_attention(qt, _repeat_kv(kt, group),
+                                _repeat_kv(vt, group), causal, window,
+                                q_offset=q_offset, kv_len=kv_len,
+                                probs_bf16=probs_bf16)
+    return out.transpose(1, 2)
+
+
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
-__all__ = ["rms_norm", "rope_frequencies", "apply_rope", "swiglu"]
+__all__ = ["apply_rope", "attention", "rms_norm", "rope_frequencies",
+           "swiglu"]

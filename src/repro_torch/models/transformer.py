@@ -1,11 +1,14 @@
 """Model parameters and entry points (counterpart of
-``repro/models/transformer.py``): the dense decoder's parameters,
-embedding, unembedding and FFN sublayer, which the paged serving path
-runs (``models/paged.py``), and the Mamba SSM stack's three entry points
+``repro/models/transformer.py``) for the dense decoder and the Mamba SSM
+stack: parameters, embedding, unembedding and the FFN sublayer (which the
+paged serving path runs too, ``models/paged.py``), the dense decoder
+block, and the three entry points of both families
 
     forward_train(params, cfg, batch)              -> (logits, aux)
     prefill(params, cfg, batch)                    -> (logits, cache)
     decode_step(params, cfg, cache, batch)         -> (logits, cache)
+
+with ``init_cache`` for their decode caches.
 
 Parameters are a plain dictionary, as the reference's pytree, except
 that the layer stack is a Python list of per-layer dictionaries instead
@@ -18,13 +21,17 @@ of ``[L, ...]`` arrays stacked for ``lax.scan``::
             "layers": [{"ln", "in_proj", "conv_w", "x_proj", "dt_w",
                         "dt_b", "a_log", "d_skip", "out_proj"}, ...]}
 
-Training the dense family waits for the dense trainer (ROADMAP.md A.3);
-MoE, hybrid and encoder-decoder families are later slices too.
+``use_kernel`` (``None``: when the parameters live on a CUDA device)
+routes the dense family's long-sequence attention through the flash
+kernel and the SSM's scan through the scan kernels.  The dense decode
+cache is written in place: ``decode_step`` returns the cache tensors it
+was given, updated.  MoE, hybrid and encoder-decoder families are later
+slices of the port.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -32,7 +39,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import rms_norm, swiglu
+from repro_torch.models.layers import apply_rope, attention, rms_norm, swiglu
 
 Params = Dict[str, Any]
 
@@ -70,12 +77,21 @@ INIT_FAMILIES = ("dense", "ssm")
 
 
 def _not_ported(fn: str, cfg: ArchConfig) -> NotImplementedError:
-    later = {"dense": "the dense trainer (ROADMAP.md A.3)",
-             "moe": "the MoE slice (ROADMAP.md A.4)",
-             "hybrid": "the hybrid family (ROADMAP.md A.6)"}
+    later = {"moe": "the MoE slice (ROADMAP.md A.4)",
+             "hybrid": "the hybrid family (ROADMAP.md A.6)",
+             "encdec": "the encoder-decoder family (ROADMAP.md A.8)"}
     return NotImplementedError(
-        f"{fn}: the port covers the ssm family here; {cfg.family!r} waits "
-        f"for {later.get(cfg.family, 'a later slice (ROADMAP.md A)')}")
+        f"{fn}: the port covers families {INIT_FAMILIES}; {cfg.family!r} "
+        f"waits for {later.get(cfg.family, 'a later slice (ROADMAP.md A)')}")
+
+
+def kernel_route(params: Params, use_kernel: Optional[bool]) -> bool:
+    """``use_kernel``, or, when it is None, whether the parameters live
+    on a CUDA device: the kernels run on the card, their plain versions
+    on the CPU."""
+    if use_kernel is not None:
+        return use_kernel
+    return params["embed"].device.type == "cuda"
 
 
 def init_params(cfg: ArchConfig, seed: int = 0,
@@ -87,9 +103,7 @@ def init_params(cfg: ArchConfig, seed: int = 0,
     port against the reference on the same weights, convert them with
     ``repro_torch.convert.params_from_jax``."""
     if cfg.family not in INIT_FAMILIES:
-        raise NotImplementedError(
-            f"init_params: the port covers families {INIT_FAMILIES}, not "
-            f"{cfg.family!r}")
+        raise _not_ported("init_params", cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -136,6 +150,77 @@ def _ffn_sublayer(cfg: ArchConfig, x: torch.Tensor,
 
 
 # ====================================================================== #
+# the dense decoder: block, train / prefill / decode
+# ====================================================================== #
+KV = Tuple[torch.Tensor, torch.Tensor]
+
+
+def _attention_sublayer(cfg: ArchConfig, x: torch.Tensor, p: Params, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        pos: int = 0, cache_kv: Optional[KV] = None,
+                        use_kernel: Optional[bool] = None
+                        ) -> Tuple[torch.Tensor, KV]:
+    """Returns (attn_out, new (k, v)).  Without a cache: self-attention
+    over x, returning its rotated K and V.  With ``cache_kv`` (k, v)
+    [B, Smax, Hkv, hd]: x's K and V are written into the cache **in
+    place** at ``min(pos, Smax - S)`` (the reference's
+    ``dynamic_update_slice`` start: with no headroom a decode step
+    overwrites the last cached position), and x attends over the cache up
+    to ``pos + S``."""
+    b, s, _ = x.shape
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = (x @ p["wq"]).reshape(b, s, h, hd)
+    k = (x @ p["wk"]).reshape(b, s, kv, hd)
+    v = (x @ p["wv"]).reshape(b, s, kv, hd)
+    positions = pos + torch.arange(s, device=x.device)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    if cache_kv is None:
+        out = attention(q, k, v, causal=causal, window=window,
+                        probs_bf16=cfg.attn_probs_bf16,
+                        use_kernel=use_kernel)
+        new_kv = (k, v)
+    else:
+        ck, cv = cache_kv
+        write = min(pos, ck.shape[1] - s)
+        ck[:, write:write + s] = k.to(ck.dtype)
+        cv[:, write:write + s] = v.to(cv.dtype)
+        out = attention(q, ck, cv, causal=causal, window=window,
+                        q_offset=pos, kv_len=pos + s,
+                        probs_bf16=cfg.attn_probs_bf16,
+                        use_kernel=use_kernel)
+        new_kv = (ck, cv)
+    return out.reshape(b, s, h * hd) @ p["wo"], new_kv
+
+
+def _decoder_block(cfg: ArchConfig, x: torch.Tensor, p: Params, *,
+                   pos: int = 0, cache_kv: Optional[KV] = None,
+                   window: Optional[int] = None,
+                   use_kernel: Optional[bool] = None
+                   ) -> Tuple[torch.Tensor, KV, float]:
+    """Pre-norm attention + dense FFN; returns (out, new_kv, aux).  The
+    reference's ``grad_barrier`` and ``sp_residuals`` are sharding levers
+    (an optimization barrier on the TP all-reduce, a sequence-sharded
+    residual): on one device they change nothing, and are ignored."""
+    if cfg.family == "moe":
+        raise _not_ported("the MoE FFN", cfg)
+    a, new_kv = _attention_sublayer(
+        cfg, rms_norm(x, p["ln1"], cfg.norm_eps), p, causal=True,
+        window=window, pos=pos, cache_kv=cache_kv, use_kernel=use_kernel)
+    x = x + a
+    f = _ffn_sublayer(cfg, rms_norm(x, p["ln2"], cfg.norm_eps), p)
+    return x + f, new_kv, 0.0
+
+
+def _check_family(fn: str, cfg: ArchConfig, batch: Dict[str, Any]) -> None:
+    if cfg.family not in INIT_FAMILIES:
+        raise _not_ported(fn, cfg)
+    if batch.get("soft_emb") is not None:
+        raise NotImplementedError("vision soft tokens are not ported yet "
+                                  "(ROADMAP.md A.5)")
+
+
+# ====================================================================== #
 # the SSM stack: train / prefill / decode
 # ====================================================================== #
 def _ssm_layer(cfg: ArchConfig, h: torch.Tensor, lp: Params,
@@ -151,20 +236,23 @@ def _ssm_layer(cfg: ArchConfig, h: torch.Tensor, lp: Params,
 
 
 def forward_train(params: Params, cfg: ArchConfig, batch: Dict[str, Any],
-                  remat: bool = True, use_kernel: bool = False
+                  remat: bool = True, use_kernel: Optional[bool] = None
                   ) -> Tuple[torch.Tensor, float]:
     """Returns (logits [B, S, V], aux_loss).  ``remat`` checkpoints each
     layer (``torch.utils.checkpoint``, non-reentrant: the counterpart of
-    ``jax.checkpoint`` with ``nothing_saveable``); ``use_kernel`` routes
-    the scan through the fused kernel (``models/ssm.py``)."""
-    if cfg.family != "ssm":
-        raise _not_ported("forward_train", cfg)
-    if batch.get("soft_emb") is not None:
-        raise NotImplementedError("vision soft tokens are not ported yet")
+    ``jax.checkpoint`` with ``nothing_saveable``); ``use_kernel`` (None:
+    on a CUDA device) routes the dense family's chunked attention through
+    the flash kernel and the SSM's scan through the fused scan kernels."""
+    _check_family("forward_train", cfg, batch)
+    uk = kernel_route(params, use_kernel)
     x = _embed(params, cfg, batch["tokens"])
 
-    def layer(h, lp):
-        return _ssm_layer(cfg, h, lp, use_kernel)[0]
+    if cfg.family == "ssm":
+        def layer(h, lp):
+            return _ssm_layer(cfg, h, lp, uk)[0]
+    else:
+        def layer(h, lp):
+            return _decoder_block(cfg, h, lp, use_kernel=uk)[0]
 
     for lp in params["layers"]:
         if remat and torch.is_grad_enabled():
@@ -174,22 +262,53 @@ def forward_train(params: Params, cfg: ArchConfig, batch: Dict[str, Any],
     return _unembed(params, cfg, x), 0.0
 
 
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """Zeroed decode cache on ``device`` (default ``cuda``).  Dense:
+    per-layer K/V {"k", "v": [L, B, max_len, Hkv, hd]}; SSM: {"conv":
+    [L, B, K-1, di], "h": [L, B, di, N] float32}; both with "pos", an
+    int32 scalar on the CPU."""
+    if cfg.family not in INIT_FAMILIES:
+        raise _not_ported("init_cache", cfg)
+    dev = resolve_device(device)
+    dtype, n = cfg.activation_dtype, cfg.num_layers
+    pos = torch.zeros((), dtype=torch.int32)
+    if cfg.family == "ssm":
+        return {"conv": torch.zeros((n, batch, cfg.ssm_conv - 1, cfg.d_inner),
+                                    dtype=dtype, device=dev),
+                "h": torch.zeros((n, batch, cfg.d_inner, cfg.ssm_state),
+                                 dtype=torch.float32, device=dev),
+                "pos": pos}
+    shape = (n, batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev), "pos": pos}
+
+
 def prefill(params: Params, cfg: ArchConfig, batch: Dict[str, Any],
-            use_kernel: bool = False
+            use_kernel: Optional[bool] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Forward over a prompt, returning last-position logits [B, 1, V]
-    and the decode cache {"conv": [L, B, K-1, di], "h": [L, B, di, N],
-    "pos": int32 scalar}."""
-    if cfg.family != "ssm":
-        raise _not_ported("prefill", cfg)
+    and the decode cache: dense {"k", "v": [L, B, S, Hkv, hd]}, SSM
+    {"conv": [L, B, K-1, di], "h": [L, B, di, N]}, each with "pos" = S (an
+    int32 scalar on the CPU).  The dense cache is exactly the prompt's
+    length; to decode without overwriting its last position, pad it (the
+    reference's own test pads by 8)."""
+    _check_family("prefill", cfg, batch)
+    uk = kernel_route(params, use_kernel)
     x = _embed(params, cfg, batch["tokens"])
-    convs, hs = [], []
+    s = x.shape[1]
+    states = []
     for lp in params["layers"]:
-        x, st = _ssm_layer(cfg, x, lp, use_kernel)
-        convs.append(st.conv)
-        hs.append(st.h)
-    cache = {"conv": torch.stack(convs), "h": torch.stack(hs),
-             "pos": torch.tensor(x.shape[1], dtype=torch.int32)}
+        if cfg.family == "ssm":
+            x, st = _ssm_layer(cfg, x, lp, uk)
+            states.append((st.conv, st.h))
+        else:
+            x, kv, _ = _decoder_block(cfg, x, lp, use_kernel=uk)
+            states.append(kv)
+    names = ("conv", "h") if cfg.family == "ssm" else ("k", "v")
+    cache = {name: torch.stack([st[i] for st in states])
+             for i, name in enumerate(names)}
+    cache["pos"] = torch.tensor(s, dtype=torch.int32)
     return _unembed(params, cfg, x[:, -1:]), cache
 
 
@@ -197,21 +316,29 @@ def decode_step(params: Params, cfg: ArchConfig,
                 cache: Dict[str, torch.Tensor], batch: Dict[str, Any]
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token decode.  batch: {"tokens": [B, 1]}.  Returns (logits
-    [B, 1, V], new cache).  The single-step arithmetic, no kernel, as in
-    the reference."""
-    if cfg.family != "ssm":
-        raise _not_ported("decode_step", cfg)
+    [B, 1, V], new cache).  The plain single-step arithmetic, as in the
+    reference: the SSM's recurrence step; the dense direct attention over
+    the cache, whose K/V tensors are updated in place and returned in
+    the new cache."""
+    _check_family("decode_step", cfg, batch)
     x = _embed(params, cfg, batch["tokens"])
-    convs, hs = [], []
+    if cfg.family == "ssm":
+        convs, hs = [], []
+        for i, lp in enumerate(params["layers"]):
+            st = ssm_lib.SSMState(conv=cache["conv"][i], h=cache["h"][i])
+            x, st = _ssm_layer(cfg, x, lp, False, state=st,
+                               single_step=True)
+            convs.append(st.conv)
+            hs.append(st.h)
+        new_cache = {"conv": torch.stack(convs), "h": torch.stack(hs),
+                     "pos": cache["pos"] + 1}
+        return _unembed(params, cfg, x), new_cache
+    pos = int(cache["pos"])
     for i, lp in enumerate(params["layers"]):
-        st = ssm_lib.SSMState(conv=cache["conv"][i], h=cache["h"][i])
-        x, st = _ssm_layer(cfg, x, lp, False, state=st, single_step=True)
-        convs.append(st.conv)
-        hs.append(st.h)
-    new_cache = {"conv": torch.stack(convs), "h": torch.stack(hs),
-                 "pos": cache["pos"] + 1}
-    return _unembed(params, cfg, x), new_cache
+        x, _, _ = _decoder_block(cfg, x, lp, pos=pos,
+                                 cache_kv=(cache["k"][i], cache["v"][i]))
+    return _unembed(params, cfg, x), dict(cache, pos=cache["pos"] + 1)
 
 
 __all__ = ["INIT_FAMILIES", "Params", "decode_step", "forward_train",
-           "init_params", "prefill"]
+           "init_cache", "init_params", "kernel_route", "prefill"]

@@ -6,9 +6,13 @@ the counterpart of ``repro/train/step.py`` for one device.
 * remat: per-layer activation checkpointing, in the model;
 * microbatching: gradients accumulated in float32 over slices of the
   batch, then averaged, as the reference's scan over microbatches;
-* the scan route: ``use_kernel=None`` takes the fused scan kernels when
-  the parameters live on a CUDA device and the chunked plain scan on the
-  CPU, as the port's server picks its attention kernel;
+* the kernel route: ``use_kernel=None`` takes the hand-written kernels
+  when the parameters live on a CUDA device -- the fused scan kernels for
+  the SSM family, the flash-attention kernel for the dense family's
+  long-sequence attention -- and the plain chunked scan and chunked
+  attention on the CPU, as the port's server picks its attention kernel
+  (the reference's trainer runs the jnp twins of those kernels:
+  ROADMAP.md C6 and C9);
 * gradient sync through the paper's collectives (``grad_sync``) is the
   multi-rank slice (ROADMAP A.3): passing one raises.
 
@@ -45,7 +49,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
 
 
 def loss_fn(params: Any, cfg: ArchConfig, batch: Batch, remat: bool = True,
-            use_kernel: bool = False
+            use_kernel: Optional[bool] = None
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     model_inputs = {k: v for k, v in batch.items() if k != "labels"}
     logits, aux = tf.forward_train(params, cfg, model_inputs, remat=remat,
@@ -55,14 +59,8 @@ def loss_fn(params: Any, cfg: ArchConfig, batch: Batch, remat: bool = True,
     return loss, {"ce": ce, "aux": aux}
 
 
-def _kernel_route(params: Any, use_kernel: Optional[bool]) -> bool:
-    if use_kernel is not None:
-        return use_kernel
-    return tree_leaves(params)[0].device.type == "cuda"
-
-
 def value_and_grad(params: Any, cfg: ArchConfig, batch: Batch,
-                   remat: bool = True, use_kernel: bool = False
+                   remat: bool = True, use_kernel: Optional[bool] = None
                    ) -> Tuple[torch.Tensor, Dict[str, Any], Any]:
     """(loss, metrics, grads): ``jax.value_and_grad(loss_fn,
     has_aux=True)`` on the parameter tree; grads in the parameters'
@@ -101,7 +99,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
             "the multi-rank slice of the port (ROADMAP A.3)")
 
     def train_step(state: TrainState, batch: Batch):
-        uk = _kernel_route(state.params, use_kernel)
+        uk = tf.kernel_route(state.params, use_kernel)
         if microbatches == 1:
             loss, metrics, grads = value_and_grad(
                 state.params, cfg, batch, remat=remat, use_kernel=uk)
@@ -130,12 +128,12 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
 
 
 def make_prefill_step(cfg: ArchConfig):
-    """``prefill_step(params, batch) -> (logits, cache)``; the scan takes
-    the forward-only kernel on a CUDA device."""
+    """``prefill_step(params, batch) -> (logits, cache)``; on a CUDA
+    device the SSM's scan takes the forward-only kernel and the dense
+    family's long-prompt attention the flash kernel."""
     @torch.no_grad()
     def prefill_step(params, batch):
-        return tf.prefill(params, cfg, batch,
-                          use_kernel=_kernel_route(params, None))
+        return tf.prefill(params, cfg, batch)
     return prefill_step
 
 

@@ -14,7 +14,9 @@ tests/test_kernels.py bounds).  ``multi_add`` adds in the plain version's
 order, so it is held bitwise; ``matmul_tiled`` within 1e-5 (float32) and
 1e-2 (bfloat16, one bf16 ulp) of the plain product's max-abs.  The
 collective tests use integer-valued inputs (exact in any order); the NCCL
-test skips below two cards.
+test skips below two cards.  ``flash_attention`` within 2e-5 (float32)
+and 5e-2 (bfloat16) of its plain version, lse within 1e-4, and its
+gradient (plain backward) within 1e-4 of autograd's max-abs.
 """
 
 import dataclasses
@@ -545,3 +547,186 @@ def test_process_group_comm_over_nccl(cuda_device, tmp_path):
         world)
     for r in range(world):
         assert torch.equal(res[r]["fused"], local[r].cpu())
+
+
+# ---------------------------- flash attention --------------------------- #
+def _flash_inputs(b, h, hkv, s, d, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+            .to(dtype).to(device)
+            for shape in ((b, h, s, d), (b, hkv, s, d), (b, hkv, s, d))]
+
+
+FLASH_SHAPES = [
+    # (b, h, hkv, s, d, causal, window)
+    (2, 4, 4, 256, 64, True, None),
+    (1, 8, 2, 512, 128, True, None),      # GQA, head dim 128
+    (1, 4, 1, 256, 32, False, None),      # MQA, not causal
+    (2, 4, 2, 384, 64, True, 100),        # sliding window
+    (1, 4, 4, 320, 64, False, 64),        # window without the causal mask
+    (1, 2, 2, 128, 128, False, 0),        # the last row keeps no key
+    (1, 36, 36, 1024, 64, True, None),    # minicpm-2b heads
+    (2, 4, 2, 256, 16, True, None),       # the reduced configs' head dim
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,s,d,causal,window", FLASH_SHAPES)
+def test_flash_kernel_matches_plain(cuda_device, dtype, b, h, hkv, s, d,
+                                    causal, window):
+    """Output against the plain version's float32 output: float32 within
+    2e-5, bf16 element by element within one bf16 ulp plus 1e-5 (the
+    bound of chip_smoke.py's bf16 check); lse within 1e-4 (float32 sums
+    in another order); a row with no key gives zeros and lse -inf,
+    exactly as the plain version."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ref import flash_attention_ref
+    q, k, v = _flash_inputs(b, h, hkv, s, d, dtype, cuda_device)
+    ops.reset_launch_counts()
+    o, lse = flash_attention_cuda(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    o_ref, lse_ref = flash_attention_ref(q.float(), k.float(), v.float(),
+                                         causal, window)
+    assert o.dtype == dtype and o.shape == q.shape
+    assert torch.equal(torch.isinf(lse), torch.isinf(lse_ref))
+    live = torch.isfinite(lse_ref)
+    assert torch.all(o[~live] == 0)
+    torch.testing.assert_close(lse[live], lse_ref[live], rtol=1e-4,
+                               atol=1e-4)
+    if dtype == torch.bfloat16:
+        ulp = torch.exp2(torch.floor(torch.log2(
+            o_ref.abs().clamp_min(2.0 ** -126))) - 7)
+        excess = (o.float() - o_ref).abs() - (ulp + 1e-5)
+        assert float(excess.max()) <= 0.0, float(excess.max())
+    else:
+        torch.testing.assert_close(o, o_ref, rtol=TOL[dtype],
+                                   atol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_takes_strided_bshd_views(cuda_device, dtype):
+    """q, k, v seen as [B, H, S, D] views of [B, S, H, D] tensors (what
+    layers.attention passes): the same result as contiguous inputs, and
+    the output has q's strides, so that it is [B, S, H, D] back again."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    q, k, v = _flash_inputs(2, 8, 4, 256, 64, dtype, cuda_device, seed=3)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2)
+             for t in (q, k, v)]
+    o, lse = flash_attention_cuda(*views)
+    o2, lse2 = flash_attention_cuda(q, k, v)
+    assert o.stride() == views[0].stride()
+    assert o.transpose(1, 2).is_contiguous()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    dev = cuda_device
+    ok = _flash_inputs(1, 4, 2, 128, 64, torch.bfloat16, dev)
+    cases = [
+        ("a CPU tensor", [t.cpu() for t in ok], ValueError),
+        ("S not a multiple of 64",
+         _flash_inputs(1, 4, 2, 100, 64, torch.bfloat16, dev), ValueError),
+        ("head dim 48", _flash_inputs(1, 4, 2, 128, 48, torch.float32, dev),
+         ValueError),
+        ("head dim 256",
+         _flash_inputs(1, 2, 1, 128, 256, torch.bfloat16, dev), ValueError),
+        ("H not a multiple of Hkv",
+         _flash_inputs(1, 3, 2, 128, 64, torch.float32, dev), ValueError),
+        ("float16", [t.half() for t in ok], TypeError),
+        ("mixed dtypes", [ok[0], ok[1].float(), ok[2]], TypeError),
+        ("a strided last dimension",
+         [ok[0][..., ::2], ok[1][..., ::2], ok[2][..., ::2]], ValueError),
+        ("rows not 16-byte aligned",
+         [torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)[1:]
+          .view(t.shape) for t in ok], ValueError),
+    ]
+    for label, (q, k, v), exc in cases:
+        with pytest.raises(exc):
+            flash_attention_cuda(q, k, v)
+            pytest.fail(label)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal,window,hkv", [(True, None, 2),
+                                               (False, 96, 1),
+                                               (True, 80, 4)])
+def test_flash_fn_gradient_matches_autograd_of_plain(cuda_device, causal,
+                                                     window, hkv):
+    """FlashAttentionFn (kernel forward, plain flash backward) against
+    autograd through the plain version, float32: each gradient within
+    1e-4 of the plain gradient's max-abs."""
+    from repro_torch.kernels.ref import flash_attention_ref
+    ins = _flash_inputs(2, 4, hkv, 256, 64, torch.float32, cuda_device, 5)
+    do = torch.randn(ins[0].shape, device=cuda_device,
+                     generator=torch.Generator(cuda_device).manual_seed(1))
+    grads = {}
+    for route in ("kernel", "plain"):
+        leaves = [t.clone().requires_grad_() for t in ins]
+        out = (ops.flash_attention(*leaves, causal=causal, window=window)
+               if route == "kernel"
+               else flash_attention_ref(*leaves, causal, window)[0])
+        grads[route] = torch.autograd.grad(out, leaves, do)
+    for g, r in zip(grads["kernel"], grads["plain"]):
+        assert float((g - r).abs().max() / r.abs().max()) < 1e-4
+
+
+@pytest.mark.gpu
+def test_attention_chunked_branch_launches_the_kernel(cuda_device):
+    """layers.attention at S 4096 on a CUDA tensor: one kernel launch,
+    the same result as the plain chunked route (use_kernel=False, no
+    launch), and probs_bf16 refused on the kernel route."""
+    from repro_torch.models.layers import attention
+    q, k, v = [t.transpose(1, 2).contiguous() for t in _flash_inputs(
+        1, 4, 2, 4096, 64, torch.float32, cuda_device, seed=7)]
+    ops.reset_launch_counts()
+    got = attention(q, k, v)
+    assert ops.launch_counts()["flash_attention"] == 1
+    plain = attention(q, k, v, use_kernel=False)
+    assert ops.launch_counts()["flash_attention"] == 1
+    torch.testing.assert_close(got, plain, rtol=2e-5, atol=2e-5)
+    with pytest.raises(NotImplementedError, match="probs_bf16"):
+        attention(q, k, v, probs_bf16=True)
+
+
+@pytest.mark.gpu
+def test_reduced_dense_train_step_kernel_route_matches_plain(cuda_device):
+    """One train step of reduced float32 minicpm-2b at S 4096 through the
+    flash kernel and through the plain chunked attention: two launches a
+    layer (forward and the remat recompute), loss and gradient norm
+    within 1e-4 relative, every parameter within 1e-5."""
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.state import init_train_state
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(get_config("minicpm-2b").reduced(),
+                              dtype="float32")
+    batch = {k: torch.from_numpy(v).to(cuda_device) for k, v in
+             SyntheticLMDataset(DataConfig(cfg.vocab_size, 4096, 2))
+             .batch(0).items()}
+    out = {}
+    for use_kernel in (True, False):
+        state = init_train_state(init_params(cfg, seed=0,
+                                             device=cuda_device))
+        step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1,
+                                                total_steps=2,
+                                                schedule="wsd"),
+                               use_kernel=use_kernel)
+        ops.reset_launch_counts()
+        state, metrics = step(state, batch)
+        counts = ops.launch_counts()
+        out[use_kernel] = (metrics, tree_leaves(state.params))
+        want = dict.fromkeys(ops.WRAPPERS, 0)
+        if use_kernel:
+            want["flash_attention"] = 2 * cfg.num_layers
+        assert counts == want
+    (mk, pk), (mp, pp) = out[True], out[False]
+    for key in ("loss", "grad_norm"):
+        assert float(mk[key]) == pytest.approx(float(mp[key]), rel=1e-4)
+    for a_, b_ in zip(pk, pp):
+        torch.testing.assert_close(a_, b_, rtol=0, atol=1e-5)
