@@ -11,6 +11,9 @@
    stated tolerances, and timed (CUDA events, L2 flushed before each
    launch, median) beside the least time the card could take (H100 SXM
    data-sheet rates; the SMs' exponential rate for the scans);
+   ``matmul_tiled`` and ``flash_attention`` show which variant each case
+   ran (the TMA + wgmma one for bf16 at aligned shapes / D 64 and 128),
+   and the earlier kernel is timed beside the new one at the main shape;
 3. serve phase: ``minicpm-2b`` at its published width (40 layers, bf16,
    random weights from ``--seed``) through ``ContinuousBatchingServer``:
    16 requests over 4 shared system prompts, 64 greedy tokens each.  The
@@ -38,7 +41,8 @@
 8. fused ring phase: ``fused_matmul_reduce_scatter`` for the TP-8
    down-projection of ``yi-34b`` at its published widths (d_ff 20480,
    d_model 7168, batch 2 x 4096 tokens, bf16) on 8 local ranks: 64
-   ``matmul_tiled`` launches, each rank's block against the gathered
+   ``matmul_tiled`` launches, all of the wgmma variant, each rank's block
+   against the gathered
    path and a sampled slice against a float64 product, and one backward
    through ``matmul_tiled``;
 9. NCCL phase, only with two or more cards: one ``ProcessGroupComm`` rank
@@ -46,14 +50,14 @@
 10. dense train phase: ``minicpm-2b`` at its published width and depth
    (40 layers, bf16, random weights from ``--seed``), 5 WSD steps of
    batch 2 x 4096 tokens through ``make_train_step``, every layer's
-   attention (forward and remat recompute) in the flash kernel: loss per
-   step, step time, tokens/s, peak memory, launch counts, one step
-   profiled;
+   attention (forward and remat recompute) in the flash kernel's wgmma
+   variant: loss per step, step time, tokens/s, peak memory, launch
+   counts, one step profiled;
 11. dense route check: one float32 train step of a 2-layer minicpm-2b at
    full width (1 x 4096 tokens) through the flash kernel and through the
    plain chunked attention, from the same weights and batch;
 12. dense prefill + decode: 2 x 4096-token prompts through ``prefill`` at
-   full depth (one flash launch per layer), the cache padded by 8
+   full depth (one wgmma flash launch per layer), the cache padded by 8
    positions, 8 greedy ``decode_step``s, each step's logits held against
    the teacher-forced forward.
 
@@ -90,7 +94,9 @@ from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.collectives import shardmap_impl as impl  # noqa: E402
 from repro_torch.kernels import selective_scan as ss  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention_cuda)
+    flash_attention_cuda, flash_variant)
+from repro_torch.kernels.matmul_tiled import (  # noqa: E402
+    matmul_tiled_cuda, matmul_variant)
 from repro_torch.kernels.ref import (FLASH_CHUNK,  # noqa: E402
                                      flash_attention_bwd_ref,
                                      flash_attention_ref, matmul_tiled_ref,
@@ -163,6 +169,9 @@ FLASH_CASES = (("minicpm-2b train layer", 2, 36, 36, 4096, 64, True, None),
 #: kernel vs plain lse (float32 sums of up to 4096 terms in other
 #: orders, lse of magnitude ~10): 1e-4 absolute
 LSE_TOL = 1e-4
+#: the bf16 gradient check through the wgmma forward: 4 bf16 ulps of the
+#: largest gradient
+BF16_GRAD_TOL = 2.0 ** -6
 #: the bf16 kernel's output, element by element, against the plain
 #: version's float32 output: within one bf16 ulp of that output (rounding
 #: to bf16 takes half an ulp; the other half covers a value that crosses
@@ -977,15 +986,20 @@ def flash_kernel_phase(seed: int) -> dict:
     version on the card (output and lse) at the train, GQA and window
     shapes in bf16 and float32, timed beside its bound and one PyTorch
     call; the bf16 check shown to reject deliberate faults; the gradient
-    of FlashAttentionFn against autograd through the plain version; the
-    plain backward timed at the train shape."""
+    of FlashAttentionFn against autograd through the plain version in
+    float32, and in bf16 (the wgmma forward) against the plain backward;
+    the plain backward timed at the train shape."""
     err, main = 0.0, None
     for i, (label, b, h, hkv, s, d, causal, window) in enumerate(
             FLASH_CASES):
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = flash_case(b, h, hkv, s, d, dtype, seed + 500 + i)
+            variant = flash_variant(dtype, d)
+            ops.reset_launch_counts()
             o, lse = flash_attention_cuda(q, k, v, causal, window)
             torch.cuda.synchronize()
+            assert ops.variant_launch_counts()["flash_attention"][
+                variant] == 1, (label, variant)
             # float32 inputs hold the same values: the plain output before
             # its cast to q's dtype
             o_ref, lse_ref = flash_attention_ref(q.float(), k.float(),
@@ -1021,7 +1035,8 @@ def flash_kernel_phase(seed: int) -> dict:
             err = max(err, e_o)
             log(f"kernel flash_attention {label}: B={b} H={h} Hkv={hkv} "
                 f"S={s} D={d} causal={causal} window={window} "
-                f"{str(dtype).split('.')[-1]} | {check} | lse max_abs_err "
+                f"{str(dtype).split('.')[-1]}, variant {variant} | {check} "
+                f"| lse max_abs_err "
                 f"{e_l:.3e} (tol {LSE_TOL:.0e}) | kernel {ms:.4f} ms | "
                 f"bound {bound_ms:.4f} ms ({bound_by}) | "
                 f"{bound_ms / ms:.1%} of bound | sdpa "
@@ -1035,14 +1050,20 @@ def flash_kernel_phase(seed: int) -> dict:
     q, k, v, causal, window, ms, lib_ms, bound_ms, bound_by = main
     plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, causal, window),
                        reps=5, warmup=1)
+    # the earlier kernel (mma.sync, 64-row tiles) at the same shape
+    old_ms = time_ms(lambda: flash_attention_cuda(q, k, v, causal, window,
+                                                  variant="mma_sync"),
+                     reps=20)
     o, lse = flash_attention_cuda(q, k, v, causal, window)
     do = torch.randn(q.shape, device="cuda").to(q.dtype)
     bwd_ms = time_ms(lambda: flash_attention_bwd_ref(q, k, v, o, lse, do,
                                                      causal, window),
                      reps=3, warmup=1)
     log(f"kernel flash_attention timing ({FLASH_CASES[0][0]}, bf16): kernel "
-        f"{ms:.4f} ms | plain {plain_ms:.4f} ms (float32, query chunks of "
-        f"1024) | library {lib_ms:.4f} ms (scaled_dot_product_attention, "
+        f"{ms:.4f} ms (wgmma variant) | the mma_sync variant (the earlier "
+        f"kernel) {old_ms:.4f} ms | plain {plain_ms:.4f} ms (float32, query "
+        f"chunks of 1024) | library {lib_ms:.4f} ms "
+        f"(scaled_dot_product_attention, "
         f"is_causal) | bound {bound_ms:.4f} ms ({bound_by}; 989 TFLOP/s bf16 "
         f"H100 SXM data sheet) | plain backward (flash_attention_bwd_ref, "
         f"the train step's) {bwd_ms:.4f} ms")
@@ -1066,10 +1087,33 @@ def flash_kernel_phase(seed: int) -> dict:
         f"backward) vs autograd of the plain version, B=2 H=8 Hkv=2 S=512 "
         f"D=64 float32: max over q, k, v of err / max|plain| {g_err:.3e} "
         f"(tol 1e-4)")
+
+    # the same in bf16 through the wgmma forward, which the bf16 train step
+    # runs: FlashAttentionFn against the plain backward fed the plain
+    # forward's o and lse.  The routes differ only in o (each element within
+    # 1.5 bf16 ulps) and lse (LSE_TOL), and each rounds its gradients to
+    # bf16: 4 bf16 ulps of the largest gradient
+    ins = flash_case(2, 8, 2, 512, 64, torch.bfloat16, seed + 601)
+    g_out = torch.randn(ins[0].shape, device="cuda").to(torch.bfloat16)
+    leaves = [t.clone().requires_grad_() for t in ins]
+    ops.reset_launch_counts()
+    got = torch.autograd.grad(
+        ops.flash_attention(*leaves, causal=True, window=None), leaves, g_out)
+    assert ops.variant_launch_counts()["flash_attention"] == {
+        "simt_f32": 0, "mma_sync": 0, "wgmma": 1}
+    o_ref, lse_ref = flash_attention_ref(*ins, True, None)
+    want = flash_attention_bwd_ref(*ins, o_ref, lse_ref, g_out, True, None)
+    g16_err = max(_rel_err(a, b.to(torch.bfloat16))
+                  for a, b in zip(got, want))
+    assert g16_err <= BF16_GRAD_TOL, g16_err
+    log(f"flash_attention gradient in bf16 (FlashAttentionFn: wgmma forward, "
+        f"plain backward) vs the plain backward from the plain forward's o "
+        f"and lse, B=2 H=8 Hkv=2 S=512 D=64: max over q, k, v of err / "
+        f"max|plain| {g16_err:.3e} (tol {BF16_GRAD_TOL:.3e}: 4 bf16 ulps)")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:116",
-            "launches": 0, "max_abs_err": err, "ms": ms,
+            "variant": "wgmma", "launches": 0, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib_ms}
 
@@ -1113,6 +1157,9 @@ def dense_train_phase(seed: int, rows: dict) -> None:
     want = dict.fromkeys(ops.WRAPPERS, 0)
     want["flash_attention"] = 2 * cfg.num_layers * steps
     assert counts == want, (counts, want)
+    variants = ops.variant_launch_counts()["flash_attention"]
+    assert variants == {"simt_f32": 0, "mma_sync": 0,
+                        "wgmma": want["flash_attention"]}, variants
     rows["flash_attention"]["launches"] = counts["flash_attention"]
     steady = float(np.median(walls[1:]))
     log(f"dense train: {steps} steps of {DENSE_TRAIN['batch']} x "
@@ -1122,7 +1169,7 @@ def dense_train_phase(seed: int, rows: dict) -> None:
         f"{tokens / steady:.1f} tok/s | max_memory_allocated {peak_gb:.3f} GB")
     log(f"dense train: flash_attention launches per step "
         f"{counts['flash_attention'] // steps} (2 x {cfg.num_layers} layers: "
-        f"forward and remat)")
+        f"forward and remat), every one the wgmma variant")
     holder = {"state": state}
 
     def one_step():
@@ -1233,6 +1280,9 @@ def dense_decode_phase(seed: int) -> None:
     want = dict.fromkeys(ops.WRAPPERS, 0)
     want["flash_attention"] = cfg.num_layers
     assert counts == want, (counts, want)
+    variants = ops.variant_launch_counts()["flash_attention"]
+    assert variants == {"simt_f32": 0, "mma_sync": 0,
+                        "wgmma": cfg.num_layers}, variants
     pad = (0, 0, 0, 0, 0, DENSE_DECODE["headroom"])
     cache = dict(cache, k=torch.nn.functional.pad(cache["k"], pad),
                  v=torch.nn.functional.pad(cache["v"], pad))
@@ -1269,7 +1319,7 @@ def dense_decode_phase(seed: int) -> None:
     log(f"dense prefill + decode ({cfg.num_layers} layers, {cfg.dtype}): "
         f"prefill {b} x {n_prompt} tokens in {t_prefill * 1e3:.1f} ms "
         f"(flash_attention launches {counts['flash_attention']}, one per "
-        f"layer) | cache padded by {DENSE_DECODE['headroom']} | "
+        f"layer, all wgmma) | cache padded by {DENSE_DECODE['headroom']} | "
         f"{DENSE_DECODE['new_tokens']} greedy decode steps in "
         f"{t_decode * 1e3:.1f} ms (no kernel: direct attention over the "
         f"cache, as in the reference) | logits vs teacher-forced forward "
@@ -1327,8 +1377,12 @@ def collective_kernel_phase(seed: int) -> list:
         x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
         w = (torch.randn((k, n), generator=gen, device="cuda")
              / math.sqrt(k)).to(dtype)
+        variant = matmul_variant(dtype, k, n, x.data_ptr(), w.data_ptr())
+        ops.reset_launch_counts()
         got = ops.matmul_tiled(x, w)
         torch.cuda.synchronize()
+        assert ops.variant_launch_counts()["matmul_tiled"][variant] == 1, \
+            (label, variant)
         want = matmul_tiled_ref(x, w)
         err = _rel_err(got, want)
         assert err <= MM_TOL[dtype], (label, err)
@@ -1340,23 +1394,34 @@ def collective_kernel_phase(seed: int) -> list:
         bound_ms = max(t_ops, t_bytes) * 1e3
         bound_by = "operations" if t_ops >= t_bytes else "bytes"
         log(f"kernel matmul_tiled {label}: [{m}, {k}] @ [{k}, {n}] "
-            f"{str(dtype).split('.')[-1]} | err / max|plain| {err:.3e} (tol "
+            f"{str(dtype).split('.')[-1]}, variant {variant} | err / "
+            f"max|plain| {err:.3e} (tol "
             f"{MM_TOL[dtype]:.0e}) | kernel {ms:.4f} ms | bound "
             f"{bound_ms:.4f} ms ({bound_by}) | {bound_ms / ms:.1%} of bound "
             f"| {2 * m * n * k / ms / 1e9:.1f} TFLOP/s")
+        if dtype == torch.float32:
+            log(f"kernel matmul_tiled {label}: library "
+                f"{time_ms(lambda: torch.matmul(x, w), reps=20):.4f} ms "
+                f"(torch.matmul in float32, TF32 off)")
         if mm_main is None:
             mm_main = (x, w, ms, bound_ms, bound_by)
     x, w, ms, bound_ms, bound_by = mm_main
+    # the earlier kernel (WMMA, cp.async) at the same shape
+    ms_wmma = time_ms(lambda: matmul_tiled_cuda(x, w, variant="wmma_masked"),
+                      reps=20)
     mm_row = {"name": "matmul_tiled", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/matmul_tiled.cu",
               "replaces": "src/repro/kernels/fused_matmul_rs.py:72",
-              "launches": 0, "max_abs_err": mm_err, "ms": ms,
+              "variant": "wgmma", "launches": 0, "max_abs_err": mm_err,
+              "ms": ms,
               "plain_ms": time_ms(lambda: matmul_tiled_ref(x, w), reps=20),
               "bound_ms": bound_ms, "bound_by": bound_by,
               "library_ms": time_ms(lambda: torch.matmul(x, w), reps=20)}
     log(f"kernel matmul_tiled timing ({MATMUL_CASES[0][0]}): kernel {ms:.4f} "
-        f"ms | plain {mm_row['plain_ms']:.4f} ms (float32 product, cast) | "
-        f"library {mm_row['library_ms']:.4f} ms (torch.matmul in bf16, "
+        f"ms (wgmma variant, 128 x 256 tiles) | the wmma_masked variant (the "
+        f"earlier kernel) "
+        f"{ms_wmma:.4f} ms | plain {mm_row['plain_ms']:.4f} ms (float32 "
+        f"product, cast) | library {mm_row['library_ms']:.4f} ms (torch.matmul in bf16, "
         f"cuBLAS) | bound {bound_ms:.4f} ms ({bound_by})")
     return [ma_row, mm_row]
 
@@ -1507,6 +1572,9 @@ def fused_phase(seed: int, rows: dict) -> None:
     want_counts = dict.fromkeys(ops.WRAPPERS, 0)
     want_counts["matmul_tiled"] = tp * tp
     assert counts == want_counts, (counts, want_counts)
+    variants = ops.variant_launch_counts()["matmul_tiled"]
+    assert variants == {"simt_f32": 0, "wmma_masked": 0,
+                        "wgmma": tp * tp}, variants
     rows["matmul_tiled"]["launches"] = counts["matmul_tiled"]
     # multi_add is on no path of the port, as on none of the reference's
     # (only repro/kernels/ops.py and its tests call it): its row reads 0
@@ -1525,7 +1593,8 @@ def fused_phase(seed: int, rows: dict) -> None:
     err64 = _rel_err(got[0][rows_s], exact)
     assert max(errs) <= FUSED_TOL and err64 <= FUSED_TOL, (errs, err64)
     log(f"fused ring on {tp} LocalComm ranks: {counts['matmul_tiled']} "
-        f"matmul_tiled launches ({tp} per rank) | per-rank block vs the "
+        f"matmul_tiled launches ({tp} per rank, all wgmma) | per-rank block "
+        f"vs the "
         f"gathered path (float32 GEMM + reduce-scatter), err / max-abs: max "
         f"{max(errs):.3e} | rank 0 rows 0-{rows_s.stop - 1} vs float64: "
         f"{err64:.3e} (tol "
@@ -1654,9 +1723,12 @@ def main(argv=None) -> int:
         dense_lr_witness(args.seed)
         return 0
     for res in built.values():
+        entry = "?"
         for line in res.log.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {res.name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif "registers" in line or "spill" in line:
+                log(f"ptxas {res.name} {entry}: {line.strip()}")
     rows = {r["name"]: r for r in [kernel_phase(args.seed),
                                    *collective_kernel_phase(args.seed),
                                    flash_kernel_phase(args.seed),

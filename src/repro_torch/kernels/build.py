@@ -6,6 +6,8 @@ the wrapper loads with ``ctypes``; no PyTorch headers are involved, so
 a build takes seconds.  Libraries go to ``build/`` at the repository
 root (listed in ``.gitignore``), named by a hash of their sources and
 flags, so a changed source is rebuilt and an unchanged one is reused.
+A source's local headers (``HEADERS``) are part of that hash, though
+they are not passed to ``nvcc`` (the source includes them).
 
 ``nvcc`` is looked up in ``$CUDA_HOME/bin``, ``/usr/local/cuda/bin`` and
 ``PATH``; without it, building raises.  Nothing here runs at import.
@@ -36,8 +38,22 @@ SOURCES: Dict[str, tuple] = {
     "flash_attention": ("csrc/flash_attention.cu",),
 }
 
+#: kernel name -> the local headers its sources include, relative to this
+#: directory (hashed with the sources, not compiled on their own)
+HEADERS: Dict[str, tuple] = {
+    "matmul_tiled": ("csrc/hopper.cuh",),
+    "flash_attention": ("csrc/hopper.cuh",),
+}
+
+#: No -lcuda: the TMA kernels fetch cuTensorMapEncodeTiled from the driver
+#: through the runtime (cudaGetDriverEntryPoint, csrc/hopper.cuh)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: csrc/hopper.cuh's kEncodeError: a C entry point's return code at or
+#: above it is cuTensorMapEncodeTiled's CUresult plus this; below it, a
+#: cudaError_t
+ENCODE_ERROR = 1 << 20
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -68,7 +84,7 @@ def find_nvcc() -> str:
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for rel in SOURCES[name]:
+    for rel in SOURCES[name] + HEADERS.get(name, ()):
         digest.update((_PKG / rel).read_bytes())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
@@ -115,6 +131,17 @@ def build_all(names: Optional[Iterable[str]] = None
     return results
 
 
+def check_launch(kernel: str, err: int) -> None:
+    """Raise if a C entry point returned an error: a refused launch, a
+    fault it reported, or a tensor map it could not encode."""
+    if err >= ENCODE_ERROR:
+        raise RuntimeError(f"{kernel}: cuTensorMapEncodeTiled failed with "
+                           f"CUresult {err - ENCODE_ERROR}")
+    if err:
+        raise RuntimeError(f"{kernel}: kernel launch failed with "
+                           f"cudaError_t {err}")
+
+
 def load(name: str) -> ctypes.CDLL:
     """The kernel's shared library, built on first use and loaded once
     per process."""
@@ -125,5 +152,5 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-__all__ = ["BUILD_DIR", "SOURCES", "BuildResult", "build_all",
-           "find_nvcc", "library_path", "load"]
+__all__ = ["BUILD_DIR", "ENCODE_ERROR", "HEADERS", "SOURCES", "BuildResult",
+           "build_all", "check_launch", "find_nvcc", "library_path", "load"]

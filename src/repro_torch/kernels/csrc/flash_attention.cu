@@ -19,12 +19,32 @@
 // (batch, head), 154.6 GFLOP, 0.156 ms at the tensor cores' 989 TFLOP/s,
 // against 151 MB of inputs and outputs (45 us at 3.35 TB/s).
 //
-// Design (a first kernel: simple and right; wgmma, TMA and a persistent
-// schedule are later work):
-//  * one thread block per (query tile of 64 rows, batch x head); a loop
-//    inside the block walks the needed KV tiles (the TPU grid's sequential
-//    KV axis); the causal tiles with the most work are launched first;
-//  * bfloat16 inputs (flash_fwd_bf16): 4 warps, 16 query rows each.  K and
+// Design: one thread block per (query tile, batch x head); a loop inside
+// the block walks the needed KV tiles (the TPU grid's sequential KV axis);
+// the causal tiles with the most work are launched first.  Three
+// variants, chosen by the caller:
+//  * wgmma (bfloat16, D 64 or 128; flash_fwd_wgmma), after FlashAttention-3:
+//    128-row query tiles and KV tiles of 64 keys, warp-specialised.  A
+//    producer warpgroup gives up its registers (setmaxnreg) and one of its
+//    threads loads Q once, then K and V tiles by TMA (rank-4 tensor maps
+//    (D, S, H, B) over the given strides, so strided [B, S, H, D] views
+//    need no copy) into a ring of 6 shared-memory stages guarded by
+//    mbarriers (112 KB at D 64, 224 KB at D 128).  Two consumer
+//    warpgroups take 64 query rows each: S = Q K^T by wgmma m64n64k16
+//    with both operands in shared memory (K-major, 128-byte swizzle),
+//    float32 accumulators in registers; the online softmax below on those
+//    fragments; then O += P V by wgmma m64nDk16 with P from registers
+//    (the accumulator's layout is the A operand's) and V from shared
+//    memory (row-major, so MN-major: the transpose-B bit).  P keeps the
+//    split below: two wgmmas, bf16(P) and bf16(P - bf16(P)), into the
+//    same accumulators.  Each consumer issues tile j's Q K^T together
+//    with tile j - 1's P V and runs the softmax of tile j while P V is on
+//    the tensor cores; the two consumers take turns to issue, so that
+//    one's softmax overlaps the other's products.  S a multiple of 64 but
+//    not of 128: the last query tile's rows past S are computed on zeros
+//    (TMA fills outside the tensor) and not stored;
+//  * mma_sync (bfloat16, any D; flash_fwd_bf16), the pre-Hopper kernel:
+//    64-row query tiles, 4 warps, 16 query rows each.  K and
 //    V tiles of 64 keys are double-buffered in shared memory by cp.async
 //    (16-byte copies), so the next tile's loads overlap this tile's
 //    products.  Q K^T runs on the tensor cores (mma.sync m16n8k16, bf16
@@ -41,24 +61,29 @@
 //    units would cap it at 67 TFLOP/s.  The score fragments become the
 //    next MMA's A operand in registers; V's B fragments come from shared
 //    memory through ldmatrix.trans;
-//  * float32 inputs (flash_fwd_f32): the reference's full float32 on the
-//    SIMT units (FMA, not TF32): q is cast and scaled first, as the
-//    reference does; 4 x 4 scores and 4 x D/8 outputs per thread over KV
-//    tiles of 32 keys, P staged in shared memory;
-//  * exponentials are exp2f of (s - m) * log2(e); masked scores are -inf
-//    and give exact zeros; a row whose running max is still -inf uses 0 in
-//    its place, as the reference's safe_m does.
+//  * simt_f32 (float32 inputs; flash_fwd_f32): the reference's full
+//    float32 on the SIMT units (FMA, not TF32): q is cast and scaled
+//    first, as the reference does; 4 x 4 scores and 4 x D/8 outputs per
+//    thread over KV tiles of 32 keys, P staged in shared memory;
+//  * exponentials are exp2f of (s - m) * log2(e) (the wgmma variant folds
+//    the scale: exp2f(s_raw * scale * log2(e) - m * log2(e)), one FMA);
+//    masked scores are -inf and give exact zeros; a row whose running max
+//    is still -inf uses 0 in its place, as the reference's safe_m does.
 //
 // Limits (checked by the Python wrapper): T is float or bf16, D is 16, 32,
 // 64 or 128, S a multiple of 64 (flash_attention_tile()), the last dimension
-// of every tensor contiguous and, for bf16, 16-byte aligned rows.
+// of every tensor contiguous and, for bf16, 16-byte aligned rows (and so
+// strides that are multiples of 16 bytes, as TMA needs).
 // Plain C interface (loaded with ctypes); returns the cudaError_t of the
-// launch.
+// launch, or hopper::kEncodeError + the CUresult if a tensor map cannot be
+// encoded.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -486,6 +511,383 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(Args a) {
   }
 }
 
+// ---------------------------- bfloat16, wgmma ----------------------------
+namespace fa3 {
+
+constexpr int kBQ = 128;          // query rows per block
+// keys per KV tile.  S (kBKV / 2 floats a thread), the two bf16 halves of
+// the previous tile's P (kBKV / 4 registers) and O (D / 2) are live
+// together while P V runs; ptxas fits the consumers into the 168
+// registers that 384 threads leave each thread (setmaxnreg's larger
+// budget does not reach its allocation), and 128-key tiles spilled.
+constexpr int kBKV = 64;
+constexpr int kConsumers = 2;     // warpgroups of 64 query rows
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr uint32_t kProducerRegs = 40, kConsumerRegs = 232;
+constexpr int kStages = 6;        // K and V stages in flight
+constexpr int kQBox = kBQ * 128;  // a Q box: 128 rows x 64 bf16 columns
+constexpr int kKVBox = kBKV * 128;  // a K or V box: 64 rows x 64 columns
+
+template <int D>
+struct Cfg {
+  static constexpr int kBoxes = D / 64;             // 64-column boxes
+  static constexpr int kQBytes = kBoxes * kQBox;
+  static constexpr int kKVBytes = kBoxes * kKVBox;  // a K or V tile
+  // Q, the K and V stages, 1 + 2 kStages barriers, room to align
+  static constexpr int kSmem = kQBytes + 2 * kStages * kKVBytes +
+                               (1 + 2 * kStages) * 8 + 1024;
+  static_assert(kSmem <= 232448, "shared memory of one block");
+};
+
+// kv_range and tile_full above for kBQ-row query tiles and kBKV-key
+// tiles.  Kept apart: a block-size argument to the 64-row kernels' helpers
+// made the mma_sync kernel's code 4 % slower.
+__device__ __forceinline__ void kv_range(const Args& a, int q0, int* lo,
+                                         int* hi) {
+  const int nkt = a.s / kBKV;
+  *hi = a.causal ? min(nkt, (q0 + kBQ - 1) / kBKV + 1) : nkt;
+  *lo = 0;
+  if (a.has_window) {
+    const long long first = (long long)q0 - a.window - kBKV + 2;
+    if (first > 0)
+      *lo = (int)min((first + kBKV - 1) / kBKV, (long long)nkt);
+  }
+}
+
+__device__ __forceinline__ bool tile_full(const Args& a, int q0, int k0) {
+  const bool causal_ok = !a.causal || k0 + kBKV - 1 <= q0;
+  const bool window_ok =
+      !a.has_window || (long long)k0 > (long long)q0 + kBQ - 1 - a.window;
+  return causal_ok && window_ok;
+}
+
+template <int N>
+__device__ __forceinline__ void fence_u32(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// The two consumer warpgroups take turns to issue their products: group
+// g waits on named barrier 1 + g, and when it has issued lets the other
+// group go.  256 threads: the 128 that wait and the 128 that arrive.
+__device__ __forceinline__ void turn_begin(int group) {
+  hopper::named_bar_sync(1 + group, 256);
+}
+__device__ __forceinline__ void turn_end(int group) {
+  hopper::named_bar_arrive(1 + (group ^ 1), 256);
+}
+
+// S = Q K^T for this group's 64 rows and the tile's kBKV keys: D / 16
+// k-steps, 4 per 64-column box; committed as one group.
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&sc)[kBKV / 2],
+                                         const unsigned char* qw,
+                                         const unsigned char* kb) {
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int box = kk / 4, off = (kk % 4) * 32;
+    hopper::wgmma_ss<kBKV, 0>(
+        sc, hopper::desc_sw128(qw + box * kQBox + off, 16, 1024),
+        hopper::desc_sw128(kb + box * kKVBox + off, 16, 1024),
+        kk > 0);
+  }
+  hopper::wgmma_commit();
+}
+
+// O += P_hi V + P_lo V: V [kBKV keys][D] MN-major, k-step kk = key rows
+// 16 kk .., D / 64 blocks of 64 columns one box apart; one group.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
+                                         const uint32_t (&phi)[kBKV / 16][4],
+                                         const uint32_t (&plo)[kBKV / 16][4],
+                                         const unsigned char* vb) {
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBKV / 16; ++kk) {
+    const uint64_t dv =
+        hopper::desc_sw128(vb + kk * 16 * 128, kKVBox, 1024);
+    hopper::wgmma_rs<D, 1>(acc, phi[kk], dv, 1);
+    hopper::wgmma_rs<D, 1>(acc, plo[kk], dv, 1);
+  }
+  hopper::wgmma_commit();
+}
+
+// P (float, in sc) as the A fragments of k-step kk (keys 16 kk .. 16 kk +
+// 15 = n-tiles 2 kk and 2 kk + 1), split into bf16 hi and lo parts.
+__device__ __forceinline__ void split_p(const float (&sc)[kBKV / 2],
+                                        uint32_t (&phi)[kBKV / 16][4],
+                                        uint32_t (&plo)[kBKV / 16][4]) {
+#pragma unroll
+  for (int j = 0; j < kBKV / 8; ++j) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {           // rows g and g + 8
+      const float p0 = sc[4 * j + 2 * r], p1 = sc[4 * j + 2 * r + 1];
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+      const float2 hf = __bfloat1622float2(hi);
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(p0 - hf.x, p1 - hf.y);
+      phi[j >> 1][(j & 1) * 2 + r] = *reinterpret_cast<const uint32_t*>(&hi);
+      plo[j >> 1][(j & 1) * 2 + r] = *reinterpret_cast<const uint32_t*>(&lo);
+    }
+  }
+}
+
+// The online softmax of one thread's two rows (row0, row0 + 8): running
+// max m (of the scaled logits), this lane's part of the denominator l,
+// and the factor the accumulator still owes the last update.
+struct Softmax {
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  float corr[2] = {1.f, 1.f};
+  int lo_col[2], hi_col[2];   // the keys each row keeps
+
+  __device__ __forceinline__ Softmax(const Args& a, int row0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 8 * i;
+      lo_col[i] = a.has_window ? max(row - a.window + 1, 0) : 0;
+      hi_col[i] = a.causal ? min(row, a.s - 1) : a.s - 1;
+    }
+  }
+
+  // sc: raw Q K^T of keys k0 .. k0 + kBKV - 1 -> P = exp(scale sc - m),
+  // in place; masked keys give exact zeros.
+  __device__ __forceinline__ void step(const Args& a, float (&sc)[kBKV / 2],
+                                       int q0, int k0, int lane) {
+    const int c0 = k0 + 2 * (lane & 3);
+    if (!tile_full(a, q0, k0)) {
+#pragma unroll
+      for (int j = 0; j < kBKV / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = c0 + 8 * j + (e & 1);
+          if (col < lo_col[e >> 1] || col > hi_col[e >> 1])
+            sc[4 * j + e] = -INFINITY;
+        }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < kBKV / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * j + e]);
+    const float scale_log2 = a.scale * kLog2e;
+    float neg[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float safe;
+      corr[i] = online_update(&m[i], group_max4(mx[i]) * a.scale, &safe);
+      l[i] *= corr[i];
+      neg[i] = -safe * kLog2e;
+    }
+#pragma unroll
+    for (int j = 0; j < kBKV / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(fmaf(sc[4 * j + e], scale_log2, neg[e >> 1]));
+        l[e >> 1] += p;
+        sc[4 * j + e] = p;
+      }
+  }
+
+  // acc *= the last step's correction (rows g: e 0, 1; g + 8: e 2, 3)
+  template <int R>
+  __device__ __forceinline__ void rescale(float (&acc)[R]) {
+#pragma unroll
+    for (int j = 0; j < R / 4; ++j) {
+      acc[4 * j] *= corr[0];
+      acc[4 * j + 1] *= corr[0];
+      acc[4 * j + 2] *= corr[1];
+      acc[4 * j + 3] *= corr[1];
+    }
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v, Args a) {
+  using C = Cfg<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* qs = smem;                              // [D / 64] boxes
+  unsigned char* ks = qs + C::kQBytes;                   // [stages] tiles
+  unsigned char* vs = ks + kStages * C::kKVBytes;        // [stages] tiles
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + kStages * C::kKVBytes);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;             // heaviest first
+  const int bh = blockIdx.y;
+  const int b = bh / a.h, h = bh % a.h;
+  const int hk = h / (a.h / a.hkv);
+  const int q0 = qt * kBQ;
+  int kt_lo, kt_hi;
+  kv_range(a, q0, &kt_lo, &kt_hi);
+  const int group = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumers);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (group == kConsumers) {
+    // producer: one thread loads Q, then K and V tile by tile
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kConsumers * 128 && kt_lo < kt_hi) {
+      hopper::mbar_arrive_expect_tx(q_full, C::kQBytes);
+#pragma unroll
+      for (int c = 0; c < C::kBoxes; ++c)
+        hopper::tma_load_4d(qs + c * kQBox, &map_q, q_full, 64 * c, q0,
+                            h, b);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int kt = kt_lo; kt < kt_hi; ++kt) {
+        hopper::mbar_wait(&empty[stage], phase ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[stage], 2 * C::kKVBytes);
+        unsigned char* kb = ks + stage * C::kKVBytes;
+        unsigned char* vb = vs + stage * C::kKVBytes;
+#pragma unroll
+        for (int c = 0; c < C::kBoxes; ++c) {
+          hopper::tma_load_4d(kb + c * kKVBox, &map_k, &full[stage],
+                              64 * c, kt * kBKV, hk, b);
+          hopper::tma_load_4d(vb + c * kKVBox, &map_v, &full[stage],
+                              64 * c, kt * kBKV, hk, b);
+        }
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup g owns query rows [q0 + 64 g, q0 + 64 g + 64)
+    hopper::setmaxnreg_inc<kConsumerRegs>();
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int row0 = q0 + group * 64 + warp * 16 + (lane >> 2);
+    Softmax sm(a, row0);
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float sc[kBKV / 2];
+    uint32_t phi[kBKV / 16][4], plo[kBKV / 16][4];
+    const unsigned char* qw = qs + group * 64 * 128;     // this group's rows
+    if (group == 1) turn_end(group);                     // group 0 first
+    if (kt_lo < kt_hi) {
+      hopper::mbar_wait(q_full, 0);
+      int stage = 0;
+      uint32_t phase = 0;
+      hopper::mbar_wait(&full[0], 0);
+      turn_begin(group);
+      issue_qk<D>(sc, qw, ks);
+      turn_end(group);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      sm.step(a, sc, q0, kt_lo * kBKV, lane);
+      split_p(sc, phi, plo);
+      int prev = 0;
+      for (int kt = kt_lo + 1; kt < kt_hi; ++kt) {
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+        hopper::mbar_wait(&full[stage], phase);
+        turn_begin(group);
+        issue_qk<D>(sc, qw, ks + stage * C::kKVBytes);
+        sm.rescale(acc);
+        issue_pv<D>(acc, phi, plo, vs + prev * C::kKVBytes);
+        turn_end(group);
+        hopper::wgmma_wait<1>();                         // S landed
+        hopper::fence_regs(sc);
+        sm.step(a, sc, q0, kt * kBKV, lane);
+        hopper::wgmma_wait<0>();                         // P V landed
+        hopper::fence_regs(acc);
+        fence_u32(phi);
+        fence_u32(plo);
+        if (threadIdx.x % 128 == 0) hopper::mbar_arrive(&empty[prev]);
+        split_p(sc, phi, plo);
+        prev = stage;
+      }
+      turn_begin(group);
+      sm.rescale(acc);
+      issue_pv<D>(acc, phi, plo, vs + prev * C::kKVBytes);
+      turn_end(group);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      fence_u32(phi);
+      fence_u32(plo);
+      if (threadIdx.x % 128 == 0) hopper::mbar_arrive(&empty[prev]);
+    }
+    if (group == 0) turn_begin(0);    // group 1's last turn_end
+
+    // o = acc / l (l == 0 -> 1: zeros), lse = m + log(l); rows past S
+    // (the last tile when S % 128 == 64) are not stored
+    const int t4 = lane & 3;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float li = group_sum4(sm.l[i]);
+      const float inv = (li == 0.f) ? 1.f : 1.f / li;
+      const int row = row0 + i * 8;
+      if (row >= a.s) continue;
+      bf16* orow = static_cast<bf16*>(a.o) + b * a.osb + h * a.osh +
+                   (long long)row * a.oss + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * i] * inv,
+                                  acc[4 * j + 2 * i + 1] * inv);
+      if (t4 == 0)
+        a.lse[(long long)bh * a.s + row] =
+            (li == 0.f) ? -INFINITY : sm.m[i] + logf(li);
+    }
+  }
+}
+
+// One rank-4 map (D, S, heads, B) over element strides (row, head, batch)
+// with boxes of 64 columns x `rows` rows.
+inline int encode_bshd(CUtensorMap* map, const void* base, int d, int s,
+                       int heads, int b, long long ss, long long sh,
+                       long long sb, int rows) {
+  const uint64_t dims[4] = {(uint64_t)d, (uint64_t)s, (uint64_t)heads,
+                            (uint64_t)b};
+  const uint64_t strides[3] = {(uint64_t)ss * 2, (uint64_t)sh * 2,
+                               (uint64_t)sb * 2};
+  const uint32_t box[4] = {64, (uint32_t)rows, 1, 1};
+  return hopper::encode_bf16(map, base, 4, dims, strides, box);
+}
+
+template <int D>
+int launch(const Args& a, int b, cudaStream_t stream) {
+  CUtensorMap map_q, map_k, map_v;
+  int err =
+      encode_bshd(&map_q, a.q, D, a.s, a.h, b, a.qss, a.qsh, a.qsb, kBQ);
+  if (!err)
+    err = encode_bshd(&map_k, a.k, D, a.s, a.hkv, b, a.kss, a.ksh, a.ksb,
+                      kBKV);
+  if (!err)
+    err = encode_bshd(&map_v, a.v, D, a.s, a.hkv, b, a.vss, a.vsh, a.vsb,
+                      kBKV);
+  if (err) return err;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Cfg<D>::kSmem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((a.s + kBQ - 1) / kBQ, b * a.h);
+  flash_fwd_wgmma<D><<<grid, kThreads, Cfg<D>::kSmem, stream>>>(
+      map_q, map_k, map_v, a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace fa3
+
 template <int D>
 size_t smem_bytes(int dtype) {
   if (dtype == 1) return (size_t)(kBlockQ + 4 * kBlockK) * (D + 8) * 2;
@@ -519,24 +921,31 @@ int launch(int dtype, const Args& a, int b, cudaStream_t stream) {
 // The sequence tile: S must be a multiple of it.
 extern "C" int flash_attention_tile() { return kBlockQ; }
 
-// dtype: 0 float32, 1 bfloat16.  q [b, h, s, d], k/v [b, hkv, s, d] and
-// o [b, h, s, d] given by element strides (batch, head, row; the last
-// dimension contiguous); lse [b, h, s] contiguous float32.  causal and
-// has_window are 0/1.  s % flash_attention_tile() == 0, d in {16, 32,
-// 64, 128} (the wrapper checks).
+// dtype: 0 float32, 1 bfloat16; variant: 0 simt_f32 (float32), 1 mma_sync
+// (bfloat16), 2 wgmma (bfloat16, d 64 or 128).  q [b, h, s, d], k/v
+// [b, hkv, s, d] and o [b, h, s, d] given by element strides (batch, head,
+// row; the last dimension contiguous); lse [b, h, s] contiguous float32.
+// causal and has_window are 0/1.  s % flash_attention_tile() == 0, d in
+// {16, 32, 64, 128} (the wrapper picks the variant and checks).
 extern "C" int flash_attention_fwd(
-    int dtype, int d, const void* q, const void* k, const void* v, void* o,
-    float* lse, int b, int h, int hkv, int s, long long qsb, long long qsh,
-    long long qss, long long ksb, long long ksh, long long kss,
-    long long vsb, long long vsh, long long vss, long long osb,
-    long long osh, long long oss, int causal, int has_window, int window,
-    float scale, void* stream) {
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+    int dtype, int variant, int d, const void* q, const void* k,
+    const void* v, void* o, float* lse, int b, int h, int hkv, int s,
+    long long qsb, long long qsh, long long qss, long long ksb,
+    long long ksh, long long kss, long long vsb, long long vsh,
+    long long vss, long long osb, long long osh, long long oss, int causal,
+    int has_window, int window, float scale, void* stream) {
+  if (variant != dtype && !(variant == 2 && dtype == 1))
+    return (int)cudaErrorInvalidValue;
   if (b <= 0 || s <= 0) return 0;
   const Args a{q,   k,   v,   o,   lse, h,   hkv,    s,
                qsb, qsh, qss, ksb, ksh, kss, vsb,    vsh,
                vss, osb, osh, oss, causal, has_window, window, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (variant == 2) {
+    if (d == 64) return fa3::launch<64>(a, b, st);
+    if (d == 128) return fa3::launch<128>(a, b, st);
+    return (int)cudaErrorInvalidValue;
+  }
   switch (d) {
     case 16: return launch<16>(dtype, a, b, st);
     case 32: return launch<32>(dtype, a, b, st);

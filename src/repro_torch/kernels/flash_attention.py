@@ -2,8 +2,11 @@
 the port of ``repro/kernels/flash_attention.py::flash_attention``
 (``_flash_kernel``).
 
-* ``flash_attention_cuda`` launches the kernel (``.launches`` counts):
+* ``flash_attention_cuda`` launches the kernel:
   ``[B, H, S, D] x [B, Hkv, S, D] -> (o [B, H, S, D], lse [B, H, S])``;
+  ``.launches`` counts every launch, ``.variant_launches`` each
+  variant's (``flash_variant`` picks one from the dtype and head dim; the
+  C entry point takes it explicitly);
 * ``FlashAttentionFn`` makes it differentiable: the kernel forward, and
   the plain flash backward (``ref.flash_attention_bwd_ref``) from the
   saved output and row log-sum-exp.  The reference has no backward kernel
@@ -12,7 +15,8 @@ the port of ``repro/kernels/flash_attention.py::flash_attention``
   a CUDA tensor and the plain version (``ref.flash_attention_ref``) for a
   CPU tensor.
 
-The kernel takes float32 (SIMT FMAs) or bfloat16 (tensor cores) inputs,
+The kernel takes float32 (SIMT FMAs) or bfloat16 (tensor cores: wgmma
+with TMA loads at D 64 and 128, mma.sync at D 16 and 32) inputs,
 D in {16, 32, 64, 128}, S a multiple of 64, and any batch, head and row
 strides as long as the last dimension is contiguous; bfloat16 rows must
 be 16-byte aligned.  The output takes q's strides, so that attention
@@ -32,13 +36,16 @@ from repro_torch.kernels.ref import flash_attention_bwd_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
+#: the C entry point's variant codes: the float32 SIMT kernel, the
+#: mma.sync kernel (bf16, any head dim), the TMA + wgmma kernel
+VARIANTS = {"simt_f32": 0, "mma_sync": 1, "wgmma": 2}
 
 
 def _library() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     if not getattr(lib, "_signatures_set", False):
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.flash_attention_fwd.argtypes = ([i32, i32] + [ptr] * 5
+        lib.flash_attention_fwd.argtypes = ([i32, i32, i32] + [ptr] * 5
                                             + [i32] * 4 + [i64] * 12
                                             + [i32] * 3 + [ctypes.c_float,
                                                            ptr])
@@ -87,30 +94,48 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  f"aligned rows (strides {t.stride()})")
 
 
+def flash_variant(dtype: torch.dtype, d: int) -> str:
+    """The variant a call takes: ``wgmma`` for bfloat16 at head dim 64 or
+    128, ``mma_sync`` for other bfloat16 head dims, ``simt_f32`` for
+    float32."""
+    if dtype == torch.float32:
+        return "simt_f32"
+    return "wgmma" if d in (64, 128) else "mma_sync"
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool = True, window: Optional[int] = None
+                         causal: bool = True, window: Optional[int] = None,
+                         variant: Optional[str] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Attention on the GPU through the hand-written kernel: (o in q's
-    dtype and strides, lse [B, H, S] float32)."""
+    dtype and strides, lse [B, H, S] float32).  ``variant`` None takes
+    ``flash_variant``'s pick; naming one forces it where it can take the
+    call (``mma_sync`` on a call the wgmma variant takes times the earlier
+    kernel beside the new one) and raises otherwise."""
     _check(q, k, v, window)
     b, h, s, d = q.shape
+    chosen = flash_variant(q.dtype, d)
+    variant = chosen if variant is None else variant
+    if variant != chosen and (variant, chosen) != ("mma_sync", "wgmma"):
+        raise ValueError(f"flash_attention: variant {variant!r} cannot take "
+                         f"{q.dtype} at head dim {d} (it takes {chosen!r})")
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _library().flash_attention_fwd(
-        _DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        o.data_ptr(), lse.data_ptr(), b, h, k.shape[1], s,
+        _DTYPES[q.dtype], VARIANTS[variant], d, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, h, k.shape[1], s,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         int(causal), int(window is not None),
         0 if window is None else int(window), 1.0 / (d ** 0.5), stream)
-    if err:
-        raise RuntimeError(f"flash_attention: kernel launch failed with "
-                           f"cudaError_t {err}")
+    build.check_launch("flash_attention", err)
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.variant_launches[variant] += 1
     return o, lse
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.variant_launches = dict.fromkeys(VARIANTS, 0)
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -133,4 +158,5 @@ class FlashAttentionFn(torch.autograd.Function):
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
 
 
-__all__ = ["FlashAttentionFn", "HEAD_DIMS", "flash_attention_cuda"]
+__all__ = ["FlashAttentionFn", "HEAD_DIMS", "VARIANTS", "flash_attention_cuda",
+           "flash_variant"]

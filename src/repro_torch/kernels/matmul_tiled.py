@@ -3,7 +3,10 @@
 fused matmul + ring reduce-scatter (the ring itself is
 ``repro_torch.collectives.shardmap_impl.fused_matmul_rs``).
 
-* ``matmul_tiled_cuda`` launches the kernel (``.launches`` counts);
+* ``matmul_tiled_cuda`` launches the kernel: ``.launches`` counts every
+  launch, ``.variant_launches`` each variant's (``matmul_variant`` picks
+  one from the dtype, shapes and alignment; the C entry point takes it
+  explicitly);
 * ``MatmulTiledFn`` makes it differentiable: the kernel forward with the
   reference's dense backward (float32 products, ``torch.matmul`` with
   TF32 off).  ``ops.matmul_tiled`` picks it for a CUDA tensor and the
@@ -13,12 +16,16 @@ fused matmul + ring reduce-scatter (the ring itself is
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the C entry point's variant codes: the float32 SIMT kernel, the WMMA
+#: kernel with masked loads (bf16, any shape), the TMA + wgmma kernel
+VARIANTS = {"simt_f32": 0, "wmma_masked": 1, "wgmma": 2}
 
 
 def _library() -> ctypes.CDLL:
@@ -32,10 +39,29 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def matmul_tiled_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def matmul_variant(dtype: torch.dtype, k: int, n: int, x_ptr: int = 0,
+                   w_ptr: int = 0) -> str:
+    """The variant a call takes: ``wgmma`` for bfloat16 with K and N
+    multiples of 8 and 16-byte aligned x and w (every row and stride a
+    multiple of 16 bytes, as TMA needs), ``wmma_masked`` for other
+    bfloat16 calls, ``simt_f32`` for float32."""
+    if dtype == torch.float32:
+        return "simt_f32"
+    if k % 8 == 0 and n % 8 == 0 and x_ptr % 16 == 0 and w_ptr % 16 == 0:
+        return "wgmma"
+    return "wmma_masked"
+
+
+def matmul_tiled_cuda(x: torch.Tensor, w: torch.Tensor,
+                      variant: Optional[str] = None) -> torch.Tensor:
     """``[M, K] @ [K, N] -> [M, N]`` on the GPU through the hand-written
     kernel: float32 accumulation, the output in the inputs' dtype
-    (float32 on the SIMT units, bfloat16 on the tensor cores)."""
+    (float32 on the SIMT units, bfloat16 on the tensor cores).
+
+    ``variant`` None takes ``matmul_variant``'s pick; naming one forces it
+    where it can take the call (``wmma_masked`` on a call the wgmma
+    variant takes times the earlier kernel beside the new one) and raises
+    otherwise."""
     for name, t in (("x", x), ("w", w)):
         if t.device.type != "cuda" or t.device != x.device:
             raise ValueError(f"matmul_tiled: {name} must be a CUDA tensor "
@@ -52,23 +78,27 @@ def matmul_tiled_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     n = w.shape[1]
     if max(m, n, k) >= 2 ** 31:
         raise ValueError(f"matmul_tiled: dims {(m, k, n)} exceed int32")
+    chosen = matmul_variant(x.dtype, k, n, x.data_ptr(), w.data_ptr())
+    variant = chosen if variant is None else variant
+    if variant != chosen and (variant, chosen) != ("wmma_masked", "wgmma"):
+        raise ValueError(f"matmul_tiled: variant {variant!r} cannot take "
+                         f"{x.dtype} [{m}, {k}] @ [{k}, {n}] at these "
+                         f"alignments (it takes {chosen!r})")
     out = x.new_empty((m, n))
     if m == 0 or n == 0:
         return out
-    vectorized = (x.dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0
-                  and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _library().matmul_tiled(_DTYPES[x.dtype], x.data_ptr(),
                                   w.data_ptr(), out.data_ptr(), m, n, k,
-                                  int(vectorized), stream)
-    if err:
-        raise RuntimeError(f"matmul_tiled: kernel launch failed with "
-                           f"cudaError_t {err}")
+                                  VARIANTS[variant], stream)
+    build.check_launch("matmul_tiled", err)
     matmul_tiled_cuda.launches += 1
+    matmul_tiled_cuda.variant_launches[variant] += 1
     return out
 
 
 matmul_tiled_cuda.launches = 0
+matmul_tiled_cuda.variant_launches = dict.fromkeys(VARIANTS, 0)
 
 
 class MatmulTiledFn(torch.autograd.Function):
@@ -90,4 +120,5 @@ class MatmulTiledFn(torch.autograd.Function):
         return dx, dw
 
 
-__all__ = ["MatmulTiledFn", "matmul_tiled_cuda"]
+__all__ = ["MatmulTiledFn", "VARIANTS", "matmul_tiled_cuda",
+           "matmul_variant"]

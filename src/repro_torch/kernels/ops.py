@@ -94,13 +94,22 @@ def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
+def variant_launch_counts() -> Dict[str, Dict[str, int]]:
+    """Launches so far by variant, for the kernels that have variants."""
+    return {name: dict(fn.variant_launches) for name, fn in WRAPPERS.items()
+            if hasattr(fn, "variant_launches")}
+
+
 def reset_launch_counts() -> None:
+    """Zero every kernel's launch count and its variants' counts."""
     for fn in WRAPPERS.values():
         fn.launches = 0
+        for variant in getattr(fn, "variant_launches", {}):
+            fn.variant_launches[variant] = 0
 
 
 __all__ = ["WRAPPERS", "flash_attention", "flash_attention_ref",
            "launch_counts", "matmul_tiled", "matmul_tiled_ref",
            "multi_add", "multi_add_ref", "paged_attention",
            "paged_attention_ref", "reset_launch_counts", "selective_scan",
-           "selective_scan_ref"]
+           "selective_scan_ref", "variant_launch_counts"]

@@ -376,6 +376,63 @@ def test_matmul_tiled_unaligned_bf16_takes_the_masked_loads(cuda_device):
     assert torch.equal(ops.matmul_tiled(x, w), ops.matmul_tiled(xp, wp))
 
 
+def _variant_counts(name):
+    return ops.variant_launch_counts()[name]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [
+    (1024, 2560, 7168),     # one ring step of the yi-34b TP-8 fused ring
+    (1000, 2552, 7000),     # ragged M and N, a K tail of 56 (not 64)
+    (1000, 2560, 7000),
+    (100, 512, 1024),       # M < 128: fewer tiles than SMs
+    (8, 8, 8),
+    (128, 0, 64),           # K == 0: zeros
+])
+def test_matmul_wgmma_variant_matches_plain(cuda_device, m, k, n):
+    """The TMA + wgmma variant against the plain version (MM_TOL in
+    bfloat16); one launch, of that variant."""
+    from repro_torch.kernels.matmul_tiled import matmul_tiled_cuda
+    from repro_torch.kernels.ref import matmul_tiled_ref
+    gen = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=gen, device=cuda_device).bfloat16()
+    w = torch.randn((k, n), generator=gen, device=cuda_device).bfloat16()
+    ops.reset_launch_counts()
+    got = matmul_tiled_cuda(x, w)
+    torch.cuda.synchronize()
+    assert _variant_counts("matmul_tiled") == {"wgmma": 1, "wmma_masked": 0,
+                                               "simt_f32": 0}
+    assert ops.launch_counts()["matmul_tiled"] == 1
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    if k == 0:
+        assert torch.all(got == 0)
+    else:
+        assert _rel_err(got, matmul_tiled_ref(x, w)) <= MM_TOL[torch.bfloat16]
+
+
+@pytest.mark.gpu
+def test_matmul_variants_forced_and_refused(cuda_device):
+    """The WMMA kernel forced on an aligned call (the yardstick
+    chip_smoke.py times) agrees with the plain version; forcing the wgmma
+    variant on unaligned rows or float32 raises."""
+    from repro_torch.kernels.matmul_tiled import matmul_tiled_cuda
+    from repro_torch.kernels.ref import matmul_tiled_ref
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    x = torch.randn((300, 264), generator=gen, device=cuda_device).bfloat16()
+    w = torch.randn((264, 520), generator=gen, device=cuda_device).bfloat16()
+    ops.reset_launch_counts()
+    got = matmul_tiled_cuda(x, w, variant="wmma_masked")
+    torch.cuda.synchronize()
+    assert _variant_counts("matmul_tiled")["wmma_masked"] == 1
+    assert _rel_err(got, matmul_tiled_ref(x, w)) <= MM_TOL[torch.bfloat16]
+    with pytest.raises(ValueError):
+        matmul_tiled_cuda(x[:, :261].contiguous(), w[:261].contiguous(),
+                          variant="wgmma")
+    with pytest.raises(ValueError):
+        matmul_tiled_cuda(x.float(), w.float(), variant="wgmma")
+    assert ops.launch_counts()["matmul_tiled"] == 1
+
+
 @pytest.mark.gpu
 def test_matmul_tiled_refuses_what_it_does_not_take(cuda_device):
     x = torch.zeros((8, 16), device=cuda_device)
@@ -620,6 +677,88 @@ def test_flash_kernel_takes_strided_bshd_views(cuda_device, dtype):
     assert o.stride() == views[0].stride()
     assert o.transpose(1, 2).is_contiguous()
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+def _flash_close(o, lse, o_ref, lse_ref):
+    """The bf16 checks of test_flash_kernel_matches_plain."""
+    assert torch.equal(torch.isinf(lse), torch.isinf(lse_ref))
+    live = torch.isfinite(lse_ref)
+    torch.testing.assert_close(lse[live], lse_ref[live], rtol=1e-4,
+                               atol=1e-4)
+    ulp = torch.exp2(torch.floor(torch.log2(
+        o_ref.abs().clamp_min(2.0 ** -126))) - 7)
+    excess = (o.float() - o_ref).abs() - (ulp + 1e-5)
+    assert float(excess.max()) <= 0.0, float(excess.max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("b,h,hkv,s,causal,window", [
+    (1, 4, 4, 4096, True, None),
+    (1, 4, 4, 4096, False, None),
+    (1, 4, 4, 4096, True, 2048),     # the local-attention window
+    (1, 32, 8, 512, True, None),     # GQA 32/8
+    (2, 4, 2, 320, True, None),      # S a multiple of 64, not of 128
+    (1, 4, 4, 320, False, 100),
+])
+def test_flash_wgmma_variant_matches_plain(cuda_device, d, b, h, hkv, s,
+                                           causal, window):
+    """The TMA + wgmma variant (bf16, D 64 and 128) against the plain
+    version's float32 output, element by element within one bf16 ulp plus
+    1e-5, lse within 1e-4; one launch, of that variant."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ref import flash_attention_ref
+    q, k, v = _flash_inputs(b, h, hkv, s, d, torch.bfloat16, cuda_device,
+                            seed=s + d)
+    ops.reset_launch_counts()
+    o, lse = flash_attention_cuda(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert ops.variant_launch_counts()["flash_attention"] == {
+        "wgmma": 1, "mma_sync": 0, "simt_f32": 0}
+    o_ref, lse_ref = flash_attention_ref(q.float(), k.float(), v.float(),
+                                         causal, window)
+    assert o.dtype == torch.bfloat16 and o.shape == q.shape
+    _flash_close(o, lse, o_ref, lse_ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_wgmma_variant_takes_strided_bshd_views(cuda_device, d):
+    """[B, H, S, D] views of [B, S, H, D] tensors through the rank-4
+    tensor maps: the same result as contiguous inputs, in q's strides."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    q, k, v = _flash_inputs(2, 8, 4, 384, d, torch.bfloat16, cuda_device,
+                            seed=9)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2)
+             for t in (q, k, v)]
+    ops.reset_launch_counts()
+    o, lse = flash_attention_cuda(*views)
+    o2, lse2 = flash_attention_cuda(q, k, v)
+    assert ops.variant_launch_counts()["flash_attention"]["wgmma"] == 2
+    assert o.stride() == views[0].stride()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.gpu
+def test_flash_variants_forced_and_refused(cuda_device):
+    """The mma.sync kernel forced at D 64 (the yardstick chip_smoke.py
+    times) passes the same checks; the wgmma variant forced at D 32 or on
+    float32 inputs raises."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ref import flash_attention_ref
+    q, k, v = _flash_inputs(1, 4, 2, 512, 64, torch.bfloat16, cuda_device)
+    ops.reset_launch_counts()
+    o, lse = flash_attention_cuda(q, k, v, variant="mma_sync")
+    torch.cuda.synchronize()
+    assert ops.variant_launch_counts()["flash_attention"]["mma_sync"] == 1
+    _flash_close(o, lse, *flash_attention_ref(q.float(), k.float(),
+                                              v.float(), True, None))
+    small = _flash_inputs(1, 4, 2, 128, 32, torch.bfloat16, cuda_device)
+    with pytest.raises(ValueError):
+        flash_attention_cuda(*small, variant="wgmma")
+    with pytest.raises(ValueError):
+        flash_attention_cuda(*[t.float() for t in (q, k, v)],
+                             variant="wgmma")
 
 
 @pytest.mark.gpu
