@@ -53,9 +53,10 @@
    attention (forward and remat recompute) in the flash kernel's wgmma
    variant: loss per step, step time, tokens/s, peak memory, launch
    counts, one step profiled;
-11. dense route check: one float32 train step of a 2-layer minicpm-2b at
+11. dense route checks: one float32 train step of a 2-layer minicpm-2b at
    full width (1 x 4096 tokens) through the flash kernel and through the
-   plain chunked attention, from the same weights and batch;
+   plain chunked attention, from the same weights and batch; then the
+   same for phi3-mini-3.8b (head dim 96) and mistral-nemo-12b (160);
 12. dense prefill + decode: 2 x 4096-token prompts through ``prefill`` at
    full depth (one wgmma flash launch per layer), the cache padded by 8
    positions, 8 greedy ``decode_step``s, each step's logits held against
@@ -124,6 +125,11 @@ SPIN_CYCLES = 5_000_000             # a few ms of device spin per launch
 #: Programming Guide, arithmetic instruction throughput, compute
 #: capability 9.0)
 SFU_PER_SM_PER_CLOCK = 16
+#: the checkpoint interval of the function the checkpointing scan computes
+#: (``DEFAULT_CHUNK`` of src/repro/kernels/selective_scan.py): the scan
+#: bound counts hck's bytes at it, not at the kernel's own chunk, so that
+#: the bound does not move with the design it judges
+SCAN_REF_CHUNK = 128
 
 SERVE_ARCH = "minicpm-2b"
 SERVE = dict(batch=8, requests=16, system_prompts=4, system_len=80,
@@ -158,12 +164,22 @@ WITNESS_LR = 1e-3
 DENSE_ROUTE = dict(layers=2, batch=1, seq=4096, lr=3e-4)
 #: prefill at full depth, then greedy decode into 8 positions of headroom
 DENSE_DECODE = dict(batch=2, prompt=4096, new_tokens=8, headroom=8)
+#: the configs whose head dims (96, 160) take the mma_sync / simt_f32
+#: variants: the same float32 route check as DENSE_ROUTE for each
+C12_ARCHS = ("phi3-mini-3.8b", "mistral-nemo-12b")
 #: flash_attention's shapes (b, h, hkv, s, d, causal, window): the train
-#: phase's layer first (its timing shape), mistral-nemo-12b's GQA heads,
+#: phase's layer first (its timing shape); a synthetic GQA 32/8 shape at
+#: D 128 (no config has it: yi-34b, 56/8 at D 128, is the nearest); the
+#: full-width heads of phi3-mini-3.8b (MHA 32/32, D 96) and
+#: mistral-nemo-12b (GQA 32/8, D 160, as the repo's config resolves it);
 #: and the local-attention window of recurrentgemma-9b (local_window's
 #: default, 2048) at minicpm-2b's heads
 FLASH_CASES = (("minicpm-2b train layer", 2, 36, 36, 4096, 64, True, None),
-               ("mistral-nemo-12b GQA 32/8", 1, 32, 8, 4096, 128, True,
+               ("synthetic GQA 32/8 D 128 (nearest config: yi-34b 56/8)",
+                1, 32, 8, 4096, 128, True, None),
+               ("phi3-mini-3.8b MHA 32/32", 1, 32, 32, 4096, 96, True,
+                None),
+               ("mistral-nemo-12b GQA 32/8", 1, 32, 8, 4096, 160, True,
                 None),
                ("sliding window 2048", 2, 36, 36, 4096, 64, True, 2048))
 #: kernel vs plain lse (float32 sums of up to 4096 terms in other
@@ -445,9 +461,10 @@ def scan_bound(kind, b, s, d, n, esize):
     """(least ms, "bytes" | "operations") of one scan call: each input
     read once and each output written once at 3.35 TB/s; one exponential
     per (batch, step, channel, state) on the SFUs (16 per SM per clock at
-    the card's maximum SM clock)."""
+    the card's maximum SM clock).  hck is counted at the reference's
+    checkpoint interval, SCAN_REF_CHUNK."""
     bsd, bsn, dn, bdn = b * s * d, b * s * n, d * n, b * d * n
-    hck = b * -(-s // 64) * d * n
+    hck = b * -(-s // SCAN_REF_CHUNK) * d * n
     if kind == "bwd":       # dt, x, dy, B, C, A, hck, dh_final -> grads
         nbytes = 4 * (3 * bsd + 2 * bsn + dn + hck + bdn
                       + 2 * bsd + 2 * bsn + dn + bdn)
@@ -488,30 +505,50 @@ def grad_errors(args, w, v):
 def scan_kernel_phase(seed: int) -> list:
     """Rows 5-7 of the kernel table: the forward (no checkpoints), the
     checkpointing forward and the backward, against the plain recurrence
-    on the card, then timed at one layer of the train phase."""
+    on the card, then held to it again and timed at one layer of the
+    train phase."""
     tol = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
     cases = [
-        # (label, b, s, d, n, dtype, gradients)
+        # (label, b, s, d, n, dtype, gradients, absolute check)
         ("training layer width, S 1024", 2, 1024, 8192, 16, torch.float32,
+         True, True),
+        ("ragged: S 100, D 48", 2, 100, 48, 16, torch.float32, True, True),
+        ("bf16 inputs", 2, 512, 1024, 16, torch.bfloat16, False, True),
+        # |y| reaches 16-32 here, where one bf16 ulp is 0.125: held element
+        # by element to the float32 plain output (bf16_ratio), not to 5e-2
+        ("bf16 inputs, training layer width, S 1024", 2, 1024, 8192, 16,
+         torch.bfloat16, False, False),
+        ("ragged: S 77, D 200, N 4", 2, 77, 200, 4, torch.float32, True,
          True),
-        ("ragged: S 100, D 48", 2, 100, 48, 16, torch.float32, True),
-        ("bf16 inputs", 2, 512, 1024, 16, torch.bfloat16, False),
+        ("rows not 16-byte aligned: S 50, D 45, N 1", 2, 50, 45, 1,
+         torch.float32, True, True),
     ]
     err = {"fwd": 0.0, "ckpt": 0.0, "bwd": 0.0}
-    for i, (label, b, s, d, n, dtype, grads) in enumerate(cases):
+    for i, (label, b, s, d, n, dtype, grads, absolute) in enumerate(cases):
         args = scan_case(b, s, d, n, dtype, seed + 100 + i)
         y5, h5 = ss.selective_scan(*args)
         y6, h6, hck = ss.selective_scan_fwd_ckpt(*args)
         torch.cuda.synchronize()
         y_r, h_r = selective_scan_ref(*args)
+        # bf16: the plain version on float32 copies of the same values, its
+        # output before the cast (each kernel y within one bf16 ulp of it)
+        y_f = (selective_scan_ref(*[t.float() for t in args])[0]
+               if dtype == torch.bfloat16 else None)
         torch.cuda.synchronize()
         msg = []
         for kind, y, h in (("fwd", y5, h5), ("ckpt", y6, h6)):
             e = max(float((y.float() - y_r.float()).abs().max()),
                     float((h - h_r).abs().max()))
-            assert e <= tol[dtype], (label, kind, e)
+            assert not absolute or e <= tol[dtype], (label, kind, e)
+            assert float((h - h_r).abs().max()) <= tol[dtype], (label, kind)
             err[kind] = max(err[kind], e)
             msg.append(f"{kind} max_abs_err {e:.3e}")
+            if y_f is not None:
+                ratio = bf16_ratio(y, y_f)
+                assert ratio <= 1.0, (label, kind, ratio)
+                msg.append(f"{kind} y max |err| / (1 bf16 ulp of the float32 "
+                           f"plain output + {O_FLOOR:.0e}) {ratio:.4f} "
+                           f"(tol 1)")
         assert torch.equal(hck[:, 0], args[5]), "hck[:, 0] must be h0"
         if grads:
             gen = torch.Generator(device="cuda")
@@ -525,33 +562,63 @@ def scan_kernel_phase(seed: int) -> list:
                        f"err / max|ref| {rel_e:.3e}, tol 1e-4)")
         log(f"kernel selective_scan {label}: B={b} S={s} D={d} N={n} "
             f"{str(dtype).split('.')[-1]} | " + " | ".join(msg)
-            + f" (tol {tol[dtype]:.0e})")
-        del args, y5, h5, y6, h6, hck, y_r, h_r
+            + f" ({'' if absolute else 'h_final '}tol {tol[dtype]:.0e})")
+        del args, y5, h5, y6, h6, hck, y_r, h_r, y_f
     torch.cuda.empty_cache()
 
+    # the main path's shape: the kernels' outputs are held against the
+    # plain forward and backward that the timing below runs anyway, before
+    # any kernel is timed
     b, s, d, n = SCAN_TIMING
     args = scan_case(b, s, d, n, torch.float32, seed)
-    _, _, hck = ss.selective_scan_fwd_ckpt(*args)
+    y5, h5 = ss.selective_scan(*args)
+    y6, h6, hck = ss.selective_scan_fwd_ckpt(*args)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed + 300)
     dy = torch.randn((b, s, d), generator=gen, device="cuda")
     dhf = torch.randn((b, d, n), generator=gen, device="cuda")
+    g_kernel = ss.selective_scan_bwd(*args[:5], hck, dy, dhf)
+    leaves = [t.clone().requires_grad_() for t in args]
+    y, hf = selective_scan_ref(*leaves)
+    torch.cuda.synchronize()
+    msg = []
+    for kind, yk, hk in (("fwd", y5, h5), ("ckpt", y6, h6)):
+        e = max(float((yk - y.detach()).abs().max()),
+                float((hk - hf.detach()).abs().max()))
+        assert e <= tol[torch.float32], ("SCAN_TIMING", kind, e)
+        err[kind] = max(err[kind], e)
+        msg.append(f"{kind} max_abs_err {e:.3e}")
+    assert torch.equal(hck[:, 0], args[5]), "hck[:, 0] must be h0"
+    del y5, h5, y6, h6
+    # the plain backward's timed call keeps its gradients: 1 rep (~5 s)
+    g_plain = []
+    plain_bwd = time_ms(lambda: g_plain.append(torch.autograd.grad(
+        (y, hf), leaves, (dy, dhf), retain_graph=True)),
+        reps=1, warmup=1)
+    abs_e = rel_e = 0.0
+    for k, r in zip(g_kernel, g_plain[-1]):
+        e = float((k - r).abs().max())
+        abs_e = max(abs_e, e)
+        rel_e = max(rel_e, e / (float(r.abs().max()) + 1e-9))
+    assert rel_e < 1e-4, ("SCAN_TIMING", "gradients", rel_e)
+    err["bwd"] = max(err["bwd"], abs_e)
+    msg.append(f"bwd max_abs_err {abs_e:.3e} (max over inputs of err / "
+               f"max|ref| {rel_e:.3e}, tol 1e-4)")
+    log(f"kernel selective_scan main path's shape: B={b} S={s} D={d} N={n} "
+        f"float32 | " + " | ".join(msg) + " | hck[:, 0] == h0 (tol 1e-04)")
+    del y, hf, leaves, g_kernel, g_plain
+    torch.cuda.empty_cache()
     ms = {"fwd": time_ms(lambda: ss.selective_scan(*args), reps=20),
           "ckpt": time_ms(lambda: ss.selective_scan_fwd_ckpt(*args),
                           reps=20),
           "bwd": time_ms(lambda: ss.selective_scan_bwd(
               *args[:5], hck, dy, dhf), reps=20)}
-    plain_reps = 3
+    # the plain versions are yardsticks of arithmetic, not of speed, and
+    # the slow part of the run: 3 forward reps, 1 backward rep (above)
+    plain_reps = {"fwd": 3, "bwd": 1}
     with torch.no_grad():
         plain_fwd = time_ms(lambda: selective_scan_ref(*args),
-                            reps=plain_reps, warmup=1)
-    leaves = [t.clone().requires_grad_() for t in args]
-    y, hf = selective_scan_ref(*leaves)
-    plain_bwd = time_ms(lambda: torch.autograd.grad(
-        (y, hf), leaves, (dy, dhf), retain_graph=True), reps=plain_reps,
-        warmup=1)
-    del y, hf, leaves
-    torch.cuda.empty_cache()
+                            reps=plain_reps["fwd"], warmup=1)
     plain = {"fwd": plain_fwd, "ckpt": plain_fwd, "bwd": plain_bwd}
     rows = {}
     names = {"fwd": ("selective_scan", 84), "ckpt":
@@ -559,13 +626,24 @@ def scan_kernel_phase(seed: int) -> list:
              "bwd": ("selective_scan_bwd", 257)}
     plain_note = {"fwd": "", "ckpt": ", forward only, shared with row 5",
                   "bwd": ", autograd backward of the recurrence"}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for kind, (name, line) in names.items():
         bound_ms, bound_by = scan_bound(kind, b, s, d, n, 4)
+        reps = plain_reps["bwd" if kind == "bwd" else "fwd"]
+        info = ss.describe(kind, torch.float32, n)
+        blocks = -(-d // info["channels"]) * b
+        waves = blocks / (info["blocks_per_sm"] * sms)
         log(f"kernel {name} timing at one train-phase layer (B={b} S={s} "
             f"D={d} N={n} float32): kernel {ms[kind]:.4f} ms (median of "
-            f"20) | plain {plain[kind]:.4f} ms (median of {plain_reps}"
+            f"20) | plain {plain[kind]:.4f} ms (median of {reps}"
             f"{plain_note[kind]}) | bound {bound_ms:.4f} ms ({bound_by}) | "
             f"{bound_ms / ms[kind]:.1%} of bound")
+        log(f"kernel {name} launch at that shape: {info['registers']} "
+            f"registers a thread, {info['spill_bytes']} bytes spilled, "
+            f"{info['threads']} threads and {info['smem_bytes']} bytes of "
+            f"shared memory a block ({info['channels']} channels), "
+            f"{info['blocks_per_sm']} blocks per SM | {blocks} blocks on "
+            f"{sms} SMs = {waves:.3f} waves")
         rows[kind] = {"name": name, "route": "cuda",
                       "source": "src/repro_torch/kernels/csrc/"
                                 "selective_scan.cu",
@@ -998,8 +1076,9 @@ def flash_kernel_phase(seed: int) -> dict:
             ops.reset_launch_counts()
             o, lse = flash_attention_cuda(q, k, v, causal, window)
             torch.cuda.synchronize()
-            assert ops.variant_launch_counts()["flash_attention"][
-                variant] == 1, (label, variant)
+            variants = ops.variant_launch_counts()["flash_attention"]
+            assert variants == {**dict.fromkeys(variants, 0), variant: 1}, \
+                (label, variant, variants)
             # float32 inputs hold the same values: the plain output before
             # its cast to q's dtype
             o_ref, lse_ref = flash_attention_ref(q.float(), k.float(),
@@ -1035,7 +1114,8 @@ def flash_kernel_phase(seed: int) -> dict:
             err = max(err, e_o)
             log(f"kernel flash_attention {label}: B={b} H={h} Hkv={hkv} "
                 f"S={s} D={d} causal={causal} window={window} "
-                f"{str(dtype).split('.')[-1]}, variant {variant} | {check} "
+                f"{str(dtype).split('.')[-1]}, variant {variant} "
+                f"(variant_launches {variants}) | {check} "
                 f"| lse max_abs_err "
                 f"{e_l:.3e} (tol {LSE_TOL:.0e}) | kernel {ms:.4f} ms | "
                 f"bound {bound_ms:.4f} ms ({bound_by}) | "
@@ -1209,55 +1289,78 @@ def dense_lr_witness(seed: int) -> None:
         torch.cuda.empty_cache()
 
 
-def dense_route_phase(seed: int) -> None:
-    """One train step of a float32 2-layer minicpm-2b at full width
-    through the flash kernel and through the plain chunked attention,
-    from the same weights and batch; first the gradients themselves."""
+def dense_route_phase(seed: int, arch: str = DENSE_ARCH) -> None:
+    """One train step of a float32 2-layer ``arch`` at full width through
+    the flash kernel (the simt_f32 variant: float32) and through the plain
+    chunked attention, from the same weights and batch; first the
+    gradients themselves.  The kernel route's gradients and updated
+    params stay on the card; the plain route's are compared as they come
+    and then freed (mistral-nemo-12b's 2 layers hold 1.9 B float32
+    params)."""
     cfg = dataclasses.replace(
-        with_layer_units(get_config(DENSE_ARCH), DENSE_ROUTE["layers"]),
+        with_layer_units(get_config(arch), DENSE_ROUTE["layers"]),
         dtype="float32")
     opt_cfg = AdamWConfig(lr=DENSE_ROUTE["lr"], warmup_steps=1,
                           total_steps=5, schedule="wsd")
     batch = lm_batch(cfg, DENSE_ROUTE["batch"], DENSE_ROUTE["seq"], 0)
-    out = {}
+    out, launches = {}, {}
     for use_kernel in (True, False):
         state = init_train_state(init_params(cfg, seed=seed, device="cuda"))
         _, _, grads = value_and_grad(state.params, cfg, batch,
                                      use_kernel=use_kernel)
+        grads = tree_leaves(grads)
+        if use_kernel:
+            kept = grads
+        else:
+            d_grad = max(_rel_err(a, b) for a, b in zip(kept, grads))
+            del kept
+        del grads
         step_fn = make_train_step(cfg, opt_cfg, use_kernel=use_kernel)
         ops.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
         state, metrics, loss, wall = timed_step(step_fn, state, batch)
         counts = ops.launch_counts()
+        variants = ops.variant_launch_counts()["flash_attention"]
         want = dict.fromkeys(ops.WRAPPERS, 0)
+        want_variants = dict.fromkeys(variants, 0)
         if use_kernel:
             want["flash_attention"] = 2 * cfg.num_layers
-        assert counts == want, (counts, want)
-        out[use_kernel] = (loss, float(metrics["grad_norm"]),
-                           tree_leaves(grads), tree_leaves(state.params))
-        log(f"dense route {'kernel' if use_kernel else 'plain '}: loss "
-            f"{loss:.6f} | grad_norm {out[use_kernel][1]:.6f} | step wall "
-            f"{wall * 1e3:.1f} ms | max_memory_allocated "
+            want_variants["simt_f32"] = 2 * cfg.num_layers
+            launches = variants
+        assert counts == want, (arch, counts, want)
+        assert variants == want_variants, (arch, variants, want_variants)
+        params = tree_leaves(state.params)
+        if use_kernel:
+            kept_params = params
+        else:
+            d_param = max(float((a - b).abs().max())
+                          for a, b in zip(kept_params, params))
+        out[use_kernel] = (loss, float(metrics["grad_norm"]))
+        log(f"dense route {arch} {'kernel' if use_kernel else 'plain '}: "
+            f"loss {loss:.6f} | grad_norm {out[use_kernel][1]:.6f} | step "
+            f"wall {wall * 1e3:.1f} ms | max_memory_allocated "
             f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
-        del state, step_fn, grads
+        del state, step_fn, params, metrics
         torch.cuda.empty_cache()
-    (lk, nk, gk, pk), (lp, n_p, gp, pp) = out[True], out[False]
+    del kept_params
+    torch.cuda.empty_cache()
+    (lk, nk), (lp, n_p) = out[True], out[False]
     d_loss = abs(lk - lp) / abs(lp)
     d_gnorm = abs(nk - n_p) / abs(n_p)
-    d_grad = max(_rel_err(a, b) for a, b in zip(gk, gp))
-    d_param = max(float((a - b).abs().max()) for a, b in zip(pk, pp))
     # float32 throughout: the kernel and the chunked path sum the softmax
     # in other orders (and the backward is the flash recomputation vs
     # autograd of the chunk steps), ~1e-6 relative; the same bounds as
     # the scan's route check
     assert d_loss < 1e-4 and d_gnorm < 1e-4 and d_grad < 1e-4 \
-        and d_param < 1e-5, (d_loss, d_gnorm, d_grad, d_param)
-    log(f"dense route kernel vs plain ({cfg.num_layers} layers, float32, "
-        f"{DENSE_ROUTE['batch']} x {DENSE_ROUTE['seq']}): loss rel diff "
-        f"{d_loss:.3e} (tol 1e-4) | grad_norm rel diff {d_gnorm:.3e} (tol "
-        f"1e-4) | gradients, max over leaves of err / max|plain| "
-        f"{d_grad:.3e} (tol 1e-4) | params after the update max abs diff "
-        f"{d_param:.3e} (tol 1e-5)")
+        and d_param < 1e-5, (arch, d_loss, d_gnorm, d_grad, d_param)
+    log(f"dense route {arch} kernel vs plain ({cfg.num_layers} layers, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads x "
+        f"{cfg.resolved_head_dim}, float32, {DENSE_ROUTE['batch']} x "
+        f"{DENSE_ROUTE['seq']}): flash_attention launches in the kernel "
+        f"step {launches} | loss rel diff {d_loss:.3e} (tol 1e-4) | "
+        f"grad_norm rel diff {d_gnorm:.3e} (tol 1e-4) | gradients, max over "
+        f"leaves of err / max|plain| {d_grad:.3e} (tol 1e-4) | params "
+        f"after the update max abs diff {d_param:.3e} (tol 1e-5)")
 
 
 def dense_decode_phase(seed: int) -> None:
@@ -1744,6 +1847,10 @@ def main(argv=None) -> int:
     dense_train_phase(args.seed, rows)
     torch.cuda.empty_cache()
     dense_route_phase(args.seed)
+    torch.cuda.empty_cache()
+    for arch in C12_ARCHS:
+        dense_route_phase(args.seed, arch)
+        torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     dense_decode_phase(args.seed)
     torch.cuda.empty_cache()

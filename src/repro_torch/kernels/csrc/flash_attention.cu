@@ -70,8 +70,19 @@
 //    masked scores are -inf and give exact zeros; a row whose running max
 //    is still -inf uses 0 in its place, as the reference's safe_m does.
 //
+// Head dims 96 (phi3-mini-3.8b) and 160 (mistral-nemo-12b) take the two
+// templated kernels, mma_sync and simt_f32: a row is 12 or 20 16-byte
+// cp.async chunks (the copy loop divides by a constant, no power of two
+// needed); the bf16 row pitch (D + 8) * 2 = 208 or 336 bytes is an odd
+// multiple of 16 bytes, so fragment loads and ldmatrix stay conflict-free.
+// At D 160 the mma_sync kernel's 64-key tiles spilled (255 registers: 80
+// accumulators, Q's 40 fragment registers, S and P's halves), so that
+// instantiation takes 32-key KV tiles (block_k_bf16).  Shared memory is
+// 66,560 / 64,512 bytes (bf16) and 58,112 / 90,880 (float32), above 48 KB,
+// so each launch sets the dynamic-size attribute.
+//
 // Limits (checked by the Python wrapper): T is float or bf16, D is 16, 32,
-// 64 or 128, S a multiple of 64 (flash_attention_tile()), the last dimension
+// 64, 96, 128 or 160, S a multiple of 64 (flash_attention_tile()), the last dimension
 // of every tensor contiguous and, for bf16, 16-byte aligned rows (and so
 // strides that are multiples of 16 bytes, as TMA needs).
 // Plain C interface (loaded with ctypes); returns the cudaError_t of the
@@ -92,6 +103,10 @@ using bf16 = __nv_bfloat16;
 constexpr int kThreads = 128;   // 4 warps
 constexpr int kBlockQ = 64;     // query rows per block
 constexpr int kBlockK = 64;     // keys per KV tile, bf16 kernel
+// ... except at D 160, where 64-key tiles (S, P's halves and 80 float32
+// accumulators live together) spill: 32 keys there
+template <int D>
+__host__ __device__ constexpr int block_k_bf16() { return D > 128 ? 32 : kBlockK; }
 constexpr int kBlockKF = 32;    // keys per KV tile, float32 kernel
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -207,15 +222,15 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
       : "memory");
 }
 
-// rows [0, 64) of a [*, D] tile at `src` (row stride `ss`) into shared
+// rows [0, ROWS) of a [*, D] tile at `src` (row stride `ss`) into shared
 // memory with row pitch D + 8 elements (16-byte rows, conflict-free
 // fragment loads)
-template <int D>
+template <int D, int ROWS = 64>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
                                           long long ss) {
   constexpr int kChunks = D / 8;          // 16-byte chunks per row
   constexpr int P = D + 8;
-  for (int c = threadIdx.x; c < 64 * kChunks; c += kThreads) {
+  for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
     const int row = c / kChunks, col = (c % kChunks) * 8;
     cp_async16(dst + row * P + col, src + row * ss + col);
   }
@@ -226,10 +241,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Args a) {
   constexpr int P = D + 8;
   constexpr int KS = D / 16;    // k-steps of Q K^T
   constexpr int NT = D / 8;     // n-tiles of the output
+  constexpr int BK = block_k_bf16<D>();   // keys per KV tile
+  constexpr int KK = BK / 16;   // k-steps of P V
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);      // [64][P]
-  bf16* ks = qs + kBlockQ * P;                       // [2][64][P]
-  bf16* vs = ks + 2 * kBlockK * P;                   // [2][64][P]
+  bf16* ks = qs + kBlockQ * P;                       // [2][BK][P]
+  bf16* vs = ks + 2 * BK * P;                        // [2][BK][P]
 
   const int qt = gridDim.x - 1 - blockIdx.x;         // heaviest first
   const int bh = blockIdx.y;
@@ -255,19 +272,19 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Args a) {
   uint32_t qf[KS][4];
 
   int kt_lo, kt_hi;
-  kv_range(a, q0, kBlockK, &kt_lo, &kt_hi);
+  kv_range(a, q0, BK, &kt_lo, &kt_hi);
   if (kt_lo < kt_hi) {
     load_tile<D>(qs, qg, a.qss);
-    load_tile<D>(ks, kg + (long long)kt_lo * kBlockK * a.kss, a.kss);
-    load_tile<D>(vs, vg + (long long)kt_lo * kBlockK * a.vss, a.vss);
+    load_tile<D, BK>(ks, kg + (long long)kt_lo * BK * a.kss, a.kss);
+    load_tile<D, BK>(vs, vg + (long long)kt_lo * BK * a.vss, a.vss);
     cp_async_commit();
   }
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
     const int buf = (kt - kt_lo) & 1;
     if (kt + 1 < kt_hi) {
-      const long long k1 = (long long)(kt + 1) * kBlockK;
-      load_tile<D>(ks + (buf ^ 1) * kBlockK * P, kg + k1 * a.kss, a.kss);
-      load_tile<D>(vs + (buf ^ 1) * kBlockK * P, vg + k1 * a.vss, a.vss);
+      const long long k1 = (long long)(kt + 1) * BK;
+      load_tile<D, BK>(ks + (buf ^ 1) * BK * P, kg + k1 * a.kss, a.kss);
+      load_tile<D, BK>(vs + (buf ^ 1) * BK * P, vg + k1 * a.vss, a.vss);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -284,13 +301,13 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Args a) {
         qf[kk][3] = lds32(qw + (g + 8) * P + kk * 16 + 8 + 2 * t4);
       }
     }
-    const bf16* kb = ks + buf * kBlockK * P;
-    const bf16* vb = vs + buf * kBlockK * P;
+    const bf16* kb = ks + buf * BK * P;
+    const bf16* vb = vs + buf * BK * P;
 
-    // S = Q K^T for this warp's 16 rows x 64 keys (8 n-tiles of 8 keys)
-    float sc[8][4];
+    // S = Q K^T for this warp's 16 rows x BK keys (n-tiles of 8 keys)
+    float sc[BK / 8][4];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int nt = 0; nt < BK / 8; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
       const bf16* krow = kb + (nt * 8 + g) * P + 2 * t4;
@@ -301,11 +318,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Args a) {
     }
 
     // scale, mask, row max (rows g and g + 8 of the warp's 16)
-    const int k0 = kt * kBlockK;
-    const bool full = tile_full(a, q0, k0, kBlockK);
+    const int k0 = kt * BK;
+    const bool full = tile_full(a, q0, k0, BK);
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int nt = 0; nt < BK / 8; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float s = sc[nt][e] * a.scale;
@@ -325,9 +342,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Args a) {
 
     // P = exp(S - m) as A fragments (k-step kk = keys 16 kk .. 16 kk + 15
     // = n-tiles 2 kk and 2 kk + 1), split into bf16 hi + lo parts
-    uint32_t phi[4][4], plo[4][4];
+    uint32_t phi[KK][4], plo[KK][4];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int nt = 0; nt < BK / 8; ++nt) {
       bf16 hi[4], lo[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -350,10 +367,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Args a) {
       acc[i][2] *= corr[1];
       acc[i][3] *= corr[1];
     }
-    // O += P V: V [64 keys][D] row-major; B fragments through ldmatrix
+    // O += P V: V [BK keys][D] row-major; B fragments through ldmatrix
     const int mi = lane >> 3, ri = lane & 7;
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < KK; ++kk) {
 #pragma unroll
       for (int dp = 0; dp < NT / 2; ++dp) {
         uint32_t vf[4];
@@ -890,7 +907,8 @@ int launch(const Args& a, int b, cudaStream_t stream) {
 
 template <int D>
 size_t smem_bytes(int dtype) {
-  if (dtype == 1) return (size_t)(kBlockQ + 4 * kBlockK) * (D + 8) * 2;
+  if (dtype == 1)
+    return (size_t)(kBlockQ + 4 * block_k_bf16<D>()) * (D + 8) * 2;
   return ((size_t)(kBlockQ + 2 * kBlockKF) * (D + 1) +
           (size_t)kBlockQ * (kBlockKF + 1)) * 4;
 }
@@ -926,7 +944,7 @@ extern "C" int flash_attention_tile() { return kBlockQ; }
 // [b, hkv, s, d] and o [b, h, s, d] given by element strides (batch, head,
 // row; the last dimension contiguous); lse [b, h, s] contiguous float32.
 // causal and has_window are 0/1.  s % flash_attention_tile() == 0, d in
-// {16, 32, 64, 128} (the wrapper picks the variant and checks).
+// {16, 32, 64, 96, 128, 160} (the wrapper picks the variant and checks).
 extern "C" int flash_attention_fwd(
     int dtype, int variant, int d, const void* q, const void* k,
     const void* v, void* o, float* lse, int b, int h, int hkv, int s,
@@ -950,7 +968,9 @@ extern "C" int flash_attention_fwd(
     case 16: return launch<16>(dtype, a, b, st);
     case 32: return launch<32>(dtype, a, b, st);
     case 64: return launch<64>(dtype, a, b, st);
+    case 96: return launch<96>(dtype, a, b, st);
     case 128: return launch<128>(dtype, a, b, st);
+    case 160: return launch<160>(dtype, a, b, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

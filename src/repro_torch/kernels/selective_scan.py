@@ -51,6 +51,8 @@ def _library() -> ctypes.CDLL:
         lib.selective_scan_chunk.restype = i32
         lib.selective_scan_channels.argtypes = []
         lib.selective_scan_channels.restype = i32
+        lib.selective_scan_describe.argtypes = [i32, i32, i32, ptr]
+        lib.selective_scan_describe.restype = i32
         lib._signatures_set = True
     return lib
 
@@ -177,6 +179,21 @@ def selective_scan_bwd(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
             da_part.sum(dim=0), dh0)
 
 
+def describe(kind: str, dtype: torch.dtype, n: int) -> dict:
+    """How one scan kernel runs on the current card: ``kind`` is
+    ``"fwd"``, ``"ckpt"`` or ``"bwd"`` (float32).  Registers and spilled
+    bytes a thread (from the compiled kernel), threads, dynamic shared
+    memory and channels a block, and blocks resident per SM (the occupancy
+    API)."""
+    out = (ctypes.c_int * 6)()
+    kinds = {"fwd": 0, "ckpt": 1, "bwd": 2}
+    err = _library().selective_scan_describe(kinds[kind], _DTYPES[dtype], n,
+                                             ctypes.addressof(out))
+    _raise_on("selective_scan_describe", err)
+    return dict(zip(("registers", "spill_bytes", "threads", "smem_bytes",
+                     "blocks_per_sm", "channels"), out))
+
+
 selective_scan.launches = 0
 selective_scan_fwd_ckpt.launches = 0
 selective_scan_bwd.launches = 0
@@ -218,6 +235,6 @@ def selective_scan_trainable(dt: torch.Tensor, x: torch.Tensor,
     return SelectiveScanFn.apply(dt, x, b, c, a, h0)
 
 
-__all__ = ["MAX_STATE", "SelectiveScanFn", "selective_scan",
+__all__ = ["MAX_STATE", "SelectiveScanFn", "describe", "selective_scan",
            "selective_scan_bwd", "selective_scan_fwd_ckpt",
            "selective_scan_trainable"]

@@ -40,9 +40,13 @@ def test_matmul_variant_by_dtype_and_alignment():
 
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 64, "wgmma"),      # minicpm-2b
-    (torch.bfloat16, 128, "wgmma"),     # mistral-nemo-12b GQA
+    (torch.bfloat16, 128, "wgmma"),     # GQA 32/8 at D 128 (synthetic)
     (torch.bfloat16, 16, "mma_sync"),   # the reduced configs
     (torch.bfloat16, 32, "mma_sync"),
+    (torch.bfloat16, 96, "mma_sync"),   # phi3-mini-3.8b
+    (torch.bfloat16, 160, "mma_sync"),  # mistral-nemo-12b
+    (torch.float32, 96, "simt_f32"),
+    (torch.float32, 160, "simt_f32"),
     (torch.float32, 64, "simt_f32"),
     (torch.float32, 128, "simt_f32"),
     (torch.float32, 16, "simt_f32"),

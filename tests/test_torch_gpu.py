@@ -147,11 +147,22 @@ SCAN_SHAPES = [
     (1, 32, 16, 8),
     (2, 64, 32, 8),
     (2, 128, 64, 16),
-    (1, 64, 48, 16),          # D not a multiple of the block's 32 channels
-    (2, 100, 48, 16),         # S not a multiple of the 64-step chunk
+    (1, 64, 48, 16),          # D not a multiple of a block's channels
+    (2, 100, 48, 16),         # S not a multiple of the chunk
     (2, 300, 96, 4),
     (1, 1, 8, 1),
     (2, 1024, 512, 16),       # falcon-mamba's state size, long sequence
+    # the redesign's boundaries: 32-step chunks, 8-step sub-chunks, 32
+    # (forward) and 128 (backward) channels a block, 16-byte copies
+    (2, 77, 200, 1),          # every N; S, D ragged against all of them
+    (1, 70, 128, 1),          # a partial 16-byte copy of B and C
+    (2, 45, 136, 2),
+    (1, 130, 264, 4),
+    (2, 95, 72, 8),
+    (2, 65, 136, 16),
+    (2, 50, 45, 16),          # rows of 45 elements: element copies
+    (1, 33, 130, 8),          # float32 rows not 16-byte multiples
+    (2, 1024, 8192, 16),      # falcon-mamba-7b's training width
 ]
 
 
@@ -175,13 +186,14 @@ def test_scan_kernels_forward_match_plain(cuda_device, dtype, b, s, d, n):
         torch.testing.assert_close(y.float(), y_r.float(), rtol=tol,
                                    atol=tol)
         torch.testing.assert_close(h, h_r, rtol=tol, atol=tol)
-    # the checkpoint of chunk k is the state after k * 64 steps
-    assert hck.shape == (b, -(-s // 64), d, n)
-    torch.testing.assert_close(hck[:, 0], args[5])
-    if s > 64:
-        _, h_64 = selective_scan_ref(*[t[:, :64] for t in args[:4]],
-                                     *args[4:])
-        torch.testing.assert_close(hck[:, 1], h_64, rtol=tol, atol=tol)
+    # the checkpoint of chunk k is the state after k * chunk steps
+    chunk = ss._library().selective_scan_chunk()
+    assert hck.shape == (b, -(-s // chunk), d, n)
+    assert torch.equal(hck[:, 0], args[5])
+    if s > chunk:
+        _, h_1 = selective_scan_ref(*[t[:, :chunk] for t in args[:4]],
+                                    *args[4:])
+        torch.testing.assert_close(hck[:, 1], h_1, rtol=tol, atol=tol)
 
 
 @pytest.mark.gpu
@@ -624,6 +636,9 @@ FLASH_SHAPES = [
     (1, 2, 2, 128, 128, False, 0),        # the last row keeps no key
     (1, 36, 36, 1024, 64, True, None),    # minicpm-2b heads
     (2, 4, 2, 256, 16, True, None),       # the reduced configs' head dim
+    (1, 4, 4, 512, 96, True, None),       # phi3-mini-3.8b's head dim, MHA
+    (1, 4, 1, 384, 160, True, None),      # mistral-nemo-12b's, GQA 4/1
+    (1, 4, 1, 256, 160, False, 100),      # D 160, window, not causal
 ]
 
 
@@ -676,6 +691,30 @@ def test_flash_kernel_takes_strided_bshd_views(cuda_device, dtype):
     o2, lse2 = flash_attention_cuda(q, k, v)
     assert o.stride() == views[0].stride()
     assert o.transpose(1, 2).is_contiguous()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,h,hkv", [(96, 8, 8), (160, 8, 2)])
+def test_flash_kernel_takes_strided_bshd_views_at_96_and_160(
+        cuda_device, dtype, d, h, hkv):
+    """The head dims of phi3-mini-3.8b (96) and mistral-nemo-12b (160)
+    on [B, H, S, D] views of [B, S, H, D] tensors: the same result as
+    contiguous inputs, in q's strides, through the mma_sync (bf16) or
+    simt_f32 (float32) variant."""
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_variant)
+    q, k, v = _flash_inputs(2, h, hkv, 256, d, dtype, cuda_device, seed=d)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2)
+             for t in (q, k, v)]
+    ops.reset_launch_counts()
+    o, lse = flash_attention_cuda(*views)
+    o2, lse2 = flash_attention_cuda(q, k, v)
+    variant = flash_variant(dtype, d)
+    assert variant in ("mma_sync", "simt_f32")
+    assert ops.variant_launch_counts()["flash_attention"][variant] == 2
+    assert o.stride() == views[0].stride()
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
@@ -772,6 +811,8 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
          _flash_inputs(1, 4, 2, 100, 64, torch.bfloat16, dev), ValueError),
         ("head dim 48", _flash_inputs(1, 4, 2, 128, 48, torch.float32, dev),
          ValueError),
+        ("head dim 80",
+         _flash_inputs(1, 4, 2, 128, 80, torch.bfloat16, dev), ValueError),
         ("head dim 256",
          _flash_inputs(1, 2, 1, 128, 256, torch.bfloat16, dev), ValueError),
         ("H not a multiple of Hkv",
