@@ -10,7 +10,13 @@
    version on the card, at its path's shapes and a few more, with the
    stated tolerances, and timed (CUDA events, L2 flushed before each
    launch, median) beside the least time the card could take (H100 SXM
-   data-sheet rates; the SMs' exponential rate for the scans);
+   data-sheet rates; the SMs' exponential rate for the scans); the paged
+   kernel at the serving shape and at two long-context decode shapes
+   (``minicpm-2b`` and ``yi-34b``, rows of 253 ... 4096 tokens) and a
+   GQA 32/8 shape, with its split plan, registers, blocks per SM, waves
+   and a ``torch.sum`` over the same K and V bytes; its bf16 output is
+   held element by element to the float32 plain output, a check shown
+   to reject three deliberate faults of the split and merge;
    ``matmul_tiled`` and ``flash_attention`` show which variant each case
    ran (the TMA + wgmma one for bf16 at aligned shapes / D 64 and 128),
    and the earlier kernel is timed beside the new one at the main shape;
@@ -93,6 +99,7 @@ from repro_torch.configs.base import with_layer_units  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLMDataset  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.collectives import shardmap_impl as impl  # noqa: E402
+from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import selective_scan as ss  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda, flash_variant)
@@ -198,6 +205,11 @@ O_FLOOR = 1e-5
 FLASH_FAULTS = ("P rounded to bf16 before P V",
                 "key i dropped from row i (causal mask off by one)",
                 "first KV tile dropped for rows >= S/2")
+#: deliberate faults the paged kernel's bf16 check must reject, at the
+#: long-context shapes (``paged_faulty``)
+PAGED_FAULTS = ("P rounded to bf16 before P V",
+                "last live split of each row left out of the merge",
+                "splits merged with weight 1, not exp(m_s - m)")
 
 #: collective phase: ranks on the one card, bytes per rank (the latency
 #: regime, 256 KB, the trainer's default bucket_bytes, 64 MB), and every
@@ -363,7 +375,8 @@ def paged_bound(q, kp, bt, lens):
 
 def gather_sdpa(q, kp, vp, bt, lens):
     """Context only: a gather of the pages, then one
-    ``scaled_dot_product_attention`` call (two calls, MHA only)."""
+    ``scaled_dot_product_attention`` call (two calls; GQA through
+    ``enable_gqa``)."""
     n, bs, hkv, d = kp.shape
     b, m = bt.shape
     idx = (bt.long()[:, :, None] * bs
@@ -373,22 +386,85 @@ def gather_sdpa(q, kp, vp, bt, lens):
     mask = (torch.arange(m * bs, device="cuda")[None, None, None, :]
             < lens[:, None, None, None])
     return torch.nn.functional.scaled_dot_product_attention(
-        q[:, :, None], k, v, attn_mask=mask)
+        q[:, :, None], k, v, attn_mask=mask, enable_gqa=q.shape[1] != hkv)
+
+
+def paged_faulty(q, kp, vp, bt, lens, split_blocks, fault):
+    """The paged kernel's function in float32, split as the kernel splits
+    it (``split_blocks`` blocks a split, partials merged in split order),
+    with one deliberate fault of ``PAGED_FAULTS``; the output rounded to
+    q's dtype, a length-0 row zeros."""
+    n, bs, hkv, d = kp.shape
+    b, h, _ = q.shape
+    span = split_blocks * bs
+    out = torch.zeros((b, hkv, h // hkv, d), device=q.device)
+    qf = q.float().view(b, hkv, h // hkv, d) / d ** 0.5
+    for row, length in enumerate(lens.tolist()):
+        if length <= 0:
+            continue
+        blocks = bt[row, :-(-length // bs)].long()
+        k = kp[blocks].reshape(-1, hkv, d)[:length].float()
+        v = vp[blocks].reshape(-1, hkv, d)[:length].float()
+        parts = []
+        for t0 in range(0, length, span):
+            s = torch.einsum("kgd,tkd->kgt", qf[row], k[t0:t0 + span])
+            m_s = s.amax(-1, keepdim=True)
+            p = torch.exp(s - m_s)
+            if fault == PAGED_FAULTS[0]:
+                p = p.to(torch.bfloat16).float()
+            parts.append((m_s, p.sum(-1, keepdim=True),
+                          torch.einsum("kgt,tkd->kgd", p, v[t0:t0 + span])))
+        if fault == PAGED_FAULTS[1] and len(parts) > 1:
+            parts = parts[:-1]
+        m_all = torch.stack([m_s for m_s, _, _ in parts]).amax(0)
+        num, den = torch.zeros_like(out[row]), torch.zeros_like(m_all)
+        for m_s, l_s, acc in parts:
+            wt = (torch.ones_like(m_s) if fault == PAGED_FAULTS[2]
+                  else torch.exp(m_s - m_all))
+            num, den = num + acc * wt, den + l_s * wt
+        out[row] = num / den
+    return out.view(b, h, d).to(q.dtype)
+
+
+def stream_floor_ms(nbytes: int) -> float:
+    """``torch.sum`` over a bf16 tensor of ``nbytes`` under ``time_ms``
+    (same L2 flush): the time one library call takes to stream the bytes
+    the paged kernel must read, a floor nearer than the data sheet's."""
+    x = torch.ones(nbytes // 2, dtype=torch.bfloat16, device="cuda")
+    ms = time_ms(lambda: torch.sum(x, dtype=torch.float32))
+    del x
+    return ms
+
+
+#: rows of 253 ... 4096 tokens (256 k - 3 (k mod 4), k = 1 .. 16): the
+#: long-context decode cases, where every step re-reads the whole cache
+PAGED_LONG = [256 * k - 3 * (k % 4) for k in range(1, 17)]
+#: (label, b, h, hkv, d, bs, n_blocks, lengths, dtype, timed)
+PAGED_CASES = (
+    ("minicpm-2b decode (serving shape)", 8, 36, 36, 64, 16, 201,
+     [1, 0, 37, 100, 157, 211, 290, 383], torch.bfloat16, True),
+    ("minicpm-2b long-context decode", 16, 36, 36, 64, 16, 2400,
+     PAGED_LONG, torch.bfloat16, True),
+    ("yi-34b GQA 56/8 long-context decode", 16, 56, 8, 128, 16, 2400,
+     PAGED_LONG, torch.bfloat16, True),
+    ("GQA 32/8, head dim 128", 8, 32, 8, 128, 16, 201,
+     [5, 64, 1, 0, 129, 250, 311, 384], torch.bfloat16, True),
+    ("minicpm-2b shape, float32", 8, 36, 36, 64, 16, 201,
+     [1, 0, 37, 100, 157, 211, 290, 383], torch.float32, False),
+)
 
 
 def kernel_phase(seed: int) -> dict:
-    cases = [
-        # (label, b, h, hkv, d, bs, n_blocks, lengths, dtype)
-        ("minicpm-2b decode (serving shape)", 8, 36, 36, 64, 16, 201,
-         [1, 0, 37, 100, 157, 211, 290, 383], torch.bfloat16),
-        ("GQA 32/8, head dim 128", 8, 32, 8, 128, 16, 201,
-         [5, 64, 1, 0, 129, 250, 311, 384], torch.bfloat16),
-        ("minicpm-2b shape, float32", 8, 36, 36, 64, 16, 201,
-         [1, 0, 37, 100, 157, 211, 290, 383], torch.float32),
-    ]
+    """The paged kernel at each of ``PAGED_CASES`` against its plain
+    version (tolerance; bf16 also element by element, within one bf16 ulp
+    of the float32 plain output, a check that must reject
+    ``PAGED_FAULTS`` at the long-context shapes; zeros for length-0 rows,
+    bitwise equal on a second call, stale-safe), then timed at the timed
+    cases; the first case, the serving shape, is the JSON row's."""
     max_err = 0.0
-    main = None
-    for i, (label, b, h, hkv, d, bs, nb, lengths, dtype) in enumerate(cases):
+    timed = []
+    for i, (label, b, h, hkv, d, bs, nb, lengths, dtype, time_it) in \
+            enumerate(PAGED_CASES):
         q, kp, vp, bt, lens = paged_case(b, h, hkv, d, bs, nb, lengths,
                                          dtype, seed + i)
         got = ops.paged_attention(q, kp, vp, bt, lens)
@@ -399,6 +475,29 @@ def kernel_phase(seed: int) -> dict:
         assert torch.all(got[~live] == 0), "length-0 rows must give zeros"
         err = float((got[live].float() - want[live].float()).abs().max())
         assert err <= TOL[dtype], (label, err, TOL[dtype])
+        del want
+        check = f"max_abs_err={err:.3e} (tol {TOL[dtype]:.0e})"
+        if dtype == torch.bfloat16:
+            # float32 inputs hold the same values: the plain output before
+            # its cast to q's dtype
+            want_f = paged_attention_ref(q.float(), kp.float(), vp.float(),
+                                         bt, lens)
+            ratio = bf16_ratio(got[live], want_f[live])
+            assert ratio <= 1.0, (label, ratio)
+            check += (f" | max |err| / (1 bf16 ulp of the float32 plain "
+                      f"output + {O_FLOOR:.0e}) {ratio:.4f} (tol 1)")
+            if "long-context" in label:
+                split_blocks = pa.describe(q, kp, bt)["split_blocks"]
+                faults = {f: bf16_ratio(paged_faulty(
+                    q, kp, vp, bt, lens, split_blocks, f)[live], want_f[live])
+                    for f in PAGED_FAULTS}
+                assert min(faults.values()) > 1.0, (label, faults)
+                check += (" | deliberate faults: " + " | ".join(
+                    f"{f} {r:.1f}" for f, r in faults.items())
+                    + " (each must exceed 1)")
+            del want_f
+        assert torch.equal(got, ops.paged_attention(q, kp, vp, bt, lens)), \
+            f"{label}: two calls differ"
         # clobber every slot past each row's length (the stale block and
         # the tail of the last partial block): the output must not move
         kp2, vp2 = kp.clone(), vp.clone()
@@ -411,24 +510,47 @@ def kernel_phase(seed: int) -> dict:
         again = ops.paged_attention(q, kp2, vp2, bt, lens)
         torch.cuda.synchronize()
         assert torch.equal(got, again), f"{label}: read past a length"
+        del kp2, vp2, again
         max_err = max(max_err, err)
         log(f"kernel paged_attention {label}: B={b} H={h} Hkv={hkv} D={d} "
             f"bs={bs} {str(dtype).split('.')[-1]} lengths={lengths} "
-            f"max_abs_err={err:.3e} (tol {TOL[dtype]:.0e}) stale-safe")
-        if main is None:
-            main = (q, kp, vp, bt, lens)
-    q, kp, vp, bt, lens = main
-    ms = time_ms(lambda: ops.paged_attention(q, kp, vp, bt, lens))
-    plain_ms = time_ms(lambda: paged_attention_ref(q, kp, vp, bt, lens))
-    sdpa_ms = time_ms(lambda: gather_sdpa(q, kp, vp, bt, lens))
-    bound_ms, bound_by = paged_bound(q, kp, bt, lens)
-    log(f"kernel paged_attention timing at the serving shape: kernel "
-        f"{ms:.4f} ms | plain {plain_ms:.4f} ms | bound {bound_ms:.4f} ms "
-        f"({bound_by}; {HBM_BYTES_PER_S / 1e12} TB/s H100 SXM data sheet) "
-        f"| {bound_ms / ms:.1%} of bound")
-    log(f"library_ms: null -- no single PyTorch call computes paged "
-        f"attention; context only, page gather + "
-        f"scaled_dot_product_attention (two calls): {sdpa_ms:.4f} ms")
+            f"{check} | deterministic, stale-safe")
+        if time_it:
+            timed.append((label, q, kp, vp, bt, lens, lengths))
+    rows = []
+    for label, q, kp, vp, bt, lens, lengths in timed:
+        ms = time_ms(lambda: ops.paged_attention(q, kp, vp, bt, lens))
+        plain_ms = time_ms(lambda: paged_attention_ref(q, kp, vp, bt, lens))
+        sdpa_ms = time_ms(lambda: gather_sdpa(q, kp, vp, bt, lens))
+        bound_ms, bound_by = paged_bound(q, kp, bt, lens)
+        floor_ms = stream_floor_ms(2 * sum(lengths) * kp.shape[2]
+                                   * kp.shape[3] * kp.element_size())
+        info = pa.describe(q, kp, bt)
+        bs, hkv = kp.shape[1], kp.shape[2]
+        live = info["query_chunks"] * hkv * sum(
+            -(-math.ceil(n / bs) // info["split_blocks"]) for n in lengths)
+        waves = live / (info["blocks_per_sm"] * info["sms"])
+        log(f"kernel paged_attention timing, {label}: kernel {ms:.4f} ms | "
+            f"plain {plain_ms:.4f} ms | bound {bound_ms:.4f} ms ({bound_by}; "
+            f"{HBM_BYTES_PER_S / 1e12} TB/s H100 SXM data sheet) | "
+            f"{bound_ms / ms:.1%} of bound | streaming floor, torch.sum "
+            f"over the K and V bytes: {floor_ms:.4f} ms | context only, "
+            f"page gather + scaled_dot_product_attention (two calls): "
+            f"{sdpa_ms:.4f} ms")
+        log(f"kernel paged_attention launch, {label}: {info['kernel']}, "
+            f"{info['split_blocks']} blocks a split x {info['n_split']} "
+            f"splits, {info['registers']} registers a thread, "
+            f"{info['spill_bytes']} bytes spilled, {info['threads']} threads "
+            f"and {info['smem_bytes']} bytes of shared memory a block "
+            f"({info['query_rows']} query heads, {info['stage_tokens']} "
+            f"tokens a stage), {info['blocks_per_sm']} blocks per SM | "
+            f"{info['grid_blocks']} blocks, {live} of them hold tokens (the "
+            f"rest start past a length and exit at once), on {info['sms']} "
+            f"SMs = {waves:.3f} waves")
+        rows.append((ms, plain_ms, bound_ms, bound_by))
+    log("library_ms: null -- no single PyTorch call computes paged "
+        "attention (the page gather + SDPA above is two calls)")
+    ms, plain_ms, bound_ms, bound_by = rows[0]
     return {"name": "paged_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention.py:121",

@@ -2,16 +2,21 @@
 (``csrc/paged_attention.cu``), the port's counterpart of the Pallas
 kernel ``repro/kernels/paged_attention.py::paged_attention``.
 
-``paged_attention`` checks its inputs, allocates the output, launches
-the kernel on the current CUDA stream and counts the launch in
+``paged_attention`` checks its inputs, picks the split of every request's
+context (``plan_splits``: host integers only, never ``lengths``),
+allocates the output and the splits' float32 scratch, launches the
+kernel once on the current CUDA stream and counts the launch in
 ``paged_attention.launches``.  It takes CUDA tensors only; the plain
 version for the CPU is ``repro_torch.kernels.ref.paged_attention_ref``
-and ``repro_torch.kernels.ops.paged_attention`` picks between the two.
+(``paged_attention_split_ref`` repeats the kernel's splits) and
+``repro_torch.kernels.ops.paged_attention`` picks between the two.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Dict, Tuple
 
 import torch
 
@@ -20,7 +25,18 @@ from repro_torch.kernels import build
 #: what the kernel takes (csrc/paged_attention.cu)
 MAX_HEAD_DIM = 256
 MAX_BLOCK_SIZE = 64
+#: csrc/paged_attention.cu's kMaxSplits and kMaxSplitBlocks
+MAX_SPLITS = 128
+MAX_SPLIT_BLOCKS = 4096
+#: a split covers at least MIN_SPLIT_TOKENS (its fixed cost: the table
+#: slice, the ring's fill, one partial) and at most MAX_SPLIT_TOKENS (so a
+#: long request spreads over SMs) of a full-length row
+MIN_SPLIT_TOKENS = 64
+MAX_SPLIT_TOKENS = 1024
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: launch counters of the split merge, by (device index, stream): zero
+#: between calls (the kernel's last split of a row zeroes its own)
+_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def _library() -> ctypes.CDLL:
@@ -28,13 +44,69 @@ def _library() -> ctypes.CDLL:
     if not getattr(lib, "_signatures_set", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.paged_attention.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr,
-                                        i32, i32, i32, i32, i32, i32,
-                                        ctypes.c_float, ptr]
+                                        ptr, ptr, ptr, i32, i32, i32, i32,
+                                        i32, i32, i32, i32, ctypes.c_float,
+                                        ptr]
         lib.paged_attention.restype = i32
-        lib.paged_attention_smem_bytes.argtypes = [i32, i32, i32, i32]
+        lib.paged_attention_smem_bytes.argtypes = [i32] * 5
         lib.paged_attention_smem_bytes.restype = ctypes.c_longlong
+        lib.paged_attention_describe.argtypes = [i32] * 5 + [ptr]
+        lib.paged_attention_describe.restype = i32
         lib._signatures_set = True
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _device(index: int) -> Tuple[int, int]:
+    """(SMs, shared memory a block may opt in to) of a CUDA device."""
+    props = torch.cuda.get_device_properties(index)
+    return (props.multi_processor_count,
+            getattr(props, "shared_memory_per_block_optin", 48 * 1024))
+
+
+def plan_splits(m: int, bs: int, b: int, hkv: int, slots: int
+                ) -> Tuple[int, int]:
+    """(blocks a split, splits) for block tables of ``m`` blocks of ``bs``
+    tokens, ``b`` requests and ``hkv`` KV heads on a card that holds
+    ``slots`` blocks of the kernel at once.  Full rows then fill about one
+    wave, a split spans at most ``MAX_SPLIT_TOKENS`` and at least
+    ``MIN_SPLIT_TOKENS``.  Only these integers decide it, so one server
+    plans every decode step alike and the host never waits for the
+    card's ``lengths``.  Split ``s`` covers logical blocks ``[s * blocks,
+    min(m, (s + 1) * blocks))``."""
+    want = max(-(-slots // (b * hkv)), -(-m * bs // MAX_SPLIT_TOKENS), 1)
+    blocks = -(-m // min(want, MAX_SPLITS))
+    blocks = min(max(blocks, -(-MIN_SPLIT_TOKENS // bs)), m)
+    return blocks, -(-m // blocks)
+
+
+def split_plan(q: torch.Tensor, k_pages: torch.Tensor,
+               block_tables: torch.Tensor, slots: int) -> Tuple[int, int]:
+    """``plan_splits`` from the shapes of a call's tensors (no data)."""
+    return plan_splits(block_tables.shape[1], k_pages.shape[1], q.shape[0],
+                       k_pages.shape[2], slots)
+
+
+def _describe(dtype: torch.dtype, group: int, d: int, split_blocks: int,
+              n_split: int) -> dict:
+    out = (ctypes.c_int * 8)()
+    err = _library().paged_attention_describe(
+        _DTYPES[dtype], group, d, split_blocks, n_split,
+        ctypes.addressof(out))
+    build.check_launch("paged_attention_describe", err)
+    info = dict(zip(("registers", "spill_bytes", "threads", "smem_bytes",
+                     "blocks_per_sm", "query_rows", "stage_tokens"), out))
+    info["kernel"] = "paged_mma" if out[7] else "paged_simt"
+    return info
+
+
+@functools.lru_cache(maxsize=None)
+def slots(index: int, dtype: torch.dtype, group: int, d: int) -> int:
+    """Blocks of the kernel for (dtype, GQA group, head dim) that CUDA
+    device ``index`` holds at once: its SMs x the blocks resident an SM
+    (the occupancy API, at a one-block table slice)."""
+    return (_device(index)[0]
+            * _describe(dtype, group, d, 1, 1)["blocks_per_sm"])
 
 
 def _check(q, k_pages, v_pages, block_tables, lengths) -> None:
@@ -81,6 +153,27 @@ def _check(q, k_pages, v_pages, block_tables, lengths) -> None:
                              f"aligned")
 
 
+def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    cnt = _COUNTERS.get(key)
+    if cnt is None or cnt.numel() < n:
+        cnt = _COUNTERS[key] = torch.zeros(n, dtype=torch.int32,
+                                           device=device)
+    return cnt
+
+
+def _smem(lib, dtype, group, d, split_blocks, n_split, device) -> int:
+    smem = lib.paged_attention_smem_bytes(_DTYPES[dtype], group, d,
+                                          split_blocks, n_split)
+    limit = _device(device.index)[1]
+    if not 0 <= smem <= limit:
+        raise ValueError(f"paged_attention: needs {smem} bytes of shared "
+                         f"memory per block, the device allows {limit} "
+                         f"(GQA group {group}, head dim {d}, "
+                         f"{split_blocks} blocks a split)")
+    return smem
+
+
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, block_tables: torch.Tensor,
                     lengths: torch.Tensor) -> torch.Tensor:
@@ -88,35 +181,69 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     the GPU.  ``block_tables``: [B, M] int32 pool indices in logical
     order (every entry below a row's length must be a valid block id);
     ``lengths``: [B] int32 valid tokens per request.  Returns [B, H, D];
-    a length-0 row gives zeros."""
+    a length-0 row gives zeros, and so do all rows when ``M`` is 0 (no
+    launch then, as for ``B`` 0).  One kernel launch; two calls on the
+    same inputs give bitwise equal outputs."""
     _check(q, k_pages, v_pages, block_tables, lengths)
     b, h, d = q.shape
     _, bs, hkv, _ = k_pages.shape
-    out = torch.empty_like(q)
-    if b == 0:
-        return out
+    if b == 0 or block_tables.shape[1] == 0:
+        return torch.zeros_like(q)   # no request, or no token to attend to
     lib = _library()
-    smem = lib.paged_attention_smem_bytes(q.element_size(), h // hkv, d, bs)
-    props = torch.cuda.get_device_properties(q.device)
-    limit = getattr(props, "shared_memory_per_block_optin", 48 * 1024)
-    if smem > limit:
-        raise ValueError(f"paged_attention: needs {smem} bytes of shared "
-                         f"memory per block, the device allows {limit} "
-                         f"(GQA group {h // hkv}, head dim {d}, block {bs})")
+    split_blocks, n_split = split_plan(
+        q, k_pages, block_tables,
+        slots(q.device.index, q.dtype, h // hkv, d))
+    if split_blocks > MAX_SPLIT_BLOCKS:
+        raise ValueError(f"paged_attention: {block_tables.shape[1]} blocks "
+                         f"a row need {split_blocks} blocks a split, more "
+                         f"than {MAX_SPLIT_BLOCKS}")
+    _smem(lib, q.dtype, h // hkv, d, split_blocks, n_split, q.device)
+    out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    if n_split > 1:
+        part_acc = torch.empty((b, h, n_split, d), dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty((b, h, n_split, 2), dtype=torch.float32,
+                              device=q.device)
+        counters = _counters(q.device, stream, b * h)
+        scratch = (part_acc.data_ptr(), part_ml.data_ptr(),
+                   counters.data_ptr())
+    else:
+        scratch = (None, None, None)
     err = lib.paged_attention(
         _DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), b, h, hkv, d, bs, block_tables.shape[1],
-        1.0 / d ** 0.5, stream)
-    if err:
-        raise RuntimeError(f"paged_attention: kernel launch failed with "
-                           f"cudaError_t {err}")
+        out.data_ptr(), *scratch, b, h, hkv, d, bs, block_tables.shape[1],
+        split_blocks, n_split, 1.0 / d ** 0.5, stream)
+    build.check_launch("paged_attention", err)
     paged_attention.launches += 1
     return out
+
+
+def describe(q: torch.Tensor, k_pages: torch.Tensor,
+             block_tables: torch.Tensor) -> dict:
+    """How a call on these tensors runs on the current card: the split
+    plan, the kernel (``paged_simt`` or ``paged_mma``), registers and
+    spilled bytes a thread (from the compiled kernel), threads, dynamic
+    shared memory, query heads and tokens a stage of a block, blocks
+    resident per SM (the occupancy API), the blocks a (request, KV head)
+    pair takes per split (``query_chunks``) and the grid's blocks."""
+    b, h, d = q.shape
+    hkv = k_pages.shape[2]
+    group = h // hkv
+    split_blocks, n_split = split_plan(
+        q, k_pages, block_tables, slots(q.device.index, q.dtype, group, d))
+    info = _describe(q.dtype, group, d, split_blocks, n_split)
+    qchunks = -(-group // info["query_rows"])
+    info.update(split_blocks=split_blocks, n_split=n_split,
+                query_chunks=qchunks, sms=_device(q.device.index)[0],
+                grid_blocks=n_split * hkv * qchunks * b)
+    return info
 
 
 paged_attention.launches = 0
 
 
-__all__ = ["MAX_BLOCK_SIZE", "MAX_HEAD_DIM", "paged_attention"]
+__all__ = ["MAX_BLOCK_SIZE", "MAX_HEAD_DIM", "MAX_SPLITS",
+           "MAX_SPLIT_BLOCKS", "describe", "paged_attention", "plan_splits",
+           "slots", "split_plan"]

@@ -79,6 +79,60 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     return out.to(q.dtype)
 
 
+def paged_attention_split_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                              v_pages: torch.Tensor,
+                              block_tables: torch.Tensor,
+                              lengths: torch.Tensor,
+                              split_blocks: int) -> torch.Tensor:
+    """``paged_attention_ref`` computed as the CUDA kernel splits it: split
+    ``s`` of a request attends over its logical blocks ``[s *
+    split_blocks, (s + 1) * split_blocks)`` below the length, giving a
+    float32 partial (max m, denominator l, unnormalised accumulator); the
+    partials merge in split order with weights exp(m_s - max m), a split
+    without a token (m = -inf) weighing 0 as the reference's ``corr``
+    does.  A length-0 row gives zeros, as the kernels do.  For tests and
+    ``chip_smoke.py``; the serving path never calls it."""
+    n, bs, hkv, d = k_pages.shape
+    b, h, _ = q.shape
+    m = block_tables.shape[1]
+    n_split = -(-m // split_blocks)
+    span = split_blocks * bs
+    s_pad = n_split * span
+    idx = (block_tables.long()[:, :, None] * bs
+           + torch.arange(bs, device=q.device)[None, None, :]
+           ).reshape(b, m * bs)
+    k = k_pages.reshape(n * bs, hkv, d)[idx].transpose(1, 2).float()
+    v = v_pages.reshape(n * bs, hkv, d)[idx].transpose(1, 2).float()
+    k = k.repeat_interleave(h // hkv, dim=1)           # [B, H, S, D]
+    v = v.repeat_interleave(h // hkv, dim=1)
+    live = (torch.arange(m * bs, device=q.device)[None, :]
+            < lengths.clamp(min=0)[:, None])           # [B, S]
+    logits = torch.einsum("bhd,bhkd->bhk", q.float() / (d ** 0.5), k)
+    logits = logits.masked_fill(~live[:, None], float("-inf"))
+    v = v.masked_fill(~live[:, None, :, None], 0.0)
+    pad = s_pad - m * bs
+    logits = torch.nn.functional.pad(logits, (0, pad), value=float("-inf"))
+    v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    logits = logits.reshape(b, h, n_split, span)
+    v = v.reshape(b, h, n_split, span, d)
+    m_s = logits.amax(-1)                              # [B, H, n_split]
+    p = torch.exp(logits - torch.where(torch.isfinite(m_s), m_s,
+                                       torch.zeros_like(m_s))[..., None])
+    l_s = p.sum(-1)
+    acc_s = torch.einsum("bhst,bhstd->bhsd", p, v)
+    m_all = m_s.amax(-1, keepdim=True)
+    w = torch.where(torch.isfinite(m_s), torch.exp(m_s - m_all),
+                    torch.zeros_like(m_s))
+    den = torch.zeros_like(m_all[..., 0])
+    num = torch.zeros_like(acc_s[:, :, 0])
+    for s in range(n_split):                           # the kernel's order
+        den = den + l_s[:, :, s] * w[:, :, s]
+        num = num + acc_s[:, :, s] * w[:, :, s, None]
+    out = torch.where(den[..., None] > 0, num / den[..., None],
+                      torch.zeros_like(num))
+    return out.to(q.dtype)
+
+
 #: the reference's attention chunk (``_KV_CHUNK`` of
 #: ``repro/models/layers.py``): the KV chunk of the plain chunked
 #: attention and the query and key chunk of the flash kernel's plain
@@ -248,4 +302,5 @@ def selective_scan_ref(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
 
 __all__ = ["FLASH_CHUNK", "flash_attention_bwd_ref", "flash_attention_ref",
            "fused_matmul_rs_ref", "matmul_tiled_ref", "multi_add_ref",
-           "paged_attention_ref", "selective_scan_ref"]
+           "paged_attention_ref", "paged_attention_split_ref",
+           "selective_scan_ref"]

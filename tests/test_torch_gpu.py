@@ -7,16 +7,18 @@ machine without JAX:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances: 2e-5 in float32 and 5e-2 in bfloat16 for the paged kernel
-(the reference's own); 2e-4 for float32 model logits; for the scan
-kernels 1e-4 in float32, 5e-2 with bfloat16 inputs, and each gradient's
-max-abs error below 1e-4 of the plain gradient's max-abs (the reference's
-tests/test_kernels.py bounds).  ``multi_add`` adds in the plain version's
-order, so it is held bitwise; ``matmul_tiled`` within 1e-5 (float32) and
-1e-2 (bfloat16, one bf16 ulp) of the plain product's max-abs.  The
-collective tests use integer-valued inputs (exact in any order); the NCCL
-test skips below two cards.  ``flash_attention`` within 2e-5 (float32)
-and 5e-2 (bfloat16) of its plain version, lse within 1e-4, and its
-gradient (plain backward) within 1e-4 of autograd's max-abs.
+(the reference's own), and in bfloat16 also element by element within
+one bf16 ulp (+ 1e-5) of the plain version's float32 output; 2e-4 for
+float32 model logits; for the scan kernels 1e-4 in float32, 5e-2 with
+bfloat16 inputs, and each gradient's max-abs error below 1e-4 of the
+plain gradient's max-abs (the reference's tests/test_kernels.py bounds).
+``multi_add`` adds in the plain version's order, so it is held bitwise;
+``matmul_tiled`` within 1e-5 (float32) and 1e-2 (bfloat16, one bf16 ulp)
+of the plain product's max-abs. The collective tests use integer-valued
+inputs (exact in any order); the NCCL test skips below two cards.
+``flash_attention`` within 2e-5 (float32) and 5e-2 (bfloat16) of its
+plain version, lse within 1e-4, and its gradient (plain backward) within
+1e-4 of autograd's max-abs.
 """
 
 import dataclasses
@@ -47,6 +49,16 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _assert_within_bf16_ulp(got, want_f):
+    """A bf16 output, element by element, within one bf16 ulp of the
+    float32 plain output at that element, plus 1e-5 (rounding takes half
+    an ulp; the rest covers a value that crosses a power of two and the
+    float32 sums' own difference near 0)."""
+    e = torch.floor(torch.log2(want_f.abs().clamp_min(2.0 ** -126)))
+    err = (got.float() - want_f).abs() / (torch.exp2(e - 7) + 1e-5)
+    assert float(err.max()) <= 1.0, float(err.max())
+
+
 def _case(b, h, hkv, d, bs, n, m, dtype, device, seed=5):
     rng = np.random.default_rng(seed)
     q = torch.from_numpy(rng.normal(size=(b, h, d)).astype(np.float32))
@@ -70,6 +82,7 @@ def _case(b, h, hkv, d, bs, n, m, dtype, device, seed=5):
     (4, 32, 8, 128, 16, 64, 8),      # mistral-nemo GQA
     (2, 32, 32, 96, 16, 16, 4),      # phi3 head dim
     (2, 8, 8, 256, 64, 8, 3),        # the largest head dim and block
+    (2, 16, 4, 80, 16, 12, 4),       # GQA at a head dim without paged_mma
 ])
 def test_cuda_kernel_matches_plain(cuda_device, dtype, b, h, hkv, d, bs,
                                    n, m):
@@ -83,6 +96,153 @@ def test_cuda_kernel_matches_plain(cuda_device, dtype, b, h, hkv, d, bs,
     assert torch.all(got[0] == 0)
     torch.testing.assert_close(got[1:].float(), want[1:].float(),
                                rtol=TOL[dtype], atol=TOL[dtype])
+    if dtype == torch.bfloat16:
+        want_f = paged_attention_ref(q.float(), kp.float(), vp.float(), bt,
+                                     lengths)
+        _assert_within_bf16_ulp(got[1:], want_f[1:])
+
+
+def _paged_rows(b, h, hkv, d, bs, n, lengths, dtype, device, seed=9,
+                m=None):
+    """A case with the given lengths: each row owns distinct blocks, then
+    one more block of live data past its length (a stale block), then
+    block 0 up to ``m`` columns."""
+    rng = np.random.default_rng(seed)
+    need = [-(-n_tok // bs) for n_tok in lengths]
+    m = max(m or 0, max(need) + 1)
+    assert sum(need) + b < n, "pool too small"
+    ids = list(rng.permutation(np.arange(1, n)))
+    bt = np.zeros((b, m), np.int32)
+    for row, k in enumerate(need):
+        bt[row, :k + 1] = [ids.pop() for _ in range(k + 1)]
+    f = lambda *shape: torch.from_numpy(
+        rng.normal(size=shape).astype(np.float32)).to(dtype).to(device)
+    return (f(b, h, d), f(n, bs, hkv, d), f(n, bs, hkv, d),
+            torch.from_numpy(bt).to(device),
+            torch.tensor(lengths, dtype=torch.int32, device=device))
+
+
+def _check_paged(q, kp, vp, bt, lengths):
+    """The kernel against the plain version and the plain split version
+    (at the wrapper's own plan): tolerance (bf16: also within one bf16 ulp
+    of both versions' float32 outputs), zeros for length-0 rows, one
+    launch, bitwise equal on a second call.  Returns the output."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels.ref import paged_attention_split_ref
+    ops.reset_launch_counts()
+    got = ops.paged_attention(q, kp, vp, bt, lengths)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["paged_attention"] == 1
+    assert torch.equal(got, ops.paged_attention(q, kp, vp, bt, lengths))
+    tol = TOL[q.dtype]
+    live = lengths > 0
+    assert torch.all(got[~live] == 0)
+    want = paged_attention_ref(q, kp, vp, bt, lengths)
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               rtol=tol, atol=tol)
+    slots = pa.slots(q.device.index, q.dtype, q.shape[1] // kp.shape[2],
+                     q.shape[2])
+    split_blocks, _ = pa.split_plan(q, kp, bt, slots)
+    split = paged_attention_split_ref(q, kp, vp, bt, lengths, split_blocks)
+    torch.testing.assert_close(got.float(), split.float(), rtol=tol,
+                               atol=tol)
+    if q.dtype == torch.bfloat16:
+        f32 = (q.float(), kp.float(), vp.float(), bt, lengths)
+        _assert_within_bf16_ulp(got[live],
+                                paged_attention_ref(*f32)[live])
+        _assert_within_bf16_ulp(got, paged_attention_split_ref(
+            *f32, split_blocks))
+    return got
+
+
+LONG_LENGTHS = [256 * k - 3 * (k % 4) for k in range(1, 17)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,hkv,d", [(36, 36, 64), (56, 8, 128)],
+                         ids=["minicpm-2b", "yi-34b"])
+def test_paged_kernel_long_context(cuda_device, h, hkv, d):
+    """chip_smoke.py's long-context decode shapes: 16 rows of 253 ... 4096
+    tokens in a pool of 2400 blocks of 16, bf16."""
+    _check_paged(*_paged_rows(16, h, hkv, d, 16, 2400, LONG_LENGTHS,
+                              torch.bfloat16, cuda_device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv,d", [(36, 36, 64), (56, 8, 128)],
+                         ids=["group-1", "group-7"])
+def test_paged_kernel_lengths_at_split_boundaries(cuda_device, dtype, h,
+                                                  hkv, d):
+    from repro_torch.kernels import paged_attention as pa
+    b, bs, m = 7, 16, 257
+    split_blocks, n_split = pa.plan_splits(
+        m, bs, b, hkv, pa.slots(0, dtype, h // hkv, d))
+    assert n_split > 1
+    span = split_blocks * bs
+    lengths = [span, span + 1, span - 1, 2 * span, 2 * span + bs, bs, 0]
+    _check_paged(*_paged_rows(b, h, hkv, d, bs, 1200, lengths, dtype,
+                              cuda_device, m=m))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,hkv,d", [(36, 36, 64), (56, 8, 128)],
+                         ids=["group-1", "group-7"])
+def test_paged_kernel_large_table_short_rows(cuda_device, h, hkv, d):
+    """M 1024 columns, rows of at most 40 tokens: most splits start past
+    their length and exit at once."""
+    _check_paged(*_paged_rows(6, h, hkv, d, 16, 64, [3, 0, 17, 40, 1, 16],
+                              torch.bfloat16, cuda_device, m=1024))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,hkv,d", [(36, 36, 64), (56, 8, 128)],
+                         ids=["group-1", "group-7"])
+def test_paged_kernel_ignores_stale_slots(cuda_device, h, hkv, d):
+    """Every slot past each length (the tail of the last block, the stale
+    block, block 0 of the padded columns) clobbered: the output must not
+    move by a bit."""
+    bs = 16
+    lengths = [1, 0, 37, 100, 157, 211, 290, 383]
+    q, kp, vp, bt, lens = _paged_rows(8, h, hkv, d, bs, 201, lengths,
+                                      torch.bfloat16, cuda_device, m=25)
+    got = _check_paged(q, kp, vp, bt, lens)
+    kp2, vp2 = kp.clone(), vp.clone()
+    for row, n_tok in enumerate(lengths):
+        for j, blk in enumerate(bt[row].tolist()):
+            lo = max(n_tok - j * bs, 0)
+            if lo < bs:
+                kp2[blk, lo:] = 1e4
+                vp2[blk, lo:] = -1e4
+    assert torch.equal(got, ops.paged_attention(q, kp2, vp2, bt, lens))
+
+
+@pytest.mark.gpu
+def test_paged_kernel_describe(cuda_device):
+    from repro_torch.kernels import paged_attention as pa
+    for h, hkv, d, kernel in ((36, 36, 64, "paged_simt"),
+                              (56, 8, 128, "paged_mma"),
+                              (56, 8, 80, "paged_simt")):
+        q, kp, _, bt, _ = _paged_rows(16, h, hkv, d, 16, 2400, LONG_LENGTHS,
+                                      torch.bfloat16, cuda_device)
+        info = pa.describe(q, kp, bt)
+        assert info["kernel"] == kernel
+        assert info["spill_bytes"] == 0 and info["blocks_per_sm"] >= 1
+        assert info["n_split"] > 1
+
+
+@pytest.mark.gpu
+def test_paged_kernel_empty_block_table(cuda_device):
+    """A table of no columns gives zeros without a launch, as the CPU
+    route gives zeros."""
+    q, kp, vp, _, _ = _case(2, 4, 2, 16, 8, 10, 3, torch.bfloat16,
+                            cuda_device)
+    bt = torch.zeros((2, 0), dtype=torch.int32, device=cuda_device)
+    lengths = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    ops.reset_launch_counts()
+    got = ops.paged_attention(q, kp, vp, bt, lengths)
+    assert ops.launch_counts()["paged_attention"] == 0
+    assert torch.equal(got, torch.zeros_like(q))
 
 
 @pytest.mark.gpu
