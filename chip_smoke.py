@@ -44,26 +44,38 @@
    float32 integer-valued inputs bitwise equal to the sum over ranks,
    bfloat16 within 5e-2 of it.  ``auto``'s decisions are printed with
    their prices on the reference's TPU fabric model;
-8. fused ring phase: ``fused_matmul_reduce_scatter`` for the TP-8
+8. 2D collective phase: the same 8 ranks as the reference's multi-device
+   grids, 2 x 4 over (pod, data) and 2 x 2 x 2 over (pod, data) and
+   (pod, data, model): ``allreduce_multi`` (the paper's X-Y and Snake
+   AllReduces among the plan shapes), ``reduce_scatter_multi``,
+   ``allgather_multi`` and ``all_to_all_multi`` under every plan shape
+   the planner offers there and ``auto``, at 4 KB, 256 KB and 16 MB per
+   rank; float32 integer-valued inputs bitwise equal to the exact
+   result, bf16 bitwise equal to the same op on CPU ranks up to 256 KB
+   and within one bf16 ulp per add at 16 MB; ``auto``'s plans with their
+   TPU-model prices, the engine's plan hits and misses, host walls;
+9. fused ring phase: ``fused_matmul_reduce_scatter`` for the TP-8
    down-projection of ``yi-34b`` at its published widths (d_ff 20480,
    d_model 7168, batch 2 x 4096 tokens, bf16) on 8 local ranks: 64
    ``matmul_tiled`` launches, all of the wgmma variant, each rank's block
    against the gathered
    path and a sampled slice against a float64 product, and one backward
    through ``matmul_tiled``;
-9. NCCL phase, only with two or more cards: one ``ProcessGroupComm`` rank
-   per card repeats the float32 collective checks and the fused ring;
-10. dense train phase: ``minicpm-2b`` at its published width and depth
+10. NCCL phase, only with two or more cards: one ``ProcessGroupComm``
+   rank per card repeats the float32 collective checks and the fused
+   ring, and with four or more ``allreduce_multi`` over a 2 x (cards /
+   2) ``ProcessGroupGrid`` as 2d_xy, 2d_snake and hierarchical;
+11. dense train phase: ``minicpm-2b`` at its published width and depth
    (40 layers, bf16, random weights from ``--seed``), 5 WSD steps of
    batch 2 x 4096 tokens through ``make_train_step``, every layer's
    attention (forward and remat recompute) in the flash kernel's wgmma
    variant: loss per step, step time, tokens/s, peak memory, launch
    counts, one step profiled;
-11. dense route checks: one float32 train step of a 2-layer minicpm-2b at
+12. dense route checks: one float32 train step of a 2-layer minicpm-2b at
    full width (1 x 4096 tokens) through the flash kernel and through the
    plain chunked attention, from the same weights and batch; then the
    same for phi3-mini-3.8b (head dim 96) and mistral-nemo-12b (160);
-12. dense prefill + decode: 2 x 4096-token prompts through ``prefill`` at
+13. dense prefill + decode: 2 x 4096-token prompts through ``prefill`` at
    full depth (one wgmma flash launch per layer), the cache padded by 8
    positions, 8 greedy ``decode_step``s, each step's logits held against
    the teacher-forced forward.
@@ -92,8 +104,9 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.collectives import (CollectiveEngine,  # noqa: E402
-                                     ProcessGroupComm, get_engine,
-                                     run_local)
+                                     ProcessGroupComm, ProcessGroupGrid,
+                                     get_engine, planner, run_local,
+                                     run_local_grid)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import with_layer_units  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLMDataset  # noqa: E402
@@ -228,6 +241,17 @@ ALGORITHMS = {
     "all_to_all": ("lax", "oneshot", "ring", "halving", "auto"),
 }
 BROADCAST_ROOT = 3
+#: 2D collective phase: the 8 ranks as the reference's multi-device
+#: grids, (shape, axis names, the axis subsets the ops run over); bytes
+#: per rank straddling the planner's latency and bandwidth regimes; bf16
+#: held bitwise to CPU ranks up to BF16_CPU_BYTES
+GRIDS_2D = (((2, 4), ("pod", "data"), (("pod", "data"),)),
+            ((2, 2, 2), ("pod", "data", "model"),
+             (("pod", "data"), ("pod", "data", "model"))))
+COLLECTIVE_2D_BYTES = (4 << 10, 256 << 10, 16 << 20)
+BF16_CPU_BYTES = 256 << 10
+#: what the NCCL phase runs over a (2, cards / 2) ProcessGroupGrid
+NCCL_2D_SHAPES = ("2d_xy", "2d_snake", "hierarchical")
 #: fused ring: the TP-8 down-projection of yi-34b (d_ff 20480 -> d_model
 #: 7168) over 2 x 4096 tokens, bf16
 FUSED_ARCH = "yi-34b"
@@ -1750,6 +1774,150 @@ def collective_phase(seed: int) -> None:
         f"{prof}")
 
 
+# ------------------------ 2D collective phase --------------------------- #
+def shapes_2d(op: str, n_axes: int) -> list:
+    """``auto`` and every plan shape the planner offers for ``op`` over
+    ``n_axes`` effective axes (the 2D ones on two axes only, ``latency``
+    not for reduce_scatter)."""
+    if op == "allreduce":
+        shapes = [s for s in planner.ALLREDUCE_SHAPES
+                  if n_axes == 2 or not s.startswith("2d_")]
+    elif op == "all_to_all":
+        shapes = list(planner.ALL_TO_ALL_SHAPES)
+    else:
+        shapes = [s for s in planner.SHARDED_SHAPES
+                  if op == "allgather" or s != "latency"]
+    return ["auto"] + shapes
+
+
+def inputs_2d(op: str, nbytes: int, dtype, seed: int):
+    """Each of the 8 ranks' 1-D input of about ``nbytes``: an odd length
+    where the op allows it (reduce_scatter and all_to_all split by the
+    group); integer-valued float32 in [-8, 8] (every order of adds is
+    exact) or normal bfloat16."""
+    n = nbytes // torch.tensor([], dtype=dtype).element_size()
+    if op in ("reduce_scatter", "all_to_all"):
+        n -= n % COLLECTIVE_RANKS
+    else:
+        n -= 1 - n % 2
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    if dtype == torch.float32:
+        return [torch.randint(-8, 9, (n,), generator=gen, device="cuda",
+                              dtype=torch.int32).float()
+                for _ in range(COLLECTIVE_RANKS)]
+    return [torch.randn((n,), generator=gen, device="cuda").to(dtype)
+            for _ in range(COLLECTIVE_RANKS)]
+
+
+def expected_2d(op: str, group, me: int):
+    """What sub-rank ``me`` of a group holding ``group`` must hold, in
+    float32, and the float32 sum of the inputs' magnitudes (for the bf16
+    bound; None for the ops that only move values)."""
+    p = len(group)
+    if op in ("allreduce", "reduce_scatter"):
+        total = torch.stack([x.float() for x in group]).sum(0)
+        mag = torch.stack([x.float().abs() for x in group]).sum(0)
+        if op == "reduce_scatter":
+            return total.chunk(p)[me], mag.chunk(p)[me]
+        return total, mag
+    if op == "allgather":
+        return torch.cat(group).float(), None
+    return torch.cat([x.chunk(p)[me] for x in group]).float(), None
+
+
+def check_2d(op: str, out, xs, members, rank: int, cpu_out) -> float:
+    """float32: bitwise equal to the exact result.  bf16: bitwise equal to
+    the CPU ranks' result where there is one; else the moved values
+    bitwise, and each element of a sum within one bf16 ulp (of the sum
+    of the inputs' magnitudes, which bounds every partial) per add of
+    the group, P - 1 adds.  Returns that ratio (0 where bitwise)."""
+    group = [xs[m] for m in members]
+    want, mag = expected_2d(op, group, members.index(rank))
+    if out.dtype == torch.float32 or mag is None:
+        assert torch.equal(out.float(), want), (op, rank)
+        return 0.0
+    if cpu_out is not None:
+        assert torch.equal(out.cpu(), cpu_out), (op, rank)
+        return 0.0
+    bound = (len(group) - 1) * bf16_ulp(mag)
+    ratio = float(((out.float() - want).abs() / bound).max())
+    assert ratio <= 1.0, (op, rank, ratio)
+    return ratio
+
+
+def collective_2d_phase(seed: int) -> None:
+    """The paper's 2D and multi-axis collectives on 8 LocalComm ranks of
+    the card arranged as the reference's grids: every plan shape and
+    ``auto`` of the four multi-axis ops, at three sizes, float32 exact
+    and bf16 held to the same plan on CPU ranks (and to one bf16 ulp per
+    add at the largest size)."""
+    eng = get_engine()
+    cpu_eng = CollectiveEngine(persist=False, device="cpu")
+    t0 = time.perf_counter()
+    runs, worst = 0, 0.0
+    autos = []
+    for shape, names, subsets in GRIDS_2D:
+        for axes in subsets:
+            grid_label = (f"{' x '.join(map(str, shape))} grid over "
+                          f"({', '.join(axes)})")
+            for op in ("allreduce", "reduce_scatter", "allgather",
+                       "all_to_all"):
+                fn = getattr(eng, op + "_multi")
+                cpu_fn = getattr(cpu_eng, op + "_multi")
+                for nbytes in COLLECTIVE_2D_BYTES:
+                    for dtype in (torch.float32, torch.bfloat16):
+                        xs = inputs_2d(op, nbytes, dtype, seed + nbytes)
+                        on_cpu = (dtype == torch.bfloat16
+                                  and nbytes <= BF16_CPU_BYTES)
+                        xs_cpu = [x.cpu() for x in xs] if on_cpu else None
+                        for alg in shapes_2d(op, len(axes)):
+                            t1 = time.perf_counter()
+                            outs = run_local_grid(
+                                lambda g: (fn(xs[g.rank], g, axes, alg),
+                                           g.members(axes)), shape, names)
+                            torch.cuda.synchronize()
+                            wall = time.perf_counter() - t1
+                            cpu_outs = (run_local_grid(
+                                lambda g: cpu_fn(xs_cpu[g.rank], g, axes,
+                                                 alg), shape, names, "cpu")
+                                if on_cpu else [None] * len(outs))
+                            for r, (out, members) in enumerate(outs):
+                                worst = max(worst, check_2d(
+                                    op, out, xs, members, r, cpu_outs[r]))
+                            runs += 1
+                            if alg == "auto" and dtype == torch.float32:
+                                autos.append((grid_label, op, nbytes,
+                                              wall, len(xs[0]), axes,
+                                              [shape[names.index(a)]
+                                               for a in axes]))
+                            del outs, cpu_outs
+                        del xs, xs_cpu
+                torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    stats = eng.stats_snapshot()
+    for grid_label, op, nbytes, t_auto, n, axes, sizes in autos:
+        model_bytes = n * 4 * (math.prod(sizes) if op == "allgather" else 1)
+        plan = eng.plan_multi(op, axes, sizes, model_bytes)
+        log(f"2D auto {op} {nbytes >> 10} KB/rank on the {grid_label}: "
+            f"{plan.describe()}, n_chunks {plan.n_chunks}, predicted "
+            f"{plan.predicted:.1f} model cycles (TPU v5e ICI model, not an "
+            f"H100 number); host wall {t_auto * 1e3:.1f} ms (threads on one "
+            f"card, not a fabric time)")
+    log(f"2D collectives: {runs} runs (allreduce_multi, reduce_scatter_multi,"
+        f" allgather_multi, all_to_all_multi x every plan shape + auto x "
+        f"{len(COLLECTIVE_2D_BYTES)} sizes x float32/bf16) on "
+        f"{COLLECTIVE_RANKS} LocalComm ranks as a 2 x 4 and a 2 x 2 x 2 grid:"
+        f" float32 bitwise equal to the exact result on every rank; bf16 "
+        f"bitwise equal to CPU ranks at <= {BF16_CPU_BYTES >> 10} KB, at "
+        f"{COLLECTIVE_2D_BYTES[-1] >> 10} KB within {worst:.3f} of one bf16 "
+        f"ulp per add (bound 1); engine plan_hits {stats['plan_hits']}, "
+        f"plan_misses {stats['plan_misses']} (the ranks share the engine: "
+        f"a new plan is one miss, every later lookup on any rank a hit); "
+        f"{wall:.1f} s of host wall (threads on one card, not a fabric "
+        f"time)")
+
+
 # -------------------------- fused ring phase ---------------------------- #
 def fused_inputs(cfg, seed: int):
     """Each TP rank's activations [tokens, d_ff / TP] (normal) and weight
@@ -1879,18 +2047,32 @@ def nccl_worker(rank: int, world: int, init: str, seed: int) -> int:
     gathered = impl.matmul_then_rs(xs[rank], ws[rank], comm)
     err = _rel_err(got, gathered)
     assert err <= FUSED_TOL, err
+    grid_note = "no grid (fewer than 4 cards)"
+    if world >= 4:
+        shape = (2, world // 2)
+        grid = ProcessGroupGrid(shape, ("pod", "data"), device=comm.device)
+        with torch.cuda.device(comm.device):
+            xs = inputs_2d("allreduce", 4 << 20, torch.float32, seed)[:world]
+        total = torch.stack(xs).sum(0)
+        for alg in NCCL_2D_SHAPES:
+            out = eng.allreduce_multi(xs[rank], grid, ("pod", "data"), alg)
+            assert torch.equal(out, total), alg
+        grid_note = (f"allreduce_multi over a {shape[0]}x{shape[1]} "
+                     f"ProcessGroupGrid as {', '.join(NCCL_2D_SHAPES)}: "
+                     f"exact")
     torch.cuda.synchronize(comm.device)
     torch.distributed.destroy_process_group()
     print(f"nccl rank {rank}/{world}: {checks} float32 collective checks "
-          f"exact; fused ring vs gathered path err / max-abs {err:.3e}",
-          flush=True)
+          f"exact; fused ring vs gathered path err / max-abs {err:.3e}; "
+          f"{grid_note}", flush=True)
     return 0
 
 
 def nccl_phase(seed: int) -> None:
     cards = torch.cuda.device_count()
     if cards < 2:
-        log(f"nccl phase: not run ({cards} card)")
+        log(f"nccl phase: not run ({cards} card); nor the 2D allreduce_multi "
+            f"over a 2x2 ProcessGroupGrid (needs 4 cards)")
         return
     world = 1 << (cards.bit_length() - 1)   # a power of two (tree, doubling)
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -1977,6 +2159,8 @@ def main(argv=None) -> int:
     dense_decode_phase(args.seed)
     torch.cuda.empty_cache()
     collective_phase(args.seed)
+    torch.cuda.empty_cache()
+    collective_2d_phase(args.seed)
     torch.cuda.empty_cache()
     fused_phase(args.seed, rows)
     torch.cuda.empty_cache()

@@ -1,10 +1,12 @@
-"""Public collective API: model-driven algorithm selection over one axis.
+"""Public collective API: model-driven selection over one axis or a grid.
 
     allreduce(x, comm, algorithm="auto")
     reduce_scatter(x, comm, algorithm="auto")
     allgather(x, comm, algorithm="auto")
     broadcast(x, comm, root=0, algorithm="auto")
     all_to_all(x, comm, algorithm="auto")
+    allreduce_multi_inside(x, grid, axes, algorithm="auto")   (and the
+        reduce_scatter / allgather / all_to_all forms, plan_collective)
 
 ``comm`` is this rank's :class:`~repro_torch.collectives.comm.Comm` (the
 port's counterpart of a mesh axis).  ``algorithm``:
@@ -21,8 +23,9 @@ port's counterpart of a mesh axis).  ``algorithm``:
 Dispatch and caching live in the CollectiveEngine (engine.py); this
 module keeps the functional surface and hands out a process-wide
 default engine per (fabric, device), so every call site shares one
-decision cache.  The multi-axis entry points raise until the planner is
-ported.
+decision cache.  The ``*_multi_inside`` entry points and
+``plan_collective`` run the topology planner's joint plans over a tuple
+of a :class:`~repro_torch.collectives.comm.GridComm`'s axes.
 """
 
 from __future__ import annotations
@@ -32,8 +35,8 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.collectives.comm import Comm
-from repro_torch.collectives.engine import (CollectiveEngine, _not_ported,
+from repro_torch.collectives.comm import Comm, GridComm
+from repro_torch.collectives.engine import (CollectiveEngine,
                                             find_calibrated_topology)
 from repro_torch.core.model import TPU_V5E_AXIS, Fabric, FabricTopology
 from repro_torch.device import DeviceLike, resolve_device
@@ -76,7 +79,8 @@ def set_engine(engine: CollectiveEngine,
         _ENGINES[(fabric or engine.fabric, engine.device.type)] = engine
 
 
-def _engine(comm: Comm, fabric: _FabricKey) -> CollectiveEngine:
+def _engine(comm: Union[Comm, GridComm], fabric: _FabricKey
+            ) -> CollectiveEngine:
     return get_engine(fabric, device=comm.device)
 
 
@@ -153,24 +157,51 @@ def all_to_all(x: torch.Tensor, comm: Comm, algorithm: str = "auto",
     return _engine(comm, fabric).all_to_all(x, comm, algorithm)
 
 
-def allreduce_multi_inside(*args, **kwargs):
-    raise _not_ported("allreduce_multi_inside", "multi")
+def allreduce_multi_inside(x: torch.Tensor, grid: GridComm, axes,
+                           algorithm: str = "auto",
+                           fabric: Fabric = TPU_V5E_AXIS) -> torch.Tensor:
+    """Joint multi-axis AllReduce (planner-driven) over a tuple of the
+    grid's axes.  ``algorithm`` is ``"auto"`` or a plan shape:
+    ``sequential`` / ``hierarchical`` / ``2d_xy`` / ``2d_snake`` /
+    ``flat`` / ``latency`` (or a 1D backend name, run on every axis)."""
+    return _engine(grid, fabric).allreduce_multi(x, grid, axes, algorithm)
 
 
-def reduce_scatter_multi_inside(*args, **kwargs):
-    raise _not_ported("reduce_scatter_multi_inside", "multi")
+def reduce_scatter_multi_inside(x: torch.Tensor, grid: GridComm, axes,
+                                algorithm: str = "auto",
+                                fabric: Fabric = TPU_V5E_AXIS
+                                ) -> torch.Tensor:
+    """Multi-axis reduce-scatter (``lax.psum_scatter(x, axes,
+    tiled=True)`` semantics over the folded axes)."""
+    return _engine(grid, fabric).reduce_scatter_multi(x, grid, axes,
+                                                      algorithm)
 
 
-def allgather_multi_inside(*args, **kwargs):
-    raise _not_ported("allgather_multi_inside", "multi")
+def allgather_multi_inside(x: torch.Tensor, grid: GridComm, axes,
+                           algorithm: str = "auto",
+                           fabric: Fabric = TPU_V5E_AXIS) -> torch.Tensor:
+    """Multi-axis allgather (``lax.all_gather(x, axes, tiled=True)``
+    semantics over the folded axes)."""
+    return _engine(grid, fabric).allgather_multi(x, grid, axes, algorithm)
 
 
-def all_to_all_multi_inside(*args, **kwargs):
-    raise _not_ported("all_to_all_multi_inside", "multi")
+def all_to_all_multi_inside(x: torch.Tensor, grid: GridComm, axes,
+                            algorithm: str = "auto",
+                            fabric: Fabric = TPU_V5E_AXIS) -> torch.Tensor:
+    """Joint multi-axis all_to_all (planner-driven).  ``algorithm`` is
+    ``"auto"``, a plan shape (``hierarchical`` / ``sequential`` /
+    ``flat`` / ``latency``), ``"lax"`` (the native over the folded
+    axes) or a 1D backend name (``ring`` / ``halving``)."""
+    return _engine(grid, fabric).all_to_all_multi(x, grid, axes, algorithm)
 
 
-def plan_collective(*args, **kwargs):
-    raise _not_ported("plan_collective", "multi")
+def plan_collective(op: str, grid: GridComm, axes, nbytes: int,
+                    fabric: Fabric = TPU_V5E_AXIS):
+    """The joint ``CollectivePlan`` the engine would run for an op over
+    a tuple of the grid's axes at a given byte size (introspection)."""
+    axes = tuple(axes)
+    sizes = tuple(grid.axis_size(a) for a in axes)
+    return _engine(grid, fabric).plan_multi(op, axes, sizes, nbytes)
 
 
 __all__ = ["get_engine", "set_engine", "select_algorithm",

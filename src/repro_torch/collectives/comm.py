@@ -28,8 +28,12 @@ without a GPU that raises (``repro_torch.device.resolve_device``).
 
 from __future__ import annotations
 
+import copy
+import itertools
+import math
 import threading
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
+                   Union)
 
 import torch
 import torch.distributed as dist
@@ -37,6 +41,8 @@ import torch.distributed as dist
 from repro_torch.device import DeviceLike, resolve_device
 
 Pairs = Sequence[Tuple[int, int]]
+#: one axis name, or a tuple of names for a folded (row-major) subset
+AxisName = Union[str, Tuple[str, ...], None]
 
 #: seconds a LocalComm rank waits for its peers before it gives up
 DEFAULT_TIMEOUT = 600.0
@@ -63,6 +69,18 @@ def _recv_source(pairs: Pairs, rank: int, size: int) -> Optional[int]:
     return found
 
 
+def _rank_order_sum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The natives' sum, as XLA's CPU all-reduce adds under
+    ``shard_map``: in rank order, a 16-bit float type accumulated in
+    float32 and rounded once (float32 in float32)."""
+    acc = parts[0].clone()
+    if acc.dtype in (torch.bfloat16, torch.float16):
+        acc = acc.float()
+    for other in parts[1:]:
+        acc = acc + other
+    return acc.to(parts[0].dtype)
+
+
 def _chunks(x: torch.Tensor, p: int) -> List[torch.Tensor]:
     if x.shape[0] % p:
         raise ValueError(f"leading dim {x.shape[0]} is not divisible by "
@@ -74,14 +92,15 @@ def _chunks(x: torch.Tensor, p: int) -> List[torch.Tensor]:
 class Comm:
     """One rank's handle on a group of ``size`` ranks along one axis.
 
-    ``axis`` names the axis for a per-axis fabric lookup
-    (``FabricTopology.for_axis``); None prices with the default fabric.
+    ``axis`` names the axis, or the tuple of axes a grid's folded subset
+    spans, for a per-axis fabric lookup (``FabricTopology.for_axis``);
+    None prices with the default fabric.
     """
 
     rank: int
     size: int
     device: torch.device
-    axis: Optional[str]
+    axis: AxisName
 
     def _check(self, x: torch.Tensor) -> None:
         if x.device.type != self.device.type:
@@ -108,8 +127,8 @@ class Comm:
 # P ranks as P threads of one process
 # ---------------------------------------------------------------------- #
 class _LocalGroup:
-    """What the threads of one :func:`run_local` share: a barrier and
-    one slot per rank for the tensor it offers in the current round."""
+    """What the rank threads of one group share: a barrier and one slot
+    per rank for the tensor it offers in the current round."""
 
     def __init__(self, size: int, timeout: float):
         self.size = size
@@ -128,6 +147,36 @@ class _LocalGroup:
         self.barrier.wait()
 
 
+class _LocalGroups:
+    """Every :class:`_LocalGroup` of one run, made on first use by
+    whichever rank asks first.  An error in any rank aborts every
+    group's barrier, those made later included, so no rank waits on a
+    peer that will never come (a grid's rows, columns and folded subsets
+    are separate groups)."""
+
+    def __init__(self, timeout: float):
+        self._timeout = timeout
+        self._lock = threading.Lock()
+        self._groups: Dict[Any, _LocalGroup] = {}
+        self._aborted = False
+
+    def get(self, key: Any, size: int) -> _LocalGroup:
+        with self._lock:
+            group = self._groups.get(key)
+            if group is None:
+                group = _LocalGroup(size, self._timeout)
+                if self._aborted:
+                    group.barrier.abort()
+                self._groups[key] = group
+            return group
+
+    def abort(self) -> None:
+        with self._lock:
+            self._aborted = True
+            for group in self._groups.values():
+                group.barrier.abort()
+
+
 class LocalComm(Comm):
     """Rank ``rank`` of ``size`` threads of one process on one device.
 
@@ -137,11 +186,11 @@ class LocalComm(Comm):
     uses it), so the copy a receiver enqueues runs after the kernels the
     sender enqueued to produce the tensor, and before anything the
     sender enqueues after the round: no event or stream synchronisation
-    is needed.  Made by :func:`run_local`.
+    is needed.  Made by :func:`run_local` and :meth:`GridComm.sub`.
     """
 
     def __init__(self, group: _LocalGroup, rank: int, device: torch.device,
-                 axis: Optional[str] = None):
+                 axis: AxisName = None):
         self._group = group
         self.rank = rank
         self.size = group.size
@@ -158,22 +207,18 @@ class LocalComm(Comm):
         return out
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum over ranks in rank order, in the input dtype."""
+        """Sum over ranks in rank order (:func:`_rank_order_sum`)."""
         self._check(x)
         slots = self._group.offer(self.rank, x)
-        out = slots[0].clone()
-        for other in slots[1:]:
-            out = out + other
+        out = _rank_order_sum(slots)
         self._group.done()
         return out
 
     def psum_scatter(self, x: torch.Tensor) -> torch.Tensor:
         self._check(x)
         slots = self._group.offer(self.rank, x)
-        parts = [_chunks(t, self.size)[self.rank] for t in slots]
-        out = parts[0].clone()
-        for other in parts[1:]:
-            out = out + other
+        out = _rank_order_sum([_chunks(t, self.size)[self.rank]
+                               for t in slots])
         self._group.done()
         return out
 
@@ -193,19 +238,18 @@ class LocalComm(Comm):
         return out
 
 
-def run_local(fn: Callable[[LocalComm], Any], size: int,
-              device: DeviceLike = None, *, axis: Optional[str] = None,
-              timeout: float = DEFAULT_TIMEOUT) -> List[Any]:
-    """Run ``fn(comm)`` on ``size`` :class:`LocalComm` ranks, one thread
-    each, and return their results by rank.  ``device`` defaults to
-    CUDA (and raises without a GPU).  If a rank raises, the others are
-    released from their barriers and the first error is raised here."""
+def _local_device(device: DeviceLike) -> torch.device:
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    if size < 1:
-        raise ValueError(f"need at least one rank, got {size}")
-    group = _LocalGroup(size, timeout)
+    return dev
+
+
+def _run_threads(fn: Callable[[int], Any], size: int, dev: torch.device,
+                 groups: _LocalGroups) -> List[Any]:
+    """``fn(rank)`` on ``size`` threads; the results by rank.  If a rank
+    raises, every group of the run is aborted and the first error that
+    is not a broken barrier is raised here."""
     results: List[Any] = [None] * size
     errors: Dict[int, BaseException] = {}
 
@@ -213,10 +257,10 @@ def run_local(fn: Callable[[LocalComm], Any], size: int,
         try:
             if dev.type == "cuda":
                 torch.cuda.set_device(dev)
-            results[rank] = fn(LocalComm(group, rank, dev, axis))
+            results[rank] = fn(rank)
         except BaseException as exc:        # noqa: BLE001 -- re-raised
             errors[rank] = exc
-            group.barrier.abort()
+            groups.abort()
 
     threads = [threading.Thread(target=worker, args=(r,), daemon=True,
                                 name=f"local-rank-{r}")
@@ -232,9 +276,187 @@ def run_local(fn: Callable[[LocalComm], Any], size: int,
     return results
 
 
+def run_local(fn: Callable[[LocalComm], Any], size: int,
+              device: DeviceLike = None, *, axis: AxisName = None,
+              timeout: float = DEFAULT_TIMEOUT) -> List[Any]:
+    """Run ``fn(comm)`` on ``size`` :class:`LocalComm` ranks, one thread
+    each, and return their results by rank.  ``device`` defaults to
+    CUDA (and raises without a GPU).  If a rank raises, the others are
+    released from their barriers and the first error is raised here."""
+    dev = _local_device(device)
+    if size < 1:
+        raise ValueError(f"need at least one rank, got {size}")
+    groups = _LocalGroups(timeout)
+    group = groups.get((), size)
+    return _run_threads(lambda r: fn(LocalComm(group, r, dev, axis)),
+                        size, dev, groups)
+
+
+# ---------------------------------------------------------------------- #
+# a grid of ranks: the counterpart of a multi-axis mesh
+# ---------------------------------------------------------------------- #
+class GridComm:
+    """This rank's handle on an ``m0 x m1 x ...`` grid of ranks with
+    named axes, the port's counterpart of a ``shard_map`` mesh.
+
+    Global ranks are row-major over ``shape``.  :meth:`sub` gives the
+    :class:`Comm` over the ranks that share this rank's coordinates on
+    every axis not named: ``sub("data")`` is this rank's row along
+    ``data``, ``sub(("pod", "data"))`` the folded subset, its ranks
+    numbered row-major over the axes *in the order given* (the
+    reference's ``_axis_index`` of a tuple), so ``("pod", "data")`` and
+    ``("data", "pod")`` are two rank orders of one set.  The sub-comm's
+    ``axis`` is the name, or the tuple of names, that
+    ``FabricTopology.for_axis`` prices.  Made by :func:`run_local_grid`
+    (threads) and :class:`ProcessGroupGrid` (``torch.distributed``).
+    """
+
+    axis_names: Tuple[str, ...]
+    shape: Tuple[int, ...]
+    rank: int
+    device: torch.device
+
+    def __init__(self, axis_names: Sequence[str], shape: Sequence[int],
+                 rank: int, device: torch.device):
+        self.axis_names = tuple(str(a) for a in axis_names)
+        self.shape = tuple(int(s) for s in shape)
+        if len(self.axis_names) != len(self.shape):
+            raise ValueError(f"axis names {self.axis_names} vs shape "
+                             f"{self.shape}")
+        if len(set(self.axis_names)) != len(self.axis_names):
+            raise ValueError(f"repeated axis name in {self.axis_names}")
+        if any(s < 1 for s in self.shape):
+            raise ValueError(f"grid shape {self.shape} has an empty axis")
+        self.size = math.prod(self.shape)
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} outside a grid of {self.size}")
+        self.rank = rank
+        self.device = device
+        self._subs: Dict[Tuple[str, ...], Comm] = {}
+
+    @property
+    def coords(self) -> Tuple[int, ...]:
+        """This rank's coordinate on each axis."""
+        return _unravel(self.rank, self.shape)
+
+    def axis_index(self, name: str) -> int:
+        """This rank's coordinate on axis ``name``."""
+        return self.coords[self._position(name)]
+
+    def axis_size(self, name: str) -> int:
+        return self.shape[self._position(name)]
+
+    def _position(self, name: str) -> int:
+        try:
+            return self.axis_names.index(name)
+        except ValueError:
+            raise ValueError(f"no axis {name!r} in grid "
+                             f"{self.axis_names}") from None
+
+    def members(self, axes: Sequence[str]) -> List[int]:
+        """Global ranks of this rank's sub-group over ``axes``, in the
+        sub-comm's rank order (row-major over ``axes`` as given)."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        pos = [self._position(a) for a in axes]
+        if len(set(pos)) != len(pos):
+            raise ValueError(f"repeated axis in {tuple(axes)}")
+        return _members(self.shape, self.coords, pos)
+
+    def sub(self, axes: Union[str, Sequence[str]]) -> Comm:
+        """The :class:`Comm` over ``axes`` (one name or a tuple)."""
+        key = (axes,) if isinstance(axes, str) else tuple(axes)
+        if not key:
+            raise ValueError("sub() needs at least one axis")
+        comm = self._subs.get(key)
+        if comm is None:
+            members = self.members(key)
+            axis = key[0] if len(key) == 1 else key
+            comm = self._make_sub(members, members.index(self.rank), axis)
+            self._subs[key] = comm
+        return comm
+
+    def _make_sub(self, members: List[int], sub_rank: int,
+                  axis: AxisName) -> Comm:
+        raise NotImplementedError
+
+
+def _unravel(rank: int, shape: Sequence[int]) -> Tuple[int, ...]:
+    coords = []
+    for s in reversed(shape):
+        rank, c = divmod(rank, s)
+        coords.append(c)
+    return tuple(reversed(coords))
+
+
+def _ravel(coords: Sequence[int], shape: Sequence[int]) -> int:
+    rank = 0
+    for c, s in zip(coords, shape):
+        rank = rank * s + c
+    return rank
+
+
+def _members(shape: Sequence[int], coords: Sequence[int],
+             pos: Sequence[int]) -> List[int]:
+    """Global ranks that share ``coords`` off the axes at ``pos``,
+    row-major over those axes in the order given."""
+    coords = list(coords)
+    out = []
+    for sub in itertools.product(*(range(shape[i]) for i in pos)):
+        for i, c in zip(pos, sub):
+            coords[i] = c
+        out.append(_ravel(coords, shape))
+    return out
+
+
+class LocalGridComm(GridComm):
+    """One thread's rank of a :func:`run_local_grid` grid: every
+    sub-group is a :class:`_LocalGroup` of the run, keyed by its members
+    in rank order."""
+
+    def __init__(self, groups: _LocalGroups, axis_names: Sequence[str],
+                 shape: Sequence[int], rank: int, device: torch.device):
+        super().__init__(axis_names, shape, rank, device)
+        self._groups = groups
+
+    def _make_sub(self, members, sub_rank, axis) -> Comm:
+        group = self._groups.get(tuple(members), len(members))
+        return LocalComm(group, sub_rank, self.device, axis)
+
+
+def run_local_grid(fn: Callable[[GridComm], Any], shape: Sequence[int],
+                   names: Sequence[str], device: DeviceLike = None, *,
+                   timeout: float = DEFAULT_TIMEOUT) -> List[Any]:
+    """Run ``fn(grid)`` on every rank of a ``shape`` grid with axes
+    ``names``, one thread a rank on one device, and return the results
+    by global (row-major) rank.  ``device`` defaults to CUDA (and raises
+    without a GPU).  If a rank raises, every row, column and folded
+    subset of the grid is released and the first error is raised
+    here."""
+    dev = _local_device(device)
+    size = math.prod(int(s) for s in shape)
+    if size < 1:
+        raise ValueError(f"grid shape {tuple(shape)} has no rank")
+    groups = _LocalGroups(timeout)
+    return _run_threads(
+        lambda r: fn(LocalGridComm(groups, names, shape, r, dev)), size, dev,
+        groups)
+
+
 # ---------------------------------------------------------------------- #
 # one process per rank, over torch.distributed
 # ---------------------------------------------------------------------- #
+def _process_device(device: DeviceLike) -> torch.device:
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        torch.cuda.set_device(dev)
+    if not dist.is_initialized():
+        raise RuntimeError("ProcessGroupComm needs "
+                           "torch.distributed.init_process_group first")
+    return dev
+
+
 class ProcessGroupComm(Comm):
     """This process's rank of a ``torch.distributed`` process group.
 
@@ -245,32 +467,65 @@ class ProcessGroupComm(Comm):
     current device and runs one all-reduce over the whole group: NCCL
     wants the first ``batch_isend_irecv`` of a group to involve every
     rank, which a round of a reduce schedule does not.
+
+    The comm's ranks are the group's, unless :meth:`reordered` numbers
+    them otherwise (a grid's folded subset over axes in another order
+    than the grid's); the natives then permute their chunks so that
+    their results are in the comm's rank order.
     """
 
     def __init__(self, group: Optional[dist.ProcessGroup] = None,
-                 device: DeviceLike = None, axis: Optional[str] = None):
-        dev = resolve_device(device)
-        if dev.type == "cuda":
-            if dev.index is None:
-                dev = torch.device("cuda", torch.cuda.current_device())
-            torch.cuda.set_device(dev)
-        if not dist.is_initialized():
-            raise RuntimeError("ProcessGroupComm needs "
-                               "torch.distributed.init_process_group first")
+                 device: DeviceLike = None, axis: AxisName = None):
+        dev = _process_device(device)
         self.group = group
         self.rank = dist.get_rank(group)
         self.size = dist.get_world_size(group)
         self.device = dev
         self.axis = axis
+        #: group rank of each comm rank (None: the group's own order)
+        self._order: Optional[List[int]] = None
         warm = torch.zeros(1, device=dev)
         dist.all_reduce(warm, group=group)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
+    def reordered(self, order: Sequence[int], axis: AxisName
+                  ) -> "ProcessGroupComm":
+        """The same (warm) group with comm rank ``i`` on group rank
+        ``order[i]``."""
+        order = [int(g) for g in order]
+        if sorted(order) != list(range(self.size)):
+            raise ValueError(f"{order} is not an order of {self.size} ranks")
+        out = copy.copy(self)
+        out.axis = axis
+        out._order = None if order == sorted(order) else order
+        out.rank = order.index(dist.get_rank(self.group))
+        return out
+
+    def _group_rank(self, rank: int) -> int:
+        return rank if self._order is None else self._order[rank]
+
+    def _to_group_order(self, parts: List[torch.Tensor]) -> torch.Tensor:
+        """Chunks in comm rank order, laid out in group rank order."""
+        if self._order is None:
+            return torch.cat(parts, dim=0)
+        by_group: List[Optional[torch.Tensor]] = [None] * self.size
+        for r, part in enumerate(parts):
+            by_group[self._order[r]] = part
+        return torch.cat(by_group, dim=0)
+
+    def _from_group_order(self, x: torch.Tensor) -> torch.Tensor:
+        """Chunks in group rank order, laid out in comm rank order."""
+        if self._order is None:
+            return x
+        parts = _chunks(x, self.size)
+        return torch.cat([parts[g] for g in self._order], dim=0)
+
     def _peer(self, rank: int) -> int:
+        g = self._group_rank(rank)
         if self.group is None:
-            return rank
-        return dist.get_global_rank(self.group, rank)
+            return g
+        return dist.get_global_rank(self.group, g)
 
     def ppermute(self, x: torch.Tensor, pairs: Pairs) -> torch.Tensor:
         self._check(x)
@@ -301,9 +556,9 @@ class ProcessGroupComm(Comm):
 
     def psum_scatter(self, x: torch.Tensor) -> torch.Tensor:
         self._check(x)
-        parts = _chunks(x.contiguous(), self.size)
-        out = torch.empty_like(parts[0])
-        dist.reduce_scatter_tensor(out, x.contiguous(), group=self.group)
+        x = self._to_group_order(_chunks(x.contiguous(), self.size))
+        out = torch.empty_like(_chunks(x, self.size)[0])
+        dist.reduce_scatter_tensor(out, x, group=self.group)
         return out
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
@@ -311,16 +566,65 @@ class ProcessGroupComm(Comm):
         x = x.contiguous()
         out = x.new_empty((x.shape[0] * self.size,) + tuple(x.shape[1:]))
         dist.all_gather_into_tensor(out, x, group=self.group)
-        return out
+        return self._from_group_order(out)
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         self._check(x)
-        x = x.contiguous()
-        _chunks(x, self.size)               # checks divisibility
+        x = self._to_group_order(_chunks(x.contiguous(), self.size))
         out = torch.empty_like(x)
         dist.all_to_all_single(out, x, group=self.group)
-        return out
+        return self._from_group_order(out)
 
 
-__all__ = ["Comm", "LocalComm", "ProcessGroupComm", "run_local",
-           "DEFAULT_TIMEOUT"]
+class ProcessGroupGrid(GridComm):
+    """This process's rank of a grid over ``torch.distributed``: one
+    process a rank, global rank ``dist.get_rank()`` row-major over
+    ``shape`` (the world size must be the grid's).
+
+    ``dist.new_group`` must be called by every process, for every
+    sub-group, in the same order, members or not.  The constructor does
+    that once for every subset of axes (in the grid's axis order) and
+    every sub-group of each, then warms this process's group of each
+    subset (one all-reduce, see :class:`ProcessGroupComm`), so a grid of
+    k axes makes ``sum over subsets of (grid size / subset size)``
+    groups.  :meth:`sub` over axes in another order reuses the subset's
+    group with its ranks renumbered.
+    """
+
+    def __init__(self, shape: Sequence[int], names: Sequence[str],
+                 device: DeviceLike = None):
+        dev = _process_device(device)
+        world = dist.get_world_size()
+        super().__init__(names, shape, dist.get_rank(), dev)
+        if world != self.size:
+            raise ValueError(f"a {self.shape} grid needs {self.size} "
+                             f"processes, the world has {world}")
+        self._bases: Dict[Tuple[int, ...], ProcessGroupComm] = {}
+        n = len(self.shape)
+        for k in range(1, n + 1):
+            for pos in itertools.combinations(range(n), k):
+                others = [i for i in range(n) if i not in pos]
+                mine = None
+                for oc in itertools.product(*(range(self.shape[i])
+                                              for i in others)):
+                    coords = [0] * n
+                    for i, c in zip(others, oc):
+                        coords[i] = c
+                    members = sorted(_members(self.shape, coords, pos))
+                    group = dist.new_group(members)
+                    if self.rank in members:
+                        mine = (tuple(members), group)
+                names_k = tuple(self.axis_names[i] for i in pos)
+                axis = names_k[0] if k == 1 else names_k
+                self._bases[mine[0]] = ProcessGroupComm(mine[1], dev, axis)
+
+    def _make_sub(self, members, sub_rank, axis) -> Comm:
+        ordered = tuple(sorted(members))
+        # new_group numbers a group's ranks in ascending global order
+        return self._bases[ordered].reordered(
+            [ordered.index(m) for m in members], axis)
+
+
+__all__ = ["Comm", "LocalComm", "ProcessGroupComm", "GridComm",
+           "LocalGridComm", "ProcessGroupGrid", "run_local",
+           "run_local_grid", "DEFAULT_TIMEOUT"]

@@ -16,6 +16,13 @@ winner.  The engine makes that a subsystem:
   ``repro_torch.core.autogen.cache_dir``), beside the Auto-Gen npz tables.
 * **Tree cache** -- extracted Auto-Gen round schedules are memoized by
   ``(P, elements, fabric)``, so the DP runs once per shape.
+* **Multi-axis ops** -- ``allreduce_multi``, ``reduce_scatter_multi``,
+  ``allgather_multi`` and ``all_to_all_multi`` run a joint plan of the
+  topology planner (``planner.py``: sequential, hierarchical, the
+  paper's 2D X-Y and Snake, flat, latency, and the chunk-pipelined
+  variants) over a :class:`~repro_torch.collectives.comm.GridComm`;
+  plans are memoized by ``(op, axis sizes, bytes, fabric)`` and
+  persisted in the decision file's ``plans`` section.
 
 Each op runs on every rank of a :class:`~repro_torch.collectives.comm.Comm`
 (where the reference runs inside ``shard_map`` over an axis name)::
@@ -33,13 +40,16 @@ share one engine, so one call counts 1 miss and P-1 hits in ``stats``
 :class:`ProcessGroupComm` each process has its own engine and its own
 ``stats``, with the reference's meaning per process.  Every rank reaches
 the same decision: selection is a pure function of
-``(op, P, bytes, fabric)``.
+``(op, P, bytes, fabric)``.  Plans count the same way: one ``*_multi``
+call on the ranks of a :func:`~repro_torch.collectives.comm.run_local_grid`
+grid is 1 ``plan_misses`` and P-1 ``plan_hits`` for its plan; the
+phases' own lookups (per-axis ``select``, the plan of a hierarchical
+plan's multi-axis middle phase) add hits and misses the same way.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the planner and the multi-axis ops (``plan_multi``, ``*_multi``),
-``calibrate`` / ``calibrate_launch`` / ``measure_ppermute`` on NVLink, and
-spans (``obs/``): the port behaves as the reference does with tracing
-off.
+item): ``calibrate`` / ``calibrate_launch`` / ``measure_ppermute`` on
+NVLink, and spans (``obs/``): the port behaves as the reference does with
+tracing off.
 """
 
 from __future__ import annotations
@@ -47,20 +57,22 @@ from __future__ import annotations
 import atexit
 import dataclasses
 import json
+import math
 import os
 import threading
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.collectives import planner
 from repro_torch.collectives import shardmap_impl as impl
-from repro_torch.collectives.comm import Comm
+from repro_torch.collectives.comm import Comm, GridComm
 from repro_torch.core import patterns as pat
 from repro_torch.core import selector
 from repro_torch.core.autogen import autogen_tree, cache_dir, compute_tables
 from repro_torch.core.model import (Fabric, FabricTopology, TPU_V5E_AXIS,
-                                    as_topology)
+                                    as_topology, ceil_div)
 from repro_torch.device import DeviceLike, resolve_device
 
 #: one model "element" on the TPU fabric (512-byte flit group).  A TPU
@@ -74,14 +86,13 @@ MODEL_VERSION = 3
 
 #: persisted-file layout version (the reference's v3 layout: decisions
 #: keyed by topology signature, the fabric topology in a ``topology``
-#: section; the ``plans`` section comes with the planner, ROADMAP A.2).
+#: section, the planner's records in a ``plans`` section).
 SCHEMA_VERSION = 3
 
 Rounds = Tuple[Tuple[Tuple[int, int], ...], ...]
 
 _NOT_PORTED = {
-    "multi": "ROADMAP A.2: the planner and the multi-axis ops",
-    "calibrate": "ROADMAP A.2: calibrate on NVLink with an H100 Fabric",
+    "calibrate": "ROADMAP A.2.b: calibrate on NVLink with an H100 Fabric",
 }
 
 
@@ -220,6 +231,7 @@ class CollectiveEngine:
         self._persist = persist
         self._cache_path_override = cache_path
         self._decisions: Dict[str, Decision] = {}
+        self._plans: Dict[str, Dict[str, Any]] = {}
         self._tree_rounds: Dict[Tuple[int, int, Fabric], Rounds] = {}
         self._tables: Dict[int, Any] = {}
         self._loaded = False
@@ -227,7 +239,8 @@ class CollectiveEngine:
         self._dirty = False
         self._last_save = 0.0
         self.stats = {"hits": 0, "misses": 0, "dp_runs": 0,
-                      "persisted_loads": 0, "latency_dispatches": 0}
+                      "persisted_loads": 0, "plan_hits": 0,
+                      "plan_misses": 0, "latency_dispatches": 0}
         if persist:
             atexit.register(self.flush)
 
@@ -292,6 +305,9 @@ class CollectiveEngine:
                              for k, v in d["predictions"].items()},
                 rounds=rounds)
             self.stats["persisted_loads"] += 1
+        for key, rec in payload.get("plans", {}).items():
+            self._plans[key] = rec
+            self.stats["persisted_loads"] += 1
 
     def _maybe_save(self) -> None:
         """Write-behind: full-file rewrites are throttled to ~1/s;
@@ -324,7 +340,7 @@ class CollectiveEngine:
                 json.dump({"schema": SCHEMA_VERSION,
                            "fabric": self._fabric_tag(),
                            "topology": topology_to_dict(self.topology),
-                           "decisions": raw}, f)
+                           "decisions": raw, "plans": self._plans}, f)
             os.replace(tmp, path)
         except OSError:
             # unwritable cache dir: selection still works, in memory
@@ -417,9 +433,60 @@ class CollectiveEngine:
             self._maybe_save()
             return decision, False
 
+    def plan_multi(self, op: str, axes: Sequence[str],
+                   sizes: Sequence[int], nbytes: int,
+                   shape: Optional[str] = None) -> planner.CollectivePlan:
+        """The joint plan for an op over an axis tuple of ``sizes``
+        (:meth:`_plan_multi_meta` without the cache-hit bit)."""
+        plan, _ = self._plan_multi_meta(op, axes, sizes, nbytes,
+                                        shape=shape)
+        return plan
+
+    def _plan_multi_meta(self, op: str, axes: Sequence[str],
+                         sizes: Sequence[int], nbytes: int,
+                         shape: Optional[str] = None
+                         ) -> Tuple[planner.CollectivePlan, bool]:
+        """Topology-aware joint plan for an axis tuple, memoized and
+        persisted by ``(op, axis_sizes, bytes, fabric)``; returns the
+        bound plan and whether its record came from the cache.
+
+        Each axis is priced with its fabric from ``self.topology`` (by
+        axis name).  Plans whose axes use non-default fabrics carry
+        those constants in the key (``|f=``); uniform topologies rebind
+        freely across axis names.  ``shape`` forces a candidate
+        (``|shape=`` in the key) instead of the model argmin."""
+        axes = tuple(axes)
+        sizes = tuple(int(s) for s in sizes)
+        if len(axes) != len(sizes):
+            raise ValueError(f"axes {axes} vs sizes {sizes}")
+        axis_fabrics = tuple(self.topology.for_axis(a) for a in axes)
+        with self._lock:
+            self._load_persisted()
+            key = _topo_key(op, sizes, nbytes)
+            if any(f != self.topology.default for f in axis_fabrics):
+                key += "|f=" + ",".join(self._fabric_one_tag(f)
+                                        for f in axis_fabrics)
+            if shape is not None:
+                key += f"|shape={shape}"
+            rec = self._plans.get(key)
+            hit = rec is not None
+            if rec is None:
+                self.stats["plan_misses"] += 1
+                rec = planner.plan_collective(
+                    op, sizes, nbytes, self.fabric, self.element_bytes,
+                    self.select, force_shape=shape,
+                    axis_fabrics=axis_fabrics)
+                self._plans[key] = rec
+                self._dirty = True
+                self._maybe_save()
+            else:
+                self.stats["plan_hits"] += 1
+        return planner.bind_plan(rec, op, axes), hit
+
     def clear_cache(self) -> None:
         with self._lock:
             self._decisions.clear()
+            self._plans.clear()
             self._tree_rounds.clear()
             self._tables.clear()
             self._loaded = False
@@ -434,21 +501,6 @@ class CollectiveEngine:
     # ------------------------------------------------------------------ #
     # not ported yet
     # ------------------------------------------------------------------ #
-    def plan_multi(self, *args, **kwargs):
-        raise _not_ported("plan_multi", "multi")
-
-    def allreduce_multi(self, *args, **kwargs):
-        raise _not_ported("allreduce_multi", "multi")
-
-    def reduce_scatter_multi(self, *args, **kwargs):
-        raise _not_ported("reduce_scatter_multi", "multi")
-
-    def allgather_multi(self, *args, **kwargs):
-        raise _not_ported("allgather_multi", "multi")
-
-    def all_to_all_multi(self, *args, **kwargs):
-        raise _not_ported("all_to_all_multi", "multi")
-
     def calibrate(self, *args, **kwargs):
         raise _not_ported("calibrate", "calibrate")
 
@@ -621,6 +673,369 @@ class CollectiveEngine:
             seeded = x if comm.rank == root else torch.zeros_like(x)
             return impl.schedule_broadcast(seeded, comm, rounds)
         raise ValueError(f"unknown broadcast algorithm {algorithm!r}")
+
+    # ------------------------------------------------------------------ #
+    # multi-axis dispatch: planner-driven joint plans over a grid's axes.
+    # Each op runs on every rank of a GridComm; a plan's phases run on
+    # the grid's sub-comms (``grid.sub(axes)``), as the reference's run
+    # under shard_map over mesh axis names.
+    # ------------------------------------------------------------------ #
+    @staticmethod
+    def _grid_axes(grid: GridComm, axes: Any
+                   ) -> Tuple[Tuple[str, ...], Tuple[int, ...], int]:
+        """``axes`` as a tuple, their sizes and their product."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        sizes = tuple(grid.axis_size(a) for a in axes)
+        return axes, sizes, math.prod(sizes)
+
+    @staticmethod
+    def _chunk_transpose(x: torch.Tensor, sizes: Sequence[int]
+                         ) -> torch.Tensor:
+        """Reorder leading-dim chunks from row-major blocks over
+        ``sizes`` to row-major blocks over ``reversed(sizes)`` -- the
+        permutation that makes the innermost-first reduce-scatter
+        cascade land chunks in ``psum_scatter`` (rank-major) order."""
+        k = len(sizes)
+        blocks = x.reshape(tuple(sizes) + (-1,) + tuple(x.shape[1:]))
+        perm = tuple(reversed(range(k))) + tuple(range(k, blocks.dim()))
+        return blocks.permute(perm).reshape(x.shape)
+
+    @staticmethod
+    def _run_phases(chunks: List[torch.Tensor],
+                    phase_fns: Sequence[Callable[[torch.Tensor],
+                                                 torch.Tensor]]
+                    ) -> List[torch.Tensor]:
+        """Run ``phase_fns`` over payload ``chunks`` in the reference's
+        wavefront order: in wave ``w``, chunk ``k`` runs phase ``w - k``.
+        The chunks are data-independent; every rank issues the same
+        sequence of collectives, one at a time, so the wavefront orders
+        the calls but does not overlap them.  With a single chunk the
+        phases run back to back."""
+        chunks = list(chunks)
+        n = len(phase_fns)
+        for wave in range(n + len(chunks) - 1):
+            for k in range(len(chunks)):
+                r = wave - k
+                if 0 <= r < n:
+                    chunks[k] = phase_fns[r](chunks[k])
+        return chunks
+
+    @staticmethod
+    def _split_row_chunks(x: torch.Tensor, p: int, c: int
+                          ) -> Tuple[List[torch.Tensor], int]:
+        """Slice ``x`` ([p*m, ...], p row-major rank blocks) into ``c``
+        chunks of ``[p*mc, ...]``, chunk ``k`` carrying rows
+        ``[k*mc, (k+1)*mc)`` of every rank block (zero-padded when ``c``
+        does not divide m).  Returns the chunks and m."""
+        m = x.shape[0] // p
+        mc = ceil_div(m, c)
+        tail = tuple(x.shape[1:])
+        blocks = x.reshape((p, m) + tail)
+        pad = c * mc - m
+        if pad:
+            blocks = torch.cat([blocks, blocks.new_zeros((p, pad) + tail)],
+                               dim=1)
+        return [blocks[:, k * mc:(k + 1) * mc].reshape((p * mc,) + tail)
+                for k in range(c)], m
+
+    @staticmethod
+    def _join_row_chunks(chunks: List[torch.Tensor], p: int, m: int
+                         ) -> torch.Tensor:
+        """Inverse of :meth:`_split_row_chunks` on the output side:
+        chunk ``k`` holds rows ``[k*mc, (k+1)*mc)`` of every rank block
+        of the [p*m, ...] result (pad rows dropped)."""
+        mc = chunks[0].shape[0] // p
+        tail = tuple(chunks[0].shape[1:])
+        parts = [ch.reshape((p, mc) + tail) for ch in chunks]
+        out = torch.cat(parts, dim=1)[:, :m]
+        return out.reshape((p * m,) + tail)
+
+    def allreduce_multi(self, x: torch.Tensor, grid: GridComm,
+                        axes: Sequence[str], algorithm: str = "auto"
+                        ) -> torch.Tensor:
+        """AllReduce over a tuple of the grid's axes through a joint
+        topology plan.
+
+        ``algorithm`` is ``"auto"`` (planner argmin), a plan shape
+        (``"sequential" | "hierarchical" | "2d_xy" | "2d_snake" |
+        "flat" | "latency"`` or a ``*_pipelined`` variant, run over
+        ``plan.n_chunks`` payload slices), ``"psum"`` (the native over
+        the folded axes), or a 1D backend name, which runs that backend
+        on every axis, innermost first."""
+        axes, sizes, _ = self._grid_axes(grid, axes)
+        self._check(x, grid)
+        if len(axes) == 1:
+            return self.allreduce_inside(x, grid.sub(axes), algorithm)
+        if algorithm == "psum":
+            return grid.sub(axes).psum(x)
+        if all(s == 1 for s in sizes):
+            return x
+        nbytes = self._nbytes(x)
+        if algorithm == "auto" or algorithm in planner.ALLREDUCE_SHAPES:
+            shape = None if algorithm == "auto" else algorithm
+            plan = self.plan_multi("allreduce", axes, sizes, nbytes,
+                                   shape=shape)
+            return self._run_allreduce_plan(x, grid, plan)
+        for ax in reversed(axes):
+            x = self.allreduce_inside(x, grid.sub(ax), algorithm)
+        return x
+
+    def _run_allreduce_plan(self, x: torch.Tensor, grid: GridComm,
+                            plan: planner.CollectivePlan) -> torch.Tensor:
+        if plan.shape == "identity":
+            return x
+        if plan.shape == "2d_xy":
+            (step,) = plan.steps
+            patterns = tuple(step.algorithm.split("x"))
+            return impl.xy_allreduce_2d(x, grid, step.axes, patterns)
+        if plan.shape == "2d_snake":
+            (step,) = plan.steps
+            return impl.snake_allreduce_2d(x, grid, step.axes)
+        if plan.shape in ("flat", "latency"):
+            # one step over the folded axis tuple; "latency" carries the
+            # "oneshot" algorithm, one native collective
+            (step,) = plan.steps
+            return self.allreduce_inside(x, grid.sub(step.axes),
+                                         step.algorithm)
+        base = planner.base_shape(plan.shape)
+        if base not in ("sequential", "hierarchical"):
+            raise ValueError(f"unknown plan shape {plan.shape!r}")
+        shape0 = x.shape
+        flat = x.reshape(-1)
+        n = flat.numel()
+        c = max(1, plan.n_chunks)
+        chunk_len = ceil_div(n, c)
+        pad = c * chunk_len - n
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros(pad)])
+        chunks = [flat[k * chunk_len:(k + 1) * chunk_len] for k in range(c)]
+        fns = self._allreduce_phase_fns(grid, plan, base, chunk_len)
+        chunks = self._run_phases(chunks, fns)
+        out = torch.cat(chunks) if c > 1 else chunks[0]
+        if pad:
+            out = out[:n]
+        return out.reshape(shape0)
+
+    def _allreduce_phase_fns(self, grid: GridComm,
+                             plan: planner.CollectivePlan, base: str,
+                             chunk_len: int
+                             ) -> List[Callable[[torch.Tensor],
+                                                torch.Tensor]]:
+        """Per-phase closures mapping a flat ``[chunk_len]`` slice to its
+        reduced ``[chunk_len]``: the executable form of a sequential or
+        hierarchical allreduce plan, fed to :meth:`_run_phases`."""
+        if base == "sequential":
+            return [
+                (lambda v, s=step: self.allreduce_inside(
+                    v, grid.sub(s.axes[0]), s.algorithm))
+                for step in plan.steps]
+        rs, mid, ag = plan.steps
+        inner = grid.sub(rs.axes[0])
+        pad = (-chunk_len) % inner.size
+
+        def f_rs(v):
+            if pad:
+                v = torch.cat([v, v.new_zeros(pad)])
+            return self.reduce_scatter_inside(v, inner, rs.algorithm)
+
+        def f_mid(v):
+            return self.allreduce_multi(v, grid, mid.axes, mid.algorithm)
+
+        def f_ag(v):
+            v = self.allgather_inside(v, inner, ag.algorithm)
+            return v[:chunk_len] if pad else v
+
+        return [f_rs, f_mid, f_ag]
+
+    def reduce_scatter_multi(self, x: torch.Tensor, grid: GridComm,
+                             axes: Sequence[str], algorithm: str = "auto"
+                             ) -> torch.Tensor:
+        """Sum over the folded axes, shard the result rank-major
+        (``lax.psum_scatter(x, axes, tiled=True)`` semantics; leading
+        dim divisible by the folded size).  ``algorithm``: ``"auto"``, a
+        plan shape (``cascade``, ``flat``, ``cascade_pipelined``) or
+        ``"psum_scatter"`` (the native)."""
+        axes, sizes, p = self._grid_axes(grid, axes)
+        self._check(x, grid)
+        if len(axes) == 1:
+            return self.reduce_scatter_inside(x, grid.sub(axes), algorithm)
+        if algorithm == "psum_scatter":
+            return grid.sub(axes).psum_scatter(x)
+        if p == 1:
+            return x
+        if x.shape[0] % p:
+            raise ValueError(f"leading dim {x.shape[0]} is not divisible "
+                             f"by the folded size {p}")
+        shape = None if algorithm == "auto" else algorithm
+        plan = self.plan_multi("reduce_scatter", axes, sizes,
+                               self._nbytes(x), shape=shape)
+        if plan.shape == "flat":
+            (step,) = plan.steps
+            return self.reduce_scatter_inside(x, grid.sub(step.axes),
+                                              step.algorithm)
+        # cascade: pre-permute chunks so the innermost-first shrink lands
+        # each rank on its psum_scatter chunk; a pipelined plan slices
+        # each rank block's rows and wavefronts the phases
+        steps = plan.steps
+
+        def f0(v, s=steps[0]):
+            return self.reduce_scatter_inside(
+                self._chunk_transpose(v, sizes), grid.sub(s.axes[0]),
+                s.algorithm)
+
+        fns = [f0] + [
+            (lambda v, s=step: self.reduce_scatter_inside(
+                v, grid.sub(s.axes[0]), s.algorithm))
+            for step in steps[1:]]
+        c = max(1, plan.n_chunks)
+        if c == 1:
+            return self._run_phases([x], fns)[0]
+        chunks, m = self._split_row_chunks(x, p, c)
+        chunks = self._run_phases(chunks, fns)
+        return torch.cat(chunks, dim=0)[:m]
+
+    def allgather_multi(self, x: torch.Tensor, grid: GridComm,
+                        axes: Sequence[str], algorithm: str = "auto"
+                        ) -> torch.Tensor:
+        """Gather rank-major shards along the folded axes into the
+        leading dim (``lax.all_gather(x, axes, tiled=True)`` semantics).
+        ``algorithm``: ``"auto"``, a plan shape (``cascade``, ``flat``,
+        ``latency``, ``cascade_pipelined``) or ``"all_gather"`` (the
+        native)."""
+        axes, sizes, p = self._grid_axes(grid, axes)
+        self._check(x, grid)
+        if len(axes) == 1:
+            return self.allgather_inside(x, grid.sub(axes), algorithm)
+        if algorithm == "all_gather":
+            return grid.sub(axes).all_gather(x)
+        if p == 1:
+            return x
+        shape = None if algorithm == "auto" else algorithm
+        plan = self.plan_multi("allgather", axes, sizes,
+                               self._nbytes(x) * p, shape=shape)
+        if plan.shape in ("flat", "latency"):
+            (step,) = plan.steps
+            return self.allgather_inside(x, grid.sub(step.axes),
+                                         step.algorithm)
+        # cascade: outermost-first growth, then undo the chunk
+        # permutation the matching reduce-scatter cascade applied; a
+        # pipelined plan slices the shard's rows and wavefronts
+        steps = plan.steps
+
+        def f_last(v, s=steps[-1]):
+            return self._chunk_transpose(
+                self.allgather_inside(v, grid.sub(s.axes[0]), s.algorithm),
+                tuple(reversed(sizes)))
+
+        fns = [
+            (lambda v, s=step: self.allgather_inside(
+                v, grid.sub(s.axes[0]), s.algorithm))
+            for step in steps[:-1]] + [f_last]
+        c = max(1, plan.n_chunks)
+        if c == 1:
+            return self._run_phases([x], fns)[0]
+        s_len = x.shape[0]
+        sc = ceil_div(s_len, c)
+        pad = c * sc - s_len
+        xp = x
+        if pad:
+            xp = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+        chunks = [xp[k * sc:(k + 1) * sc] for k in range(c)]
+        chunks = self._run_phases(chunks, fns)
+        return self._join_row_chunks(chunks, p, s_len)
+
+    def all_to_all_multi(self, x: torch.Tensor, grid: GridComm,
+                         axes: Sequence[str], algorithm: str = "auto"
+                         ) -> torch.Tensor:
+        """Personalized exchange over a tuple of the grid's axes through
+        a joint topology plan (``lax.all_to_all(x, axes, 0, 0,
+        tiled=True)`` semantics over the row-major-folded axes).
+
+        ``algorithm`` is ``"auto"`` (planner argmin), a plan shape
+        (``"hierarchical" | "sequential" | "flat" | "latency"`` or a
+        ``*_pipelined`` variant), ``"lax"`` (the native over the folded
+        axes), or a 1D backend name (``ring``/``halving``), which runs
+        the innermost-first phase order with that backend on every
+        axis."""
+        axes, sizes, p = self._grid_axes(grid, axes)
+        self._check(x, grid)
+        if len(axes) == 1:
+            # a plan shape collapses to the 1D selector on a bare axis
+            if algorithm in planner.ALL_TO_ALL_SHAPES:
+                algorithm = "auto"
+            return self.all_to_all_inside(x, grid.sub(axes), algorithm)
+        if algorithm == "lax":
+            return grid.sub(axes).all_to_all(x)
+        if p == 1:
+            return x
+        if x.shape[0] % p:
+            raise ValueError(f"leading dim {x.shape[0]} is not divisible "
+                             f"by the folded size {p}")
+        nbytes = self._nbytes(x)
+        if algorithm == "auto" or algorithm in planner.ALL_TO_ALL_SHAPES:
+            shape = None if algorithm == "auto" else algorithm
+            plan = self.plan_multi("all_to_all", axes, sizes, nbytes,
+                                   shape=shape)
+            if plan.shape in ("flat", "latency"):
+                (step,) = plan.steps
+                return self.all_to_all_inside(x, grid.sub(step.axes),
+                                              step.algorithm)
+            return self._run_a2a_phases(x, grid, axes, sizes, plan.steps,
+                                        plan.n_chunks)
+        steps = tuple(
+            planner.PlanStep("all_to_all", (a,), algorithm, nbytes)
+            for a, s in zip(reversed(axes), reversed(sizes)) if s > 1)
+        return self._run_a2a_phases(x, grid, axes, sizes, steps)
+
+    def _a2a_phase_fns(self, grid: GridComm, axes: Tuple[str, ...],
+                       sizes: Tuple[int, ...],
+                       steps: Sequence[planner.PlanStep]
+                       ) -> List[Callable[[torch.Tensor], torch.Tensor]]:
+        """Per-phase closures over the block grid.  Each views its
+        input's leading dim as a ``sizes``-shaped grid of blocks and
+        exchanges along block dim *i* only, turning that destination
+        coordinate into the source coordinate in place."""
+        k = len(sizes)
+        p = math.prod(sizes)
+
+        def make(step):
+            i = axes.index(step.axes[0])
+            perm = (i,) + tuple(j for j in range(k) if j != i)
+            inv = tuple(perm.index(j) for j in range(k))
+            comm = grid.sub(step.axes[0])
+
+            def fn(v):
+                m = v.shape[0] // p
+                tail = tuple(v.shape[1:])
+                blocks = v.reshape(tuple(sizes) + (m,) + tail)
+                rest = tuple(range(k, blocks.dim()))
+                t = blocks.permute(perm + rest)
+                out = self.all_to_all_inside(t.reshape((-1,) + tail), comm,
+                                             step.algorithm)
+                return out.reshape(t.shape).permute(inv + rest).reshape(
+                    v.shape)
+
+            return fn
+
+        return [make(step) for step in steps]
+
+    def _run_a2a_phases(self, x: torch.Tensor, grid: GridComm,
+                        axes: Tuple[str, ...], sizes: Tuple[int, ...],
+                        steps: Sequence[planner.PlanStep],
+                        n_chunks: int = 1) -> torch.Tensor:
+        """Per-axis all-to-all phases over the block grid: after every
+        effective axis has run once (any order), the block grid is
+        source-major row-major, the folded tuple's ``all_to_all``.  With
+        ``n_chunks > 1`` each block gives a row slice to each chunk and
+        the phases run in wavefront order."""
+        fns = self._a2a_phase_fns(grid, axes, sizes, steps)
+        c = max(1, n_chunks)
+        if c == 1:
+            return self._run_phases([x], fns)[0]
+        p = math.prod(sizes)
+        chunks, m = self._split_row_chunks(x, p, c)
+        chunks = self._run_phases(chunks, fns)
+        return self._join_row_chunks(chunks, p, m)
 
     # ------------------------------------------------------------------ #
     # fused compute + collective: matmul feeding a ring reduce-scatter

@@ -12,8 +12,9 @@ the input dtype, one hop at a time, so float32 results are bitwise equal
 to the JAX package's.  Where the reference selects with
 ``jnp.where(idx == ...)`` the port branches on the Python rank, which
 gives the same sum.  Non-root ranks of a reduce keep the reference's
-leftover partials.  The 2D (two-axis) functions wait for the multi-axis
-slice of the port.
+leftover partials.  The 2D functions (Sec. 7) run on a
+:class:`~repro_torch.collectives.comm.GridComm`, whose ``sub(axis)``
+comms are the rows and columns a ``shard_map`` mesh binds.
 
 The fused matmul + ring reduce-scatter (``fused_matmul_rs``, the port of
 the ring in ``repro/kernels/fused_matmul_rs.py``) lives here too: it is
@@ -27,7 +28,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.collectives.comm import Comm
+from repro_torch.collectives.comm import Comm, GridComm
 from repro_torch.kernels import ops
 
 Rounds = Sequence[Sequence[Tuple[int, int]]]
@@ -276,8 +277,74 @@ def ring_allreduce(x: torch.Tensor, comm: Comm) -> torch.Tensor:
     return torch.cat(ch, dim=0)[:n]
 
 
+# ---------------------------------------------------------------------- #
+# 2D collectives (Sec. 7) over a pair of a grid's axes: axes[0] is the
+# outer (row-index, M rows) axis, axes[1] the inner (column-index, N
+# columns) axis -- the folded m x n grid the paper's 2D lemmas price.
+# ---------------------------------------------------------------------- #
 REDUCE_FNS = {"chain": chain_reduce, "tree": tree_reduce,
               "two_phase": two_phase_reduce, "star": star_reduce}
+
+
+def xy_reduce_2d(x: torch.Tensor, grid: GridComm, axes: Tuple[str, str],
+                 patterns: Tuple[str, str] = ("chain", "chain")
+                 ) -> torch.Tensor:
+    """X-Y Reduce (Sec. 7.2): 1D reduce along every row (inner axis),
+    then along column 0 (outer axis).  ``patterns`` names the 1D pattern
+    per dimension, (outer, inner).  The result lands on rank (0, 0)."""
+    x = REDUCE_FNS[patterns[1]](x, grid.sub(axes[1]))
+    return REDUCE_FNS[patterns[0]](x, grid.sub(axes[0]))
+
+
+def snake_reduce_2d(x: torch.Tensor, grid: GridComm,
+                    axes: Tuple[str, str]) -> torch.Tensor:
+    """Snake Reduce (Sec. 7.3): one pipelined chain over the
+    boustrophedon order of the M x N grid, M*N - 1 unit hops.  The
+    result lands on rank (0, 0) (snake rank 0).
+
+    As under ``shard_map``, every hop runs in every row (or column) at
+    once: each rank takes part in its row's (column's) ppermute, and
+    only the rank at the hop's destination on both axes adds."""
+    ay, ax = axes
+    m, n = grid.axis_size(ay), grid.axis_size(ax)
+    iy, ix = grid.axis_index(ay), grid.axis_index(ax)
+    row, col = grid.sub(ax), grid.sub(ay)
+
+    def pos(rank: int) -> Tuple[int, int]:
+        y, k = divmod(rank, n)
+        return (y, k if y % 2 == 0 else n - 1 - k)
+
+    acc = x
+    for t in range(m * n - 1):
+        (ys, xs), (yd, xd) = pos(m * n - 1 - t), pos(m * n - 2 - t)
+        if ys == yd:
+            shifted = row.ppermute(acc, [(xs, xd)])
+        else:
+            shifted = col.ppermute(acc, [(ys, yd)])
+        if ix == xd and iy == yd:
+            acc = acc + shifted
+    return acc
+
+
+def broadcast_2d(x: torch.Tensor, grid: GridComm, axes: Tuple[str, str],
+                 root: Tuple[int, int] = (0, 0)) -> torch.Tensor:
+    """2D broadcast from ``root``: doubling down the root's column
+    (outer axis), then along every row (no multicast)."""
+    x = broadcast(x, grid.sub(axes[0]), root=root[0])
+    return broadcast(x, grid.sub(axes[1]), root=root[1])
+
+
+def xy_allreduce_2d(x: torch.Tensor, grid: GridComm, axes: Tuple[str, str],
+                    patterns: Tuple[str, str] = ("chain", "chain")
+                    ) -> torch.Tensor:
+    """2D AllReduce as X-Y Reduce + 2D broadcast (Sec. 7.4)."""
+    return broadcast_2d(xy_reduce_2d(x, grid, axes, patterns), grid, axes)
+
+
+def snake_allreduce_2d(x: torch.Tensor, grid: GridComm,
+                       axes: Tuple[str, str]) -> torch.Tensor:
+    """2D AllReduce as Snake Reduce + 2D broadcast (Sec. 7.4)."""
+    return broadcast_2d(snake_reduce_2d(x, grid, axes), grid, axes)
 
 
 # ---------------------------------------------------------------------- #
@@ -422,6 +489,8 @@ __all__ = [
     "star_reduce", "broadcast", "chain_broadcast", "ring_allreduce",
     "reduce_scatter_ring", "allgather_ring", "allgather_doubling",
     "all_to_all_ring", "all_to_all_bruck",
+    "xy_reduce_2d", "snake_reduce_2d", "broadcast_2d", "xy_allreduce_2d",
+    "snake_allreduce_2d",
     "schedule_reduce", "schedule_reduce_pipelined", "schedule_broadcast",
     "schedule_reduce_scatter", "schedule_allgather", "fused_matmul_rs",
     "matmul_then_rs",

@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
@@ -56,6 +57,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 ENCODE_ERROR = 1 << 20
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,11 +146,16 @@ def check_launch(kernel: str, err: int) -> None:
 
 def load(name: str) -> ctypes.CDLL:
     """The kernel's shared library, built on first use and loaded once
-    per process."""
+    per process.  Threads that ask together (the ranks of a
+    ``run_local`` grid) wait for one build: ``build_all``'s temporary
+    file is named by the process, so two builds in one process race."""
     lib = _LIBS.get(name)
     if lib is None:
-        path = build_all([name])[name].path
-        lib = _LIBS[name] = ctypes.CDLL(str(path))
+        with _LOAD_LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                path = build_all([name])[name].path
+                lib = _LIBS[name] = ctypes.CDLL(str(path))
     return lib
 
 

@@ -105,3 +105,36 @@ def test_library_path_follows_the_header(tmp_path, monkeypatch, name):
     header.write_text(header.read_text() + "\n// edited\n")
     assert build.library_path(name) != before
     assert build.library_path("multi_add") == other
+
+
+def test_threads_loading_one_kernel_build_it_once(monkeypatch):
+    """The ranks of a LocalComm grid reach a kernel together: ``load``
+    builds it once for the process (two builds in one process would
+    race on ``build_all``'s temporary file)."""
+    import threading
+    import time as _time
+
+    calls = []
+
+    def fake_build_all(names):
+        calls.append(list(names))
+        _time.sleep(0.05)
+        return {n: build.BuildResult(n, build.BUILD_DIR / f"lib{n}.so", 0.0,
+                                     "") for n in names}
+
+    monkeypatch.setattr(build, "_LIBS", {})
+    monkeypatch.setattr(build, "build_all", fake_build_all)
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: object())
+    got = [None] * 8
+
+    def worker(i):
+        got[i] = build.load("multi_add")
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t in threads)
+    assert calls == [["multi_add"]]
+    assert all(g is got[0] for g in got)

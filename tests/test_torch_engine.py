@@ -36,10 +36,10 @@ def _engines(persist=False):
 
 
 def _same_stats(teng, jeng):
-    """The port keeps the reference's counters except the planner's
-    (``plan_hits`` / ``plan_misses``), which come with ROADMAP A.2."""
-    assert set(jeng.stats) - set(teng.stats) == {"plan_hits", "plan_misses"}
-    assert teng.stats == {k: jeng.stats[k] for k in teng.stats}
+    """The port keeps the reference's counters, the planner's
+    (``plan_hits`` / ``plan_misses``) included."""
+    assert list(teng.stats) == list(jeng.stats)
+    assert teng.stats == jeng.stats
 
 
 def _same_decision(td, jd):
@@ -152,7 +152,7 @@ def test_persisted_decisions_load_in_a_fresh_engine(tmp_path):
         tp = json.load(f)
     with open(tmp_path / "jax" / decision_files[0]) as f:
         jp = json.load(f)
-    assert jp.pop("plans") == {}            # the planner's section (A.2)
+    assert tp["plans"] == {}                # no multi-axis plan made
     assert tp == jp                         # the same v3 layout and values
 
     again = t_engine.CollectiveEngine(persist=True, device="cpu")
@@ -210,24 +210,14 @@ def test_calibrated_topology_restores_from_the_ports_cache_only(tmp_path):
 
 
 @pytest.mark.parametrize("call", [
-    lambda e: e.plan_multi("allreduce", ("a", "b"), (2, 4), 4096),
-    lambda e: e.allreduce_multi(None, ("a", "b")),
-    lambda e: e.reduce_scatter_multi(None, ("a", "b")),
-    lambda e: e.allgather_multi(None, ("a", "b")),
-    lambda e: e.all_to_all_multi(None, ("a", "b")),
     lambda e: e.calibrate([(4096, 1e-6), (8192, 2e-6)]),
     lambda e: e.calibrate_launch([]),
     lambda e: t_engine.measure_ppermute(None, "data"),
     lambda e: t_engine.fit_fabric([(4096, 1e-6), (8192, 2e-6)]),
-    lambda e: t_api.plan_collective("allreduce", None, ("a",), 4096),
-    lambda e: t_api.allreduce_multi_inside(None, ("a", "b")),
-], ids=["plan_multi", "allreduce_multi", "reduce_scatter_multi",
-        "allgather_multi", "all_to_all_multi", "calibrate",
-        "calibrate_launch", "measure_ppermute", "fit_fabric",
-        "plan_collective", "allreduce_multi_inside"])
+], ids=["calibrate", "calibrate_launch", "measure_ppermute", "fit_fabric"])
 def test_left_out_entry_points_raise_naming_their_roadmap_item(call):
     eng = t_engine.CollectiveEngine(persist=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.2"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.2\.b"):
         call(eng)
 
 

@@ -704,6 +704,31 @@ def test_every_collective_exact_on_8_local_ranks(cuda_device):
                     assert torch.equal(out[r], want[r]), (op, alg, r)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("alg", ["2d_snake", "2d_xy"])
+def test_2d_allreduce_on_a_2x4_grid_bitwise_equal_to_cpu_ranks(
+        cuda_device, alg, dtype):
+    """The paper's 2D AllReduces on 8 local ranks of the card as a
+    (pod 2, data 4) grid, on normal values of odd length: bitwise equal
+    to the same plan on CPU ranks (every add is one rounding of two
+    values of the input type, in the same order)."""
+    from repro_torch.collectives import CollectiveEngine, run_local_grid
+    gen = torch.Generator().manual_seed(3)
+    xs = [torch.randn((4097,), generator=gen).to(dtype) for _ in range(8)]
+    out = {}
+    for dev in ("cpu", cuda_device):
+        eng = CollectiveEngine(persist=False, device=dev)
+        local = [x.to(dev) for x in xs]
+        out[str(dev)] = run_local_grid(lambda g: eng.allreduce_multi(
+            local[g.rank], g, ("pod", "data"), alg), (2, 4),
+            ("pod", "data"), dev)
+    for r in range(8):
+        got = out[str(cuda_device)][r].cpu()
+        assert got.dtype == dtype and got.shape == (4097,)
+        assert torch.equal(got, out["cpu"][r]), (alg, r)
+
+
 _NCCL_SCRIPT = r"""
 import sys
 import torch, torch.distributed as dist
