@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--nccl-only]
+
+(``--nccl-only``, on two or more cards: the build and phase 10 alone.)
 
 1. environment: the card's name and power limit, torch and CUDA
    versions; every kernel is built from the sources in this checkout
@@ -64,7 +66,8 @@
 10. NCCL phase, only with two or more cards: one ``ProcessGroupComm``
    rank per card repeats the float32 collective checks and the fused
    ring, and with four or more ``allreduce_multi`` over a 2 x (cards /
-   2) ``ProcessGroupGrid`` as 2d_xy, 2d_snake and hierarchical;
+   2) ``ProcessGroupGrid`` as 2d_xy, 2d_snake and hierarchical; then the
+   DP trainer under ``torch.distributed.run`` on two cards (run last);
 11. dense train phase: ``minicpm-2b`` at its published width and depth
    (40 layers, bf16, random weights from ``--seed``), 5 WSD steps of
    batch 2 x 4096 tokens through ``make_train_step``, every layer's
@@ -78,7 +81,23 @@
 13. dense prefill + decode: 2 x 4096-token prompts through ``prefill`` at
    full depth (one wgmma flash launch per layer), the cache padded by 8
    positions, 8 greedy ``decode_step``s, each step's logits held against
-   the teacher-forced forward.
+   the teacher-forced forward;
+14. data-parallel train phase: ``minicpm-2b`` at its published width
+   with 2 of its 40 layers on a 2 x 2 (pod, data) grid of rank threads,
+   1 x 4096 tokens a rank, 3 bf16 steps of ``make_train_step(grad_sync=
+   GradSyncConfig(...))`` in each sync mode (bucketed allreduce, fsdp,
+   fsdp fused): the memory reckoned first, then the loss, step wall,
+   tokens/s, peak memory, the per-bucket plans, the engine's plan hits
+   and misses and the flash launches (2 a layer a rank a step, wgmma);
+   then two float32 steps at 1 layer of each mode held to the plain
+   single-rank steps on the same global batches: each step's loss and
+   grad_norm, and every parameter after the second step;
+15. tensor-parallel decode phase: ``minicpm-2b`` at full width, 2
+   layers, on 8 model-rank threads with ``set_fused_tp(True)``: 2 x 4096
+   prompts through the fused down-projection (8 wgmma ``matmul_tiled``
+   launches a rank a layer), the cache cut into sequence blocks, 8 greedy
+   steps through ``flash_decode``: the tokens identical to the
+   single-rank route and the logits within 2 bf16 ulps.
 
 It exits non-zero, printing no result, without a GPU or outside a
 checkout of the repository.  The last lines are a JSON line of per-kernel
@@ -93,6 +112,7 @@ import dataclasses
 import json
 import math
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -107,6 +127,8 @@ from repro_torch.collectives import (CollectiveEngine,  # noqa: E402
                                      ProcessGroupComm, ProcessGroupGrid,
                                      get_engine, planner, run_local,
                                      run_local_grid)
+from repro_torch.collectives.overlap import (  # noqa: E402
+    bucket_algorithm_plan)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import with_layer_units  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLMDataset  # noqa: E402
@@ -125,12 +147,14 @@ from repro_torch.kernels.ref import (FLASH_CHUNK,  # noqa: E402
                                      selective_scan_ref)
 from repro_torch.models import (decode_step_paged, forward_train,  # noqa
                                 init_params)
+from repro_torch.models.layers import ambient_grid, set_fused_tp  # noqa
+from repro_torch.models.transformer import shard_decode_cache  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
 from repro_torch.serving import ContinuousBatchingServer, Request  # noqa
 from repro_torch.train.state import init_train_state  # noqa: E402
-from repro_torch.train.step import (make_decode_step,  # noqa: E402
-                                    make_prefill_step, make_train_step,
-                                    value_and_grad)
+from repro_torch.train.step import (GradSyncConfig,  # noqa: E402
+                                    make_decode_step, make_prefill_step,
+                                    make_train_step, value_and_grad)
 from repro_torch.tree import tree_leaves  # noqa: E402
 
 #: NVIDIA H100 SXM data sheet: device memory rate, dense peak rates by the
@@ -201,7 +225,9 @@ FLASH_CASES = (("minicpm-2b train layer", 2, 36, 36, 4096, 64, True, None),
                 None),
                ("mistral-nemo-12b GQA 32/8", 1, 32, 8, 4096, 160, True,
                 None),
-               ("sliding window 2048", 2, 36, 36, 4096, 64, True, 2048))
+               ("sliding window 2048", 2, 36, 36, 4096, 64, True, 2048),
+               ("minicpm-2b DP rank layer (1 x 4096)", 1, 36, 36, 4096, 64,
+                True, None))
 #: kernel vs plain lse (float32 sums of up to 4096 terms in other
 #: orders, lse of magnitude ~10): 1e-4 absolute
 LSE_TOL = 1e-4
@@ -275,7 +301,30 @@ MATMUL_CASES = (("one ring step of the fused phase", 1024, 2560, 7168,
                 ("ragged M, N (16-byte rows)", 1000, 2560, 7000,
                  torch.bfloat16),
                 ("ragged K, N (element loads)", 1000, 2555, 7001,
-                 torch.bfloat16))
+                 torch.bfloat16),
+                ("one ring step of the TP decode phase's prefill "
+                 "(minicpm-2b, TP 8)", 1024, 720, 2304, torch.bfloat16))
+#: data-parallel training: minicpm-2b at full width with 2 of its 40
+#: layers on a 2 x 2 (pod, data) grid of rank threads on the one card,
+#: 1 x 4096 tokens a rank, 3 bf16 steps per sync mode; the float32 check
+#: is one step at 1 layer of each mode against the plain single-rank step
+#: on the same global batch (microbatches = the ranks)
+DP_ARCH = "minicpm-2b"
+DP_TRAIN = dict(grid=(2, 2), layers=2, rows=1, seq=4096, steps=3, lr=3e-4,
+                check_layers=1, check_steps=2)
+DP_MODES = (("allreduce", False), ("fsdp", False), ("fsdp", True))
+#: the DP check's bounds on every parameter (tests/test_engine.py:431)
+DP_RTOL, DP_ATOL = 1e-4, 1e-5
+#: the DP check's bound on grad_norm, relative (AdamW's step is blind to
+#: a uniform scale of the gradient: a sync that sums where it should
+#: average shows only in the norm)
+DP_GNORM_RTOL = 1e-4
+#: tensor-parallel decode: minicpm-2b at full width, 2 layers, on 8
+#: model-rank threads with the fused TP down-projection; 2 x 4096
+#: prompts, the cache padded by 8 (4104 = 8 x 513: sequence-sharded, as
+#: 36 kv heads do not divide 8), 8 greedy steps through flash_decode
+TP_DECODE = dict(tp=8, layers=2, batch=2, prompt=4096, new_tokens=8,
+                 headroom=8)
 #: matmul_tiled vs its plain version, relative to the plain product's
 #: max-abs: float32 adds in another order over K = 2560; bf16 rounds the
 #: float32 sum once, at most one bf16 ulp (2^-7 of the value) apart
@@ -2018,6 +2067,292 @@ def fused_phase(seed: int, rows: dict) -> None:
         f"backward)")
 
 
+# ------------------------ data-parallel train phase --------------------- #
+def dp_rank_batch(cfg, rows: int, seq: int, step: int, rank: int,
+                  n: int) -> dict:
+    """Rank ``rank``'s rows of the global batch of ``n`` ranks (folded
+    (pod, data) order), on the card."""
+    data = SyntheticLMDataset(DataConfig(cfg.vocab_size, seq, rows * n))
+    return {k: torch.from_numpy(v[rank * rows:(rank + 1) * rows]).cuda()
+            for k, v in data.batch(step).items()}
+
+
+def dp_memory_gb(cfg, rows: int, seq: int, esize: int) -> float:
+    """What one DP rank holds at its peak, reckoned before the run: the
+    parameters and their gradient (``esize`` bytes each), AdamW's two
+    float32 moments (whole trees at step 0 in either mode: fsdp cuts them
+    into 1/P flat shards during that step), the float32 flat vector of
+    the sync and its cast back, and the logits with their float32 copy
+    and gradient."""
+    p = cfg.param_count()
+    flat = 4 * p + esize * p
+    logits = rows * seq * cfg.vocab_size * (esize + 4 + 4)
+    return (2 * esize * p + 8 * p + flat + logits) / 1e9
+
+
+def dp_run(cfg, mode: str, fused: bool, steps: int, lr: float,
+           timed: bool, seed: int):
+    """``steps`` DP steps on the grid's rank threads, from the weights of
+    ``seed``: every rank's (losses, grad norms, walls, rank 0's params on
+    the host when not ``timed``)."""
+    shape = DP_TRAIN["grid"]
+    n = math.prod(shape)
+    opt_cfg = AdamWConfig(lr=lr, warmup_steps=1, total_steps=10,
+                          schedule="wsd")
+
+    def fn(grid):
+        state = init_train_state(init_params(cfg, seed=seed,
+                                             device=grid.device))
+        gs = GradSyncConfig(grid=grid, axes=("pod", "data"), mode=mode,
+                            fused=fused)
+        step_fn = make_train_step(cfg, opt_cfg, grad_sync=gs)
+        batches = [dp_rank_batch(cfg, DP_TRAIN["rows"], DP_TRAIN["seq"], i,
+                                 grid.rank, n) for i in range(steps)]
+        losses, gnorms, walls = [], [], []
+        for batch in batches:
+            with ambient_grid(grid):
+                state, metrics, loss, wall = timed_step(step_fn, state,
+                                                        batch)
+            losses.append(loss)
+            gnorms.append(float(metrics["grad_norm"]))
+            walls.append(wall)
+        params = None
+        if not timed and grid.rank == 0:
+            params = [p.cpu() for p in tree_leaves(state.params)]
+        del state
+        return losses, gnorms, walls, params
+
+    return run_local_grid(fn, shape, ("pod", "data"), "cuda")
+
+
+def dp_train_phase(seed: int) -> None:
+    n = math.prod(DP_TRAIN["grid"])
+    cfg = with_layer_units(get_config(DP_ARCH), DP_TRAIN["layers"])
+    tokens = n * DP_TRAIN["rows"] * DP_TRAIN["seq"]
+    eng = get_engine()
+    log(f"dp train {cfg.name}: {cfg.num_layers} of 40 layers at full width "
+        f"(d_model {cfg.d_model}, {cfg.num_heads} x "
+        f"{cfg.resolved_head_dim} heads, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}), {cfg.param_count() / 1e9:.3f}B params, "
+        f"{cfg.dtype}; a {DP_TRAIN['grid'][0]} x {DP_TRAIN['grid'][1]} "
+        f"(pod, data) grid of rank threads on one card, "
+        f"{DP_TRAIN['rows']} x {DP_TRAIN['seq']} tokens a rank; reckoned "
+        f"peak a rank, every mode: "
+        f"{dp_memory_gb(cfg, DP_TRAIN['rows'], DP_TRAIN['seq'], 2):.1f} GB"
+        f" (x {n} ranks; the card has "
+        f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB)")
+    plans = bucket_algorithm_plan(
+        init_params(cfg, device="meta"), (("pod", "data"),
+                                           DP_TRAIN["grid"]),
+        axes=("pod", "data"), bucket_bytes=GradSyncConfig(None).bucket_bytes,
+        engine=eng)
+    summary = {}
+    for nbytes, plan in plans:
+        summary.setdefault(plan, [0, 0])
+        summary[plan][0] += 1
+        summary[plan][1] += nbytes
+    log(f"dp train: allreduce mode's {len(plans)} buckets of "
+        f"{GradSyncConfig(None).bucket_bytes >> 20} MB, by the planner's "
+        f"plan (TPU fabric model): " + "; ".join(
+            f"{plan} x {k} ({b / 1e9:.3f} GB)"
+            for plan, (k, b) in summary.items()))
+    for mode, fused in DP_MODES:
+        label = mode + (" fused" if fused else "")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = eng.stats_snapshot()
+        ops.reset_launch_counts()
+        out = dp_run(cfg, mode, fused, DP_TRAIN["steps"], DP_TRAIN["lr"],
+                     timed=True, seed=seed)
+        counts = ops.launch_counts()
+        after = eng.stats_snapshot()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        losses, gnorms, walls, _ = out[0]
+        assert all(o[:2] == (losses, gnorms) for o in out), \
+            [o[:2] for o in out]
+        assert all(math.isfinite(x) for x in losses + gnorms), (losses,
+                                                                gnorms)
+        want = dict.fromkeys(ops.WRAPPERS, 0)
+        want["flash_attention"] = 2 * cfg.num_layers * n * DP_TRAIN["steps"]
+        assert counts == want, (label, counts, want)
+        variants = ops.variant_launch_counts()["flash_attention"]
+        assert variants["wgmma"] == want["flash_attention"], variants
+        steady = float(np.median(walls[1:]))
+        log(f"dp train {label}: loss " + " ".join(f"{x:.4f}" for x in losses)
+            + " | grad_norm " + " ".join(f"{x:.4f}" for x in gnorms)
+            + f" (the global batch's, equal on every rank) | step wall "
+            f"median of steps 1-{len(walls) - 1} {steady * 1e3:.1f} ms (step "
+            f"0 {walls[0] * 1e3:.1f} ms) = {tokens / steady:.1f} tok/s over "
+            f"{n} rank threads on one card (host walls of threads sharing "
+            f"one card, not a fabric time) | max_memory_allocated "
+            f"{peak:.3f} GB (all ranks) | engine plan hits "
+            f"{after['plan_hits'] - before['plan_hits']}, misses "
+            f"{after['plan_misses'] - before['plan_misses']}, selector hits "
+            f"{after['hits'] - before['hits']}, misses "
+            f"{after['misses'] - before['misses']} | flash_attention "
+            f"launches {counts['flash_attention']} (2 a layer a rank a step, "
+            f"all wgmma; the kernels line keeps the dense train phase's count)")
+        del out
+    dp_check(seed)
+
+
+def dp_check(seed: int) -> None:
+    """DP_TRAIN['check_steps'] float32 steps of each mode at
+    DP_TRAIN['check_layers'] layers, held to the plain single-rank steps
+    on the same global batches (microbatches = the ranks, so each sees
+    the rank's rows): every step's loss and grad_norm, and every
+    parameter after the last step."""
+    n = math.prod(DP_TRAIN["grid"])
+    cfg = dataclasses.replace(
+        with_layer_units(get_config(DP_ARCH), DP_TRAIN["check_layers"]),
+        dtype="float32")
+    opt_cfg = AdamWConfig(lr=DP_TRAIN["lr"], warmup_steps=1, total_steps=10,
+                          schedule="wsd")
+    steps = DP_TRAIN["check_steps"]
+    state = init_train_state(init_params(cfg, seed=seed, device="cuda"))
+    data = SyntheticLMDataset(DataConfig(cfg.vocab_size, DP_TRAIN["seq"],
+                                         DP_TRAIN["rows"] * n))
+    step_fn = make_train_step(cfg, opt_cfg, microbatches=n)
+    losses, gnorms, walls = [], [], []
+    for i in range(steps):
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in data.batch(i).items()}
+        state, metrics, loss, wall = timed_step(step_fn, state, batch)
+        losses.append(loss)
+        gnorms.append(float(metrics["grad_norm"]))
+        walls.append(wall)
+    plain = [p.cpu() for p in tree_leaves(state.params)]
+    del state, step_fn, batch, metrics
+    torch.cuda.empty_cache()
+    log(f"dp check: {steps} plain single-rank steps, {cfg.num_layers} layer "
+        f"float32, {n} x {DP_TRAIN['rows']} x {DP_TRAIN['seq']} tokens in {n} "
+        f"microbatches: loss " + " ".join(f"{x:.6f}" for x in losses)
+        + " | grad_norm " + " ".join(f"{x:.6f}" for x in gnorms)
+        + " | walls " + " ".join(f"{x * 1e3:.1f}" for x in walls) + " ms")
+    for mode, fused in DP_MODES:
+        label = mode + (" fused" if fused else "")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out = dp_run(cfg, mode, fused, steps, DP_TRAIN["lr"], timed=False,
+                     seed=seed)
+        dp_losses, dp_gnorms, _, params = out[0]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        assert all(o[:2] == (dp_losses, dp_gnorms) for o in out), \
+            (label, [o[:2] for o in out])
+        worst, worst_abs = 0.0, 0.0
+        for a, b in zip(params, plain):
+            excess = (a - b).abs() - (DP_ATOL + DP_RTOL * b.abs())
+            worst = max(worst, float(excess.max()))
+            worst_abs = max(worst_abs, float((a - b).abs().max()))
+        d_loss = max(abs(a - b) / abs(b) for a, b in zip(dp_losses, losses))
+        d_gnorm = max(abs(a - b) / b for a, b in zip(dp_gnorms, gnorms))
+        assert (worst <= 0.0 and d_loss < 1e-5
+                and d_gnorm < DP_GNORM_RTOL), (label, worst, d_loss, d_gnorm)
+        log(f"dp check {label}: loss " + " ".join(
+            f"{x:.6f}" for x in dp_losses) + f" (max rel diff {d_loss:.2e}, "
+            f"tol 1e-5) | grad_norm " + " ".join(
+                f"{x:.6f}" for x in dp_gnorms) + f" (max rel diff "
+            f"{d_gnorm:.2e}, tol {DP_GNORM_RTOL}) | every parameter after "
+            f"step {steps - 1} within rtol {DP_RTOL} / atol {DP_ATOL} of the "
+            f"plain steps (max abs diff {worst_abs:.3e}) | "
+            f"max_memory_allocated {peak:.3f} GB")
+        del out, params
+    del plain
+    torch.cuda.empty_cache()
+
+
+# ------------------------ tensor-parallel decode ------------------------- #
+def tp_greedy(params, cfg, prompt, grid):
+    """Prefill, pad the cache, (on a grid: keep this rank's sequence
+    block), then greedy decode steps; (tokens, logits of every step)."""
+    with ambient_grid(grid):
+        logits, cache = make_prefill_step(cfg)(params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    counts = ops.launch_counts() if grid is None else None
+    pad = (0, 0, 0, 0, 0, TP_DECODE["headroom"])
+    cache = dict(cache, k=torch.nn.functional.pad(cache["k"], pad),
+                 v=torch.nn.functional.pad(cache["v"], pad))
+    if grid is not None:
+        cache = shard_decode_cache(cfg, cache, grid)
+        assert cache["smax"] == TP_DECODE["prompt"] + TP_DECODE["headroom"]
+    decode = make_decode_step(cfg)
+    steps, toks = [logits], []
+    for _ in range(TP_DECODE["new_tokens"]):
+        nxt = steps[-1][:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        toks.append(nxt)
+        with ambient_grid(grid):
+            logits, cache = decode(params, cache, {"tokens": nxt})
+        steps.append(logits)
+    torch.cuda.synchronize()
+    return torch.cat(toks, 1), torch.cat(steps, 1), counts
+
+
+def tp_decode_phase(seed: int) -> None:
+    tp = TP_DECODE["tp"]
+    cfg = with_layer_units(get_config(DP_ARCH), TP_DECODE["layers"])
+    # the weights are replicated over "model": the rank threads share one
+    # copy, which none of them writes
+    params = init_params(cfg, seed=seed, device="cuda")
+    b, s = TP_DECODE["batch"], TP_DECODE["prompt"]
+    prompt = lm_batch(cfg, b, s, 2)["tokens"]
+    act = 2 * b * s * (cfg.d_model + cfg.d_ff) * 2 / 1e9
+    cache_gb = (2 * cfg.num_layers * b * (s + TP_DECODE["headroom"])
+                * cfg.num_kv_heads * cfg.resolved_head_dim * 2) / 1e9
+    log(f"tp decode {cfg.name}: {cfg.num_layers} layers at full width, "
+        f"{cfg.dtype}, {cfg.param_count() / 1e9:.3f}B params shared by "
+        f"{tp} model-rank threads; reckoned: weights "
+        f"{cfg.param_count() * 2 / 1e9:.2f} GB once, a rank's prefill "
+        f"activations ~{act:.2f} GB and its whole cache {cache_gb:.2f} GB "
+        f"before it keeps its 1/{tp} block")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    want_toks, want_logits, single_counts = tp_greedy(params, cfg, prompt,
+                                                      None)
+    t_single = time.perf_counter() - t0
+    set_fused_tp(True)
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run_local_grid(lambda g: tp_greedy(params, cfg, prompt, g),
+                             (tp,), ("model",), "cuda")
+        t_tp = time.perf_counter() - t0
+    finally:
+        set_fused_tp(False)
+    counts = ops.launch_counts()
+    want = dict.fromkeys(ops.WRAPPERS, 0)
+    want["matmul_tiled"] = tp * tp * cfg.num_layers
+    want["flash_attention"] = tp * cfg.num_layers
+    assert counts == want, (counts, want)
+    variants = ops.variant_launch_counts()["matmul_tiled"]
+    assert variants == {"simt_f32": 0, "wmma_masked": 0,
+                        "wgmma": want["matmul_tiled"]}, variants
+    tol = 2 * float(bf16_ulp(want_logits.float().abs().max()))
+    errs = []
+    for toks, logits, _ in out:
+        assert torch.equal(toks, want_toks), (toks, want_toks)
+        assert torch.isfinite(logits).all()
+        errs.append(float((logits.float() - want_logits.float()).abs()
+                          .max()))
+    assert max(errs) <= tol, (errs, tol)
+    log(f"tp decode: single-rank route (prefill {b} x {s}, "
+        f"{TP_DECODE['new_tokens']} greedy steps) {t_single * 1e3:.1f} ms, "
+        f"launches {single_counts['flash_attention']} flash, "
+        f"{single_counts['matmul_tiled']} matmul_tiled | TP-{tp} route on "
+        f"{tp} rank threads {t_tp * 1e3:.1f} ms (host wall of threads on "
+        f"one card, not a fabric time): matmul_tiled launches "
+        f"{counts['matmul_tiled']} ({tp} a rank a layer in the prefill's "
+        f"fused ring, all wgmma; decode rows {b} do not split over {tp}: "
+        f"the unfused product, as in the reference), flash_attention "
+        f"{counts['flash_attention']} (prefill; the kernels line keeps the "
+        f"fused and dense train phases' counts) | decode through "
+        f"flash_decode over a cache of {s + TP_DECODE['headroom']} "
+        f"positions in blocks of {(s + TP_DECODE['headroom']) // tp} | "
+        f"greedy tokens identical on every rank | logits vs the single "
+        f"rank max_abs_err {max(errs):.3e} (tol {tol:.3e}: 2 bf16 ulps of "
+        f"the largest logit)")
+
+
 # ------------------------------ NCCL phase ------------------------------ #
 def nccl_worker(rank: int, world: int, init: str, seed: int) -> int:
     """One rank of the NCCL phase, on card ``rank``: the float32
@@ -2072,7 +2407,8 @@ def nccl_phase(seed: int) -> None:
     cards = torch.cuda.device_count()
     if cards < 2:
         log(f"nccl phase: not run ({cards} card); nor the 2D allreduce_multi "
-            f"over a 2x2 ProcessGroupGrid (needs 4 cards)")
+            f"over a 2x2 ProcessGroupGrid (needs 4 cards), nor the DP "
+            f"trainer under torchrun (needs 2)")
         return
     world = 1 << (cards.bit_length() - 1)   # a power of two (tree, doubling)
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -2099,6 +2435,31 @@ def nccl_phase(seed: int) -> None:
                 log(line)
     log(f"nccl phase: {world} ProcessGroupComm ranks, one per card, passed "
         f"in {time.perf_counter() - t0:.1f} s of host wall")
+    # the DP trainer as users start it: one process a card under torchrun
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    t0 = time.perf_counter()
+    # a session of its own, so that a timeout stops torchrun's workers too
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
+         "--arch", "minicpm-2b", "--reduced", "--dp", "--grad-sync", "fsdp",
+         "--steps", "2", "--batch", "4", "--seq", "64", "--log-every", "1"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=root, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    assert proc.returncode == 0, err[-4000:]
+    for line in out.splitlines():
+        if line.startswith("[train]"):
+            log(f"nccl torchrun: {line}")
+    log(f"nccl phase: torchrun --nproc-per-node 2 repro_torch.launch.train "
+        f"--dp --grad-sync fsdp (NCCL, one card a process) passed in "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def main(argv=None) -> int:
@@ -2110,6 +2471,9 @@ def main(argv=None) -> int:
     ap.add_argument("--lr-witness", action="store_true",
                     help="run only the dense train steps at lr 1e-3 "
                     "through the kernel and the plain attention route")
+    ap.add_argument("--nccl-only", action="store_true",
+                    help="run only the NCCL phase (needs 2 or more cards): "
+                    "the paths that exist only across cards")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2128,6 +2492,11 @@ def main(argv=None) -> int:
     log(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
     if args.lr_witness:
         dense_lr_witness(args.seed)
+        return 0
+    if args.nccl_only:
+        if torch.cuda.device_count() < 2:
+            raise SystemExit("--nccl-only needs 2 or more cards")
+        nccl_phase(args.seed)
         return 0
     for res in built.values():
         entry = "?"
@@ -2163,6 +2532,10 @@ def main(argv=None) -> int:
     collective_2d_phase(args.seed)
     torch.cuda.empty_cache()
     fused_phase(args.seed, rows)
+    torch.cuda.empty_cache()
+    dp_train_phase(args.seed)
+    torch.cuda.empty_cache()
+    tp_decode_phase(args.seed)
     torch.cuda.empty_cache()
     nccl_phase(args.seed)
     for r in rows.values():

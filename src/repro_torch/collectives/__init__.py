@@ -19,7 +19,7 @@ from repro_torch.collectives.api import (allgather, allgather_inside,
 from repro_torch.collectives.comm import (Comm, GridComm, LocalComm,
                                           ProcessGroupComm,
                                           ProcessGroupGrid, run_local,
-                                          run_local_grid)
+                                          run_local_grid, single_rank_grid)
 from repro_torch.collectives.engine import (CollectiveEngine, Decision,
                                             fit_fabric, measure_ppermute)
 from repro_torch.collectives.planner import CollectivePlan, PlanStep
@@ -35,4 +35,5 @@ __all__ = ["allreduce", "allreduce_inside", "allreduce_multi_inside",
            "plan_collective", "CollectiveEngine", "Decision", "fit_fabric",
            "measure_ppermute", "CollectivePlan", "PlanStep", "Comm",
            "GridComm", "LocalComm", "ProcessGroupComm", "ProcessGroupGrid",
-           "run_local", "run_local_grid", "planner", "shardmap_impl"]
+           "run_local", "run_local_grid", "single_rank_grid", "planner",
+           "shardmap_impl"]

@@ -346,6 +346,14 @@ class GridComm:
     def axis_size(self, name: str) -> int:
         return self.shape[self._position(name)]
 
+    def axes_index(self, axes: Sequence[str]) -> int:
+        """This rank's index over ``axes``, row-major in the order given
+        (its rank in ``sub(axes)``, without making the sub-comm)."""
+        index = 0
+        for name in ((axes,) if isinstance(axes, str) else axes):
+            index = index * self.axis_size(name) + self.axis_index(name)
+        return index
+
     def _position(self, name: str) -> int:
         try:
             return self.axis_names.index(name)
@@ -440,6 +448,14 @@ def run_local_grid(fn: Callable[[GridComm], Any], shape: Sequence[int],
     return _run_threads(
         lambda r: fn(LocalGridComm(groups, names, shape, r, dev)), size, dev,
         groups)
+
+
+def single_rank_grid(names: Sequence[str], device: DeviceLike = None
+                     ) -> GridComm:
+    """The grid of a process with no peers: one rank, every axis of size
+    1 (``device`` defaults to CUDA and raises without a GPU)."""
+    return LocalGridComm(_LocalGroups(DEFAULT_TIMEOUT), names,
+                         (1,) * len(names), 0, _local_device(device))
 
 
 # ---------------------------------------------------------------------- #
@@ -627,4 +643,4 @@ class ProcessGroupGrid(GridComm):
 
 __all__ = ["Comm", "LocalComm", "ProcessGroupComm", "GridComm",
            "LocalGridComm", "ProcessGroupGrid", "run_local",
-           "run_local_grid", "DEFAULT_TIMEOUT"]
+           "run_local_grid", "single_rank_grid", "DEFAULT_TIMEOUT"]

@@ -61,7 +61,8 @@ import math
 import os
 import threading
 import time
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 
@@ -1065,9 +1066,10 @@ class CollectiveEngine:
                 "t_rs": float(rs.predicted)}
 
     def fused_matmul_reduce_scatter(self, x: torch.Tensor,
-                                    w: Optional[torch.Tensor], comm: Comm,
-                                    *, algorithm: str = "auto"
-                                    ) -> torch.Tensor:
+                                    w: Optional[torch.Tensor],
+                                    comm: Union[Comm, GridComm],
+                                    *, algorithm: str = "auto",
+                                    axes: Any = None) -> torch.Tensor:
         """``reduce_scatter(x @ w)`` over the axis, with the block GEMMs
         between the ring's hops.
 
@@ -1081,7 +1083,17 @@ class CollectiveEngine:
         (:meth:`price_fused_matmul_rs`); ``"fused"`` / ``"unfused"``
         force either path.  ``w=None`` (the FSDP grad-sync site, no
         local GEMM) is the engine's reduce-scatter.  M not divisible by
-        P takes the gathered path, as in the reference."""
+        P takes the gathered path, as in the reference.
+
+        ``comm`` is one axis's communicator, or a grid with the ``axes``
+        the reference names: several axes take the multi-axis
+        reduce-scatter when ``w`` is None, and their folded sub-comm
+        otherwise."""
+        if isinstance(comm, GridComm):
+            axes = self._grid_axes(comm, axes)[0]
+            if w is None and len(axes) > 1:
+                return self.reduce_scatter_multi(x, comm, axes, algorithm)
+            comm = comm.sub(axes)
         if w is None:
             return self.reduce_scatter_inside(x, comm, algorithm)
         self._check(x, comm)

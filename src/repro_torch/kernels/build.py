@@ -144,6 +144,19 @@ def check_launch(kernel: str, err: int) -> None:
                            f"cudaError_t {err}")
 
 
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper, variant: Optional[str] = None) -> None:
+    """Add one to a wrapper's ``launches`` (and its variant's count)
+    under a lock: the ranks of ``run_local`` are threads, and ``+= 1`` on
+    an attribute is not atomic across them."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+        if variant is not None:
+            wrapper.variant_launches[variant] += 1
+
+
 def load(name: str) -> ctypes.CDLL:
     """The kernel's shared library, built on first use and loaded once
     per process.  Threads that ask together (the ranks of a

@@ -129,8 +129,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         int(causal), int(window is not None),
         0 if window is None else int(window), 1.0 / (d ** 0.5), stream)
     build.check_launch("flash_attention", err)
-    flash_attention_cuda.launches += 1
-    flash_attention_cuda.variant_launches[variant] += 1
+    build.count_launch(flash_attention_cuda, variant)
     return o, lse
 
 

@@ -92,8 +92,7 @@ def matmul_tiled_cuda(x: torch.Tensor, w: torch.Tensor,
                                   w.data_ptr(), out.data_ptr(), m, n, k,
                                   VARIANTS[variant], stream)
     build.check_launch("matmul_tiled", err)
-    matmul_tiled_cuda.launches += 1
-    matmul_tiled_cuda.variant_launches[variant] += 1
+    build.count_launch(matmul_tiled_cuda, variant)
     return out
 
 

@@ -64,7 +64,7 @@ def multi_add(stacked: torch.Tensor) -> torch.Tensor:
     if err:
         raise RuntimeError(f"multi_add: kernel launch failed with "
                            f"cudaError_t {err}")
-    multi_add.launches += 1
+    build.count_launch(multi_add)
     return out
 
 

@@ -216,7 +216,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         out.data_ptr(), *scratch, b, h, hkv, d, bs, block_tables.shape[1],
         split_blocks, n_split, 1.0 / d ** 0.5, stream)
     build.check_launch("paged_attention", err)
-    paged_attention.launches += 1
+    build.count_launch(paged_attention)
     return out
 
 

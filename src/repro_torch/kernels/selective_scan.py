@@ -124,7 +124,7 @@ def selective_scan(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
     """Forward scan on the GPU: (y [B, S, D] in x.dtype, h_final
     [B, D, N] float32)."""
     y, h_final, _ = _forward("selective_scan", dt, x, b, c, a, h0, False)
-    selective_scan.launches += 1
+    build.count_launch(selective_scan)
     return y, h_final
 
 
@@ -137,7 +137,7 @@ def selective_scan_fwd_ckpt(dt: torch.Tensor, x: torch.Tensor,
     float32, the state entering every chunk: what the backward kernel
     recomputes from."""
     out = _forward("selective_scan_fwd_ckpt", dt, x, b, c, a, h0, True)
-    selective_scan_fwd_ckpt.launches += 1
+    build.count_launch(selective_scan_fwd_ckpt)
     return out
 
 
@@ -174,7 +174,7 @@ def selective_scan_bwd(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
         dc_part.data_ptr(), da_part.data_ptr(), dh0.data_ptr(), bsz, s, d,
         n, _stream(x))
     _raise_on(name, err)
-    selective_scan_bwd.launches += 1
+    build.count_launch(selective_scan_bwd)
     return (ddt, dx, db_part.sum(dim=1), dc_part.sum(dim=1),
             da_part.sum(dim=0), dh0)
 

@@ -18,14 +18,23 @@ kernel's port (``kernels.ops.flash_attention``) on the unexpanded K/V;
 the plain route, and any CPU tensor, take ``_chunked_attention``,
 differentiated by autograd.
 
-The reference's sharding hints, its sequence-parallel flash decode and
-its fused tensor-parallel down-projection have no counterpart: the port
-runs one device per process until the collective slices land.
+The model axis: where the reference reads the ambient mesh, the port
+reads this thread's ambient grid (:func:`ambient_grid`, a context
+manager binding the rank's ``GridComm``; per thread, since the ranks of
+``run_local_grid`` are threads of one process).  Under a grid with a
+``"model"`` axis, ``swiglu`` runs the fused tensor-parallel
+down-projection (``set_fused_tp``) and a dense decode over a
+sequence-sharded KV cache runs ``flash_decode``.  Weights stay
+replicated over ``"model"``: each rank computes everything but the
+down-projection's ring.  The reference's sharding hints
+(``shard_hint``) steer GSPMD and have no counterpart.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import contextlib
+import threading
+from typing import Iterator, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -215,10 +224,179 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.transpose(1, 2)
 
 
+# ---------------------------------------------------------------------- #
+# the ambient grid: this thread's rank of a grid with named axes
+# ---------------------------------------------------------------------- #
+_AMBIENT = threading.local()
+
+
+@contextlib.contextmanager
+def ambient_grid(grid) -> Iterator:
+    """Bind ``grid`` (this rank's ``GridComm``) as the thread's ambient
+    grid for the duration of the block, the counterpart of entering a
+    mesh; blocks nest, and ``None`` unbinds."""
+    prev = getattr(_AMBIENT, "grid", None)
+    _AMBIENT.grid = grid
+    try:
+        yield grid
+    finally:
+        _AMBIENT.grid = prev
+
+
+def _ambient_grid():
+    """The grid this thread is bound to, or None."""
+    return getattr(_AMBIENT, "grid", None)
+
+
+# ---------------------------------------------------------------------- #
+# sequence-parallel flash decode
+#
+# GQA archs whose kv-head count doesn't divide the model axis keep their
+# KV cache *sequence*-sharded (sharding.rules._kv_cache_spec).  Each
+# model rank computes flash partials (m, l, acc) over its local cache
+# block, and the ranks combine them with a log-sum-exp merge: the exact
+# max over an allgather of the [B, H, 1] maxima, then two sums through
+# the engine, instead of gathering the cache.
+# ---------------------------------------------------------------------- #
+def flash_decode(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                 kv_len: IntLike, grid) -> torch.Tensor:
+    """q: [B, 1, H, D] (replicated over "model"); ck / cv: [B, S / P, KV,
+    D], this rank's sequence block of the cache (rank r holds positions
+    ``[r S / P, (r + 1) S / P)``); positions ``>= kv_len`` are masked.
+    Returns [B, 1, H, D] on every rank of the model axis."""
+    from repro_torch.collectives.api import get_engine
+
+    eng = get_engine(device=grid.device)
+    comm = grid.sub("model")
+    _, _, h, d = q.shape
+    group = h // ck.shape[2]
+    s_local = ck.shape[1]
+    offset = comm.rank * s_local
+    kt = _repeat_kv(ck.transpose(1, 2), group)          # [B, H, S_l, D]
+    vt = _repeat_kv(cv.transpose(1, 2), group)
+    qt = q.transpose(1, 2)                              # [B, H, 1, D]
+    logits = (qt.float() @ kt.float().transpose(-1, -2)) / (d ** 0.5)
+    ids = offset + torch.arange(s_local, device=q.device)
+    mask = ids < kv_len
+    logits = logits.masked_fill(~mask, float("-inf"))
+    m_l = logits.amax(dim=-1)                           # [B, H, 1]
+    m_g = eng.allgather_inside(m_l[None], comm).amax(dim=0)
+    safe = torch.where(torch.isfinite(m_g), m_g, torch.zeros_like(m_g))
+    p = torch.exp((logits - safe[..., None]).masked_fill(~mask,
+                                                         float("-inf")))
+    l_g = eng.allreduce_inside(p.sum(dim=-1), comm)
+    acc_g = eng.allreduce_inside(p @ vt.float(), comm)
+    l_g = torch.where(l_g == 0.0, torch.ones_like(l_g), l_g)
+    out = (acc_g / l_g[..., None]).to(q.dtype)
+    return out.transpose(1, 2)                          # [B, 1, H, D]
+
+
+def use_flash_decode(b: int, sq: int, skv: int, kvh: int):
+    """The ambient grid when the sequence-parallel decode applies: one
+    query position, a "model" axis whose size divides the global cache
+    length ``skv`` but not the kv-head count (head-sharded caches take
+    the regular path)."""
+    grid = _ambient_grid()
+    if grid is None or sq != 1 or "model" not in grid.axis_names:
+        return None
+    m = grid.axis_size("model")
+    if kvh % m == 0 or skv % m != 0:
+        return None
+    return grid
+
+
+# ---------------------------------------------------------------------- #
+# fused tensor-parallel down-projection (opt-in)
+#
+# The TP down-projection contracts the model-sharded hidden dim, so its
+# natural lowering is a partial sum + psum.  With fusion enabled the
+# psum is a reduce-scatter + allgather and the reduce-scatter rides the
+# engine's fused matmul + reduce-scatter ring: the ``matmul_tiled``
+# kernel computes each row block between the ring's hops.
+# ---------------------------------------------------------------------- #
+_FUSED_TP = False
+
+
+def set_fused_tp(value: bool) -> None:
+    """Enable/disable the fused TP down-projection (launchers flip this
+    under ``--fused``; a no-op unless the ambient grid has a model axis
+    > 1 and the shapes tile the ring)."""
+    global _FUSED_TP
+    _FUSED_TP = bool(value)
+
+
+def fused_tp_enabled() -> bool:
+    return _FUSED_TP
+
+
+def _fused_tp_applicable(grid, h: torch.Tensor) -> bool:
+    """``h`` [B, S, F] holds this rank's rows (its DP block of the
+    batch): the ring needs a model axis > 1 that divides F and the rows
+    B * S -- the reference's test on ``(B / n_dp) * S`` when the batch is
+    split over DP."""
+    if "model" not in grid.axis_names or grid.axis_size("model") <= 1:
+        return False
+    pm = grid.axis_size("model")
+    b, s, f = h.shape
+    return f % pm == 0 and (b * s) % pm == 0
+
+
+class _FusedDownProj(torch.autograd.Function):
+    """``psum(h_r @ w_down_r)`` over "model" as the fused ring's
+    reduce-scatter + an allgather, rank r taking block r of h's hidden
+    dim and of ``w_down``'s rows.
+
+    The backward is the dense one on the full tensors, ``dh = dy @
+    w_downᵀ`` and ``dw = hᵀ @ dy``, with no collective: the weights are
+    replicated over "model" and so is dy.  A collective in a backward
+    node could deadlock on CUDA, where the autograd engine runs the
+    nodes of every thread's backward on one worker thread per device;
+    nothing here reads the thread's ambient grid in the backward."""
+
+    @staticmethod
+    def forward(ctx, h: torch.Tensor, w_down: torch.Tensor, grid
+                ) -> torch.Tensor:
+        from repro_torch.collectives.api import get_engine
+
+        eng = get_engine(device=grid.device)
+        comm = grid.sub("model")
+        b, s, f = h.shape
+        fl = f // comm.size
+        cols = slice(comm.rank * fl, (comm.rank + 1) * fl)
+        # a contiguous block: matmul_tiled's TMA variant wants 16-byte
+        # aligned rows, which a strided column view does not have
+        x2 = h[..., cols].reshape(b * s, fl).contiguous()
+        y_s = eng.fused_matmul_reduce_scatter(x2, w_down[cols], comm)
+        y = eng.allgather_inside(y_s, comm)
+        ctx.save_for_backward(h, w_down)
+        return y.reshape(b, s, w_down.shape[-1])
+
+    @staticmethod
+    def backward(ctx, dy: torch.Tensor):
+        h, w_down = ctx.saved_tensors
+        d = w_down.shape[-1]
+        dh = dy @ w_down.t()
+        dw = h.reshape(-1, h.shape[-1]).t() @ dy.reshape(-1, d)
+        return dh, dw, None
+
+
+def _fused_down_proj(h: torch.Tensor, w_down: torch.Tensor, grid
+                     ) -> torch.Tensor:
+    """``h @ w_down`` as ``psum`` over "model" of the ranks' blocks, the
+    reduce-scatter fused with the GEMM ring (:class:`_FusedDownProj`)."""
+    return _FusedDownProj.apply(h, w_down, grid)
+
+
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+    h = F.silu(x @ w_gate) * (x @ w_up)
+    if _FUSED_TP:
+        grid = _ambient_grid()
+        if grid is not None and _fused_tp_applicable(grid, h):
+            return _fused_down_proj(h, w_down, grid)
+    return h @ w_down
 
 
-__all__ = ["apply_rope", "attention", "rms_norm", "rope_frequencies",
-           "swiglu"]
+__all__ = ["ambient_grid", "apply_rope", "attention", "flash_decode",
+           "fused_tp_enabled", "rms_norm", "rope_frequencies",
+           "set_fused_tp", "swiglu", "use_flash_decode"]

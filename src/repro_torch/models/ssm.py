@@ -108,15 +108,19 @@ def mamba_block(x: torch.Tensor, p: dict, *, ssm_state: int,
     return y @ p["out_proj"], SSMState(conv=new_conv, h=h_new)
 
 
-def init_mamba_params(gen: torch.Generator, d_model: int, d_inner: int,
-                      ssm_state: int, dt_rank: int, d_conv: int,
-                      dtype: torch.dtype) -> dict:
+def init_mamba_params(gen: Optional[torch.Generator], d_model: int,
+                      d_inner: int, ssm_state: int, dt_rank: int,
+                      d_conv: int, dtype: torch.dtype,
+                      device: Optional[torch.device] = None) -> dict:
     """Random block weights from ``gen`` (on its device), with the
     reference's shapes, scales and constants (float32 normals scaled,
-    then cast).  ``a_log`` and ``d_skip`` stay float32."""
-    dev = gen.device
+    then cast).  ``a_log`` and ``d_skip`` stay float32.  ``gen=None``
+    with the meta ``device`` gives the shapes only."""
+    dev = gen.device if gen is not None else device
 
     def normal(shape, scale):
+        if gen is None:
+            return torch.empty(shape, dtype=dtype, device=dev)
         return (torch.randn(shape, generator=gen, device=dev)
                 * scale).to(dtype)
 

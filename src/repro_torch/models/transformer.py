@@ -39,7 +39,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import apply_rope, attention, rms_norm, swiglu
+from repro_torch.models.layers import (_ambient_grid, apply_rope,
+                                      attention, flash_decode,
+                                      fused_tp_enabled, rms_norm, swiglu,
+                                      use_flash_decode)
 
 Params = Dict[str, Any]
 
@@ -48,20 +51,23 @@ def _norm(d: int, dtype, device) -> torch.Tensor:
     return torch.zeros((d,), dtype=dtype, device=device)
 
 
-def _dense(gen: torch.Generator, shape, scale: float, dtype
+def _dense(gen: Optional[torch.Generator], shape, scale: float, dtype
            ) -> torch.Tensor:
+    if gen is None:                     # the meta device: shapes only
+        return torch.empty(shape, dtype=dtype, device="meta")
     # float32 normals scaled, then cast: the reference's recipe
     return (torch.randn(shape, generator=gen, device=gen.device)
             * scale).to(dtype)
 
 
-def _decoder_layer(gen: torch.Generator, cfg: ArchConfig, dtype) -> Params:
+def _decoder_layer(gen: Optional[torch.Generator], cfg: ArchConfig, dtype,
+                   device: torch.device) -> Params:
     d, h, kv, hd, f = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                        cfg.resolved_head_dim, cfg.d_ff)
     s = d ** -0.5
     return {
-        "ln1": _norm(d, dtype, gen.device),
-        "ln2": _norm(d, dtype, gen.device),
+        "ln1": _norm(d, dtype, device),
+        "ln2": _norm(d, dtype, device),
         "wq": _dense(gen, (d, h * hd), s, dtype),
         "wk": _dense(gen, (d, kv * hd), s, dtype),
         "wv": _dense(gen, (d, kv * hd), s, dtype),
@@ -101,12 +107,18 @@ def init_params(cfg: ArchConfig, seed: int = 0,
     ``cuda``).  Shapes and scales follow the reference; norm weights
     start at zero.  The draws differ from ``jax.random``'s: to hold the
     port against the reference on the same weights, convert them with
-    ``repro_torch.convert.params_from_jax``."""
+    ``repro_torch.convert.params_from_jax``.  ``device="meta"`` gives
+    every shape and dtype with nothing allocated (the reference's
+    ``param_specs``)."""
     if cfg.family not in INIT_FAMILIES:
         raise _not_ported("init_params", cfg)
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = None
+    if device is not None and torch.device(device).type == "meta":
+        dev = torch.device("meta")
+    else:
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     dtype = cfg.activation_dtype
     d, v = cfg.d_model, cfg.vocab_size
     params: Params = {
@@ -118,10 +130,11 @@ def init_params(cfg: ArchConfig, seed: int = 0,
         params["layers"] = [
             {"ln": _norm(d, dtype, dev),
              **ssm_lib.init_mamba_params(gen, d, cfg.d_inner, cfg.ssm_state,
-                                         cfg.dt_rank, cfg.ssm_conv, dtype)}
+                                         cfg.dt_rank, cfg.ssm_conv, dtype,
+                                         dev)}
             for _ in range(cfg.num_layers)]
         return params
-    params["layers"] = [_decoder_layer(gen, cfg, dtype)
+    params["layers"] = [_decoder_layer(gen, cfg, dtype, dev)
                         for _ in range(cfg.num_layers)]
     return params
 
@@ -158,6 +171,7 @@ KV = Tuple[torch.Tensor, torch.Tensor]
 def _attention_sublayer(cfg: ArchConfig, x: torch.Tensor, p: Params, *,
                         causal: bool = True, window: Optional[int] = None,
                         pos: int = 0, cache_kv: Optional[KV] = None,
+                        smax: Optional[int] = None,
                         use_kernel: Optional[bool] = None
                         ) -> Tuple[torch.Tensor, KV]:
     """Returns (attn_out, new (k, v)).  Without a cache: self-attention
@@ -166,7 +180,13 @@ def _attention_sublayer(cfg: ArchConfig, x: torch.Tensor, p: Params, *,
     place** at ``min(pos, Smax - S)`` (the reference's
     ``dynamic_update_slice`` start: with no headroom a decode step
     overwrites the last cached position), and x attends over the cache up
-    to ``pos + S``."""
+    to ``pos + S``.
+
+    ``smax`` is the cache's global length when ``cache_kv`` holds only
+    this rank's sequence block (``shard_decode_cache``): a decode step
+    then writes K and V only where ``write`` falls in the block and runs
+    ``flash_decode`` across the ambient grid's model axis, where the
+    reference's ``use_flash_decode`` applies."""
     b, s, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     q = (x @ p["wq"]).reshape(b, s, h, hd)
@@ -182,19 +202,37 @@ def _attention_sublayer(cfg: ArchConfig, x: torch.Tensor, p: Params, *,
         new_kv = (k, v)
     else:
         ck, cv = cache_kv
-        write = min(pos, ck.shape[1] - s)
-        ck[:, write:write + s] = k.to(ck.dtype)
-        cv[:, write:write + s] = v.to(cv.dtype)
-        out = attention(q, ck, cv, causal=causal, window=window,
-                        q_offset=pos, kv_len=pos + s,
-                        probs_bf16=cfg.attn_probs_bf16,
-                        use_kernel=use_kernel)
+        s_local = ck.shape[1]
+        smax = s_local if smax is None else smax
+        write = min(pos, smax - s)
+        grid = (use_flash_decode(b, s, smax, kv)
+                if causal and not window else None)
+        if grid is not None:
+            offset = grid.axis_index("model") * s_local
+            if smax != s_local * grid.axis_size("model"):
+                raise ValueError(f"cache block of {s_local} positions for a "
+                                 f"cache of {smax} over the model axis")
+            if offset <= write < offset + s_local:
+                ck[:, write - offset] = k[:, 0].to(ck.dtype)
+                cv[:, write - offset] = v[:, 0].to(cv.dtype)
+            out = flash_decode(q, ck, cv, pos + s, grid)
+        elif s_local != smax:
+            raise ValueError("a sequence-sharded cache needs the "
+                             "sequence-parallel decode (use_flash_decode)")
+        else:
+            ck[:, write:write + s] = k.to(ck.dtype)
+            cv[:, write:write + s] = v.to(cv.dtype)
+            out = attention(q, ck, cv, causal=causal, window=window,
+                            q_offset=pos, kv_len=pos + s,
+                            probs_bf16=cfg.attn_probs_bf16,
+                            use_kernel=use_kernel)
         new_kv = (ck, cv)
     return out.reshape(b, s, h * hd) @ p["wo"], new_kv
 
 
 def _decoder_block(cfg: ArchConfig, x: torch.Tensor, p: Params, *,
                    pos: int = 0, cache_kv: Optional[KV] = None,
+                   smax: Optional[int] = None,
                    window: Optional[int] = None,
                    use_kernel: Optional[bool] = None
                    ) -> Tuple[torch.Tensor, KV, float]:
@@ -206,7 +244,8 @@ def _decoder_block(cfg: ArchConfig, x: torch.Tensor, p: Params, *,
         raise _not_ported("the MoE FFN", cfg)
     a, new_kv = _attention_sublayer(
         cfg, rms_norm(x, p["ln1"], cfg.norm_eps), p, causal=True,
-        window=window, pos=pos, cache_kv=cache_kv, use_kernel=use_kernel)
+        window=window, pos=pos, cache_kv=cache_kv, smax=smax,
+        use_kernel=use_kernel)
     x = x + a
     f = _ffn_sublayer(cfg, rms_norm(x, p["ln2"], cfg.norm_eps), p)
     return x + f, new_kv, 0.0
@@ -246,6 +285,18 @@ def forward_train(params: Params, cfg: ArchConfig, batch: Dict[str, Any],
     _check_family("forward_train", cfg, batch)
     uk = kernel_route(params, use_kernel)
     x = _embed(params, cfg, batch["tokens"])
+    grid = _ambient_grid()
+    if (remat and torch.is_grad_enabled() and fused_tp_enabled()
+            and x.device.type == "cuda" and grid is not None
+            and "model" in grid.axis_names
+            and grid.axis_size("model") > 1):
+        # the recompute of a checkpointed layer runs in the backward, on
+        # the autograd engine's one worker thread per device, shared by
+        # every rank thread: the ring's collectives would deadlock there
+        raise NotImplementedError(
+            "forward_train: remat with the fused TP down-projection on "
+            "CUDA would run the ring inside the backward pass; pass "
+            "remat=False")
 
     if cfg.family == "ssm":
         def layer(h, lp):
@@ -334,11 +385,40 @@ def decode_step(params: Params, cfg: ArchConfig,
                      "pos": cache["pos"] + 1}
         return _unembed(params, cfg, x), new_cache
     pos = int(cache["pos"])
+    smax = int(cache.get("smax", cache["k"].shape[2]))
     for i, lp in enumerate(params["layers"]):
         x, _, _ = _decoder_block(cfg, x, lp, pos=pos,
-                                 cache_kv=(cache["k"][i], cache["v"][i]))
+                                 cache_kv=(cache["k"][i], cache["v"][i]),
+                                 smax=smax)
     return _unembed(params, cfg, x), dict(cache, pos=cache["pos"] + 1)
 
 
+def shard_decode_cache(cfg: ArchConfig, cache: Dict[str, Any], grid
+                       ) -> Dict[str, Any]:
+    """This rank's blocks of a dense decode cache under the reference's
+    cache specs over ``grid`` (``sharding.rules.cache_specs``): K and V
+    sequence-sharded over "model" when the kv heads do not divide the
+    axis and the length does, else whole.  A sequence-sharded cache
+    carries its global length as ``"smax"``, which ``decode_step`` reads
+    under the same ambient grid.  Views of ``cache``; decode writes into
+    them in place.  (Head-sharded caches are not offered: the port's
+    attention projections are replicated over "model".)"""
+    from repro_torch.sharding.rules import cache_specs, for_grid, local_shard
+
+    specs = cache_specs(cfg, for_grid(grid), cache)
+    out = {}
+    for key, x in cache.items():
+        spec = specs[key]
+        if key in ("k", "v") and spec[3] is not None:
+            raise NotImplementedError(
+                "head-sharded KV caches: the port keeps the attention "
+                "projections replicated over the model axis")
+        out[key] = local_shard(x, spec, grid) if spec else x
+    if specs["k"][2] is not None:
+        out["smax"] = cache["k"].shape[2]
+    return out
+
+
 __all__ = ["INIT_FAMILIES", "Params", "decode_step", "forward_train",
-           "init_cache", "init_params", "kernel_route", "prefill"]
+           "init_cache", "init_params", "kernel_route", "prefill",
+           "shard_decode_cache"]

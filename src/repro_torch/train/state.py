@@ -1,11 +1,18 @@
-"""Train state (counterpart of ``repro/train/state.py``).  The sharding
-helpers wait for the multi-rank slice (ROADMAP A.3)."""
+"""Train state and its sharding helpers (counterpart of
+``repro/train/state.py``): the specs of a state over a grid, a state of
+meta tensors (nothing allocated), and the FSDP flat state back to the
+parameter tree."""
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional
+
+import torch
 
 from repro_torch.optim.adamw import AdamWState, init_state
+from repro_torch.sharding.rules import (GridLike, ShardingPolicy,
+                                        param_sharding_tree)
+from repro_torch.tree import tree_leaves, unflatten_stacked
 
 
 class TrainState(NamedTuple):
@@ -18,4 +25,51 @@ def init_train_state(params: Any, master_weights: bool = False
     return TrainState(params=params, opt=init_state(params, master_weights))
 
 
-__all__ = ["TrainState", "init_train_state"]
+def train_state_shardings(state: TrainState, grid: GridLike,
+                          policy: Optional[ShardingPolicy] = None
+                          ) -> TrainState:
+    """The state's specs (``sharding.rules``): the optimizer moments and
+    the master copy inherit each parameter's spec; the step count is
+    replicated, ``()``."""
+    p_sh = param_sharding_tree(state.params, grid, policy)
+    has_master = state.opt.master is not None
+    return TrainState(params=p_sh, opt=AdamWState(
+        mu=p_sh, nu=p_sh, count=(), master=p_sh if has_master else None))
+
+
+def abstract_train_state(cfg, master_weights: bool = False) -> TrainState:
+    """The train state of ``cfg`` as meta tensors: every shape and dtype,
+    nothing allocated (the reference's ``jax.eval_shape``)."""
+    from repro_torch.models import init_params
+    return init_train_state(init_params(cfg, device="meta"), master_weights)
+
+
+def fsdp_state_to_tree(state: TrainState) -> TrainState:
+    """The ``mode="fsdp"`` flat optimizer state back in the tree layout,
+    so it resumes under ``mode="allreduce"`` (``apply_updates`` on
+    per-parameter moments).
+
+    ``fsdp_sync_apply`` leaves ``mu`` / ``nu`` (and ``master`` when
+    enabled) as flat float32 vectors in stacked order; pass here the
+    whole vector (this rank's shard gathered over the DP axes, the
+    reference's global array).  The padding is stripped and each vector
+    unflattened to the parameter tree, float32 as ``init_state`` makes
+    it.  A state already tree-shaped passes unchanged; the round trip is
+    exact."""
+    leaves = tree_leaves(state.params)
+    n = sum(leaf.numel() for leaf in leaves)
+    f32 = [torch.float32] * len(leaves)
+
+    def back(x):
+        if not (torch.is_tensor(x) and x.dim() == 1 and x.numel() >= n):
+            return x                        # already tree-shaped
+        return unflatten_stacked(state.params, x[:n], f32)
+
+    opt = state.opt
+    return TrainState(params=state.params, opt=AdamWState(
+        mu=back(opt.mu), nu=back(opt.nu), count=opt.count,
+        master=back(opt.master)))
+
+
+__all__ = ["TrainState", "abstract_train_state", "fsdp_state_to_tree",
+           "init_train_state", "train_state_shardings"]

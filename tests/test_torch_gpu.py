@@ -1095,3 +1095,183 @@ def test_reduced_dense_train_step_kernel_route_matches_plain(cuda_device):
         assert float(mk[key]) == pytest.approx(float(mp[key]), rel=1e-4)
     for a_, b_ in zip(pk, pp):
         torch.testing.assert_close(a_, b_, rtol=0, atol=1e-5)
+
+
+# ------------------ data and tensor parallelism (slice 9) ---------------- #
+def _tiny_dense():
+    from repro_torch.configs.base import ArchConfig
+    return ArchConfig(name="tiny", family="dense", num_layers=2, d_model=32,
+                      num_heads=4, num_kv_heads=4, d_ff=64, vocab_size=64,
+                      dtype="float32")
+
+
+def _dp_steps(device, mode, fused=False):
+    """Two DP steps of the tiny dense config on a 2 x 2 grid of rank
+    threads on ``device``; every rank's params."""
+    from repro_torch.collectives import run_local_grid
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.state import init_train_state
+    from repro_torch.train.step import GradSyncConfig, make_train_step
+    from repro_torch.tree import tree_leaves
+    cfg = _tiny_dense()
+    rng = np.random.default_rng(1)
+    batch = {k: torch.from_numpy(rng.integers(0, 64, (8, 16))
+                                 .astype(np.int32)) for k in ("tokens",
+                                                              "labels")}
+    base = init_params(cfg, seed=0, device="cpu")
+
+    def fn(grid):
+        # a copy a rank: the step updates its parameters in place
+        params = {k: ([{n: t.to(grid.device, copy=True)
+                        for n, t in lp.items()} for lp in v]
+                      if k == "layers" else v.to(grid.device, copy=True))
+                  for k, v in base.items()}
+        gs = GradSyncConfig(grid=grid, axes=("pod", "data"), mode=mode,
+                            fused=fused)
+        step = make_train_step(cfg, AdamWConfig(warmup_steps=1,
+                                                total_steps=10),
+                               grad_sync=gs)
+        st = init_train_state(params)
+        rows = {k: v[2 * grid.rank:2 * grid.rank + 2].to(grid.device)
+                for k, v in batch.items()}
+        for _ in range(2):
+            st, m = step(st, rows)
+        return float(m["loss"]), [p.cpu() for p in tree_leaves(st.params)]
+
+    return run_local_grid(fn, (2, 2), ("pod", "data"), device, timeout=120)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,fused", [("allreduce", False),
+                                        ("fsdp", False), ("fsdp", True)])
+def test_dp_step_on_cuda_rank_threads_matches_cpu_ranks(cuda_device, mode,
+                                                        fused):
+    gpu = _dp_steps(cuda_device, mode, fused)
+    cpu = _dp_steps("cpu", mode, fused)
+    # float32 on both; cuBLAS and the CPU sum in other orders: the
+    # reference test's bounds (tests/test_engine.py:431)
+    for (lg, pg), (lc, pc) in zip(gpu, cpu):
+        assert lg == pytest.approx(lc, rel=1e-5)
+        for a_, b_ in zip(pg, pc):
+            torch.testing.assert_close(a_, b_, rtol=1e-4, atol=1e-5)
+
+
+def _fused_swiglu(device, monkeypatch=None):
+    """``swiglu`` through the fused TP ring on a (2, 4) (data, model) grid
+    of rank threads (the engine's price made to favour the ring): each
+    rank's value and weight gradients."""
+    from repro_torch.collectives import run_local_grid
+    from repro_torch.models import layers
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(8, 16, 32)).astype(np.float32)
+    ws = [(rng.normal(size=s) / np.sqrt(s[0])).astype(np.float32)
+          for s in ((32, 64), (32, 64), (64, 32))]
+
+    def fn(grid):
+        d = grid.axis_index("data")
+        xr = torch.from_numpy(x[4 * d:4 * d + 4]).to(grid.device)
+        w = [torch.from_numpy(a).to(grid.device).requires_grad_()
+             for a in ws]
+        with layers.ambient_grid(grid):
+            y = layers.swiglu(xr, *w)
+        loss = (y * y).sum()
+        grads = torch.autograd.grad(loss, w)
+        return float(loss.detach()), [g.cpu() for g in grads]
+
+    layers.set_fused_tp(True)
+    try:
+        return run_local_grid(fn, (2, 4), ("data", "model"), device,
+                              timeout=120)
+    finally:
+        layers.set_fused_tp(False)
+
+
+@pytest.mark.gpu
+def test_fused_tp_swiglu_on_cuda_matches_cpu_and_launches_p_per_rank(
+        cuda_device, monkeypatch):
+    from repro_torch.collectives import CollectiveEngine
+    price = CollectiveEngine.price_fused_matmul_rs
+    monkeypatch.setattr(CollectiveEngine, "price_fused_matmul_rs",
+                        lambda self, *a, **k: dict(price(self, *a, **k),
+                                                   saved=1.0))
+    ops.reset_launch_counts()
+    gpu = _fused_swiglu(cuda_device)
+    counts = ops.launch_counts()
+    cpu = _fused_swiglu("cpu")
+    # one ring over the model axis of 4 per rank, P block GEMMs each
+    want = dict.fromkeys(ops.WRAPPERS, 0)
+    want["matmul_tiled"] = 8 * 4
+    assert counts == want, counts
+    for (lg, gg), (lc, gc) in zip(gpu, cpu):
+        assert lg == pytest.approx(lc, rel=1e-5)
+        for a_, b_ in zip(gg, gc):
+            torch.testing.assert_close(a_, b_, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_autograd_runs_cuda_backward_nodes_on_one_device_thread(
+        cuda_device):
+    """Two threads call ``backward`` on CUDA graphs together: each graph's
+    custom node runs on the autograd engine's worker thread for the
+    device, one thread for both callers and neither caller.  A node that
+    waited there for another rank's node would wait forever; so the
+    fused TP down-projection's backward has no collective, and
+    ``forward_train`` refuses remat with it on CUDA."""
+    import threading
+    seen = {}
+    barrier = threading.Barrier(2, timeout=30)
+
+    class Probe(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x * 2
+
+        @staticmethod
+        def backward(ctx, g):
+            seen.setdefault("backward", []).append(threading.get_ident())
+            return g * 2
+
+    def worker(i):
+        seen[f"caller{i}"] = threading.get_ident()
+        x = torch.ones(4, device=cuda_device, requires_grad=True)
+        y = Probe.apply(x).sum()
+        barrier.wait()
+        y.backward()
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
+    nodes = seen["backward"]
+    assert len(nodes) == 2 and nodes[0] == nodes[1]
+    assert nodes[0] not in (seen["caller0"], seen["caller1"])
+
+
+@pytest.mark.gpu
+def test_remat_with_fused_tp_on_cuda_is_refused(cuda_device):
+    from repro_torch.collectives import run_local_grid
+    from repro_torch.models import forward_train, layers
+    cfg = _tiny_dense()
+    params = init_params(cfg, seed=0, device=cuda_device)
+    tokens = torch.zeros((2, 8), dtype=torch.int32, device=cuda_device)
+
+    def fn(grid, grad):
+        # grad mode is per thread: set it in the rank's own thread
+        with torch.set_grad_enabled(grad), layers.ambient_grid(grid):
+            return forward_train(params, cfg, {"tokens": tokens})
+
+    layers.set_fused_tp(True)
+    try:
+        with pytest.raises(NotImplementedError, match="remat"):
+            run_local_grid(lambda g: fn(g, True), (2,), ("model",),
+                           cuda_device, timeout=60)
+        # no backward: the fused route runs
+        out = run_local_grid(lambda g: fn(g, False), (2,), ("model",),
+                             cuda_device, timeout=60)
+    finally:
+        layers.set_fused_tp(False)
+    want, _ = forward_train(params, cfg, {"tokens": tokens}, remat=False)
+    for logits, _ in out:
+        torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-5)

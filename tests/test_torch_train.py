@@ -26,8 +26,8 @@ from repro.train.step import make_train_step as j_make_step
 from repro_torch.data import DataConfig, SyntheticLMDataset
 from repro_torch.optim import adamw
 from repro_torch.train.state import init_train_state
-from repro_torch.train.step import (AUX_WEIGHT, cross_entropy,
-                                    make_train_step)
+from repro_torch.train.step import (AUX_WEIGHT, GradSyncConfig,
+                                    cross_entropy, make_train_step)
 from repro_torch.tree import stacked_ndims, tree_leaves
 from torch_util import configs, port_params
 
@@ -164,9 +164,14 @@ def test_train_steps_match_jax(microbatches):
 
 
 def test_train_step_refuses_grad_sync():
+    """A grad-sync mode the reference does not know is refused, as its
+    ``GradSyncConfig.__post_init__`` refuses it."""
+    with pytest.raises(ValueError, match="unknown grad-sync mode"):
+        GradSyncConfig(grid=None, mode="gspmd")
     _, tcfg = configs("falcon-mamba-7b")
-    with pytest.raises(NotImplementedError, match="A.3"):
-        make_train_step(tcfg, adamw.AdamWConfig(), grad_sync=object())
+    assert callable(make_train_step(
+        tcfg, adamw.AdamWConfig(),
+        grad_sync=GradSyncConfig(grid=None, axes=(), mode="fsdp")))
 
 
 def test_train_cli_on_cpu(capsys):
@@ -194,5 +199,5 @@ def test_train_cli_defaults_to_cuda_and_refuses_other_families(arch, item):
     with pytest.raises(NotImplementedError, match=item):
         train.run(arch, 1, 2, 8, device="cpu")
     with pytest.raises(SystemExit):
-        train.main(["--arch", "falcon-mamba-7b", "--dp"])
+        train.main(["--arch", "falcon-mamba-7b", "--moe-ep"])
     assert dataclasses.is_dataclass(adamw.AdamWConfig)
