@@ -97,7 +97,33 @@
    prompts through the fused down-projection (8 wgmma ``matmul_tiled``
    launches a rank a layer), the cache cut into sequence blocks, 8 greedy
    steps through ``flash_decode``: the tokens identical to the
-   single-rank route and the logits within 2 bf16 ulps.
+   single-rank route and the logits within 2 bf16 ulps;
+16. MoE serve phase: ``olmoe-1b-7b`` at its published width and depth
+   (16 layers, 64 experts, top 8, bf16, random weights from ``--seed``)
+   through the server with the serve phase's 16 requests: tok/s, TTFT,
+   16 paged launches a decode step, a mid-run decode step held to the
+   plain path and repeated bitwise, profiled beside the step's bound
+   (every expert's weights read once);
+17. MoE train phase: ``olmoe-1b-7b`` at full width with 8 of its 16
+   layers, 2 x 4096 tokens, remat, 5 AdamW steps (loss, aux, step wall,
+   tok/s, peak memory against the reckoning, 16 wgmma flash launches a
+   step, one step profiled); then ``dense_route_phase`` at
+   ``olmoe-1b-7b`` (float32, 2 layers, 1 x 4096, kernel vs plain);
+18. EP forward phase: ``moe_ffn_ep`` at ``olmoe-1b-7b``'s full width, 2
+   layers' MoE FFNs, 8 x 1024 tokens on 8 rank threads as 2 x 4 over
+   (data, model) and over (pod, data), algorithm lax / auto /
+   hierarchical / flat, float32 and bf16, against the single-rank
+   ``moe_ffn`` (forward only: ROADMAP C15): the all-to-all plans, the
+   engine's plan hits and misses, 16 or 8 experts a rank;
+19. DP serve phase: ``minicpm-2b`` at full width, 4 of its 40 layers,
+   on a ("data",) grid of 4 rank threads sharing one copy of the
+   weights, the serve phase's requests: every rank's greedy streams
+   identical to one server's on the same model, the token assembly's
+   ``assembly_decision``.
+
+Phase 10 (NCCL, two or more cards) ends with the trainer under torchrun
+with ``--arch olmoe-1b-7b --reduced --dp --moe-ep`` (EP with a
+backward), the loss equal on both ranks.
 
 It exits non-zero, printing no result, without a GPU or outside a
 checkout of the repository.  The last lines are a JSON line of per-kernel
@@ -119,7 +145,14 @@ import time
 from pathlib import Path
 
 import numpy as np
-import torch
+
+# the float32 DP check runs within a few GB of the card's memory, where
+# the caching allocator's fragmentation decides whether it fits (on an
+# H100 80GB it once ran out with 8.25 GiB reserved and unallocated);
+# set before torch loads
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import torch  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -216,8 +249,9 @@ C12_ARCHS = ("phi3-mini-3.8b", "mistral-nemo-12b")
 #: D 128 (no config has it: yi-34b, 56/8 at D 128, is the nearest); the
 #: full-width heads of phi3-mini-3.8b (MHA 32/32, D 96) and
 #: mistral-nemo-12b (GQA 32/8, D 160, as the repo's config resolves it);
-#: and the local-attention window of recurrentgemma-9b (local_window's
-#: default, 2048) at minicpm-2b's heads
+#: the local-attention window of recurrentgemma-9b (local_window's
+#: default, 2048) at minicpm-2b's heads; the DP rank's layer; and
+#: olmoe-1b-7b's train layer (MHA 16/16, D 128)
 FLASH_CASES = (("minicpm-2b train layer", 2, 36, 36, 4096, 64, True, None),
                ("synthetic GQA 32/8 D 128 (nearest config: yi-34b 56/8)",
                 1, 32, 8, 4096, 128, True, None),
@@ -227,7 +261,9 @@ FLASH_CASES = (("minicpm-2b train layer", 2, 36, 36, 4096, 64, True, None),
                 None),
                ("sliding window 2048", 2, 36, 36, 4096, 64, True, 2048),
                ("minicpm-2b DP rank layer (1 x 4096)", 1, 36, 36, 4096, 64,
-                True, None))
+                True, None),
+               ("olmoe-1b-7b train layer", 2, 16, 16, 4096, 128, True,
+                None))
 #: kernel vs plain lse (float32 sums of up to 4096 terms in other
 #: orders, lse of magnitude ~10): 1e-4 absolute
 LSE_TOL = 1e-4
@@ -329,6 +365,24 @@ TP_DECODE = dict(tp=8, layers=2, batch=2, prompt=4096, new_tokens=8,
 #: max-abs: float32 adds in another order over K = 2560; bf16 rounds the
 #: float32 sum once, at most one bf16 ulp (2^-7 of the value) apart
 MM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+MOE_ARCH = "olmoe-1b-7b"
+#: olmoe-1b-7b at full width, 8 of its 16 layers (AdamW for all 16 needs
+#: ~83 GB before activations), train_4k's sequence with the batch cut to
+#: 2, 5 steps of the cosine schedule, remat; its route check is
+#: dense_route_phase's (float32, 2 layers, 1 x 4096)
+MOE_TRAIN = dict(layers=8, batch=2, seq=4096, steps=5, lr=3e-4)
+#: expert parallelism, forward only (ROADMAP C15): full width, 2 layers'
+#: MoE FFNs, 8 rows of 1024 tokens on 8 rank threads
+MOE_EP = dict(layers=2, rows=8, seq=1024,
+              grids=(((2, 4), ("data", "model")), ((2, 4), ("pod", "data"))),
+              algorithms=("lax", "auto", "hierarchical", "flat"))
+#: data-parallel serving: the serve phase's requests on a ("data",) grid
+#: of 4 rank threads, at full width with 4 of minicpm-2b's 40 layers
+#: (at 40 layers the 4 threads took 191.5 s on one H100, most of it the
+#: threads taking turns on the interpreter lock between eager calls),
+#: against one server of the same model
+DP_SERVE = dict(ranks=4, layers=4)
 
 
 def log(msg: str) -> None:
@@ -524,6 +578,8 @@ PAGED_CASES = (
      [5, 64, 1, 0, 129, 250, 311, 384], torch.bfloat16, True),
     ("minicpm-2b shape, float32", 8, 36, 36, 64, 16, 201,
      [1, 0, 37, 100, 157, 211, 290, 383], torch.float32, False),
+    ("olmoe-1b-7b decode (serving shape)", 8, 16, 16, 128, 16, 201,
+     [1, 0, 37, 100, 157, 211, 290, 383], torch.bfloat16, True),
 )
 
 
@@ -891,8 +947,9 @@ def snapshot_decode(server) -> dict:
 def decode_check(server, snap: dict) -> float:
     """The snapshot's decode step through the kernel and through the
     plain gathered attention, each on its own copy of the pool; returns
-    the largest logit difference.  Also times the kernel-path step and
-    profiles it."""
+    the largest logit difference.  Also runs the kernel-path step a
+    second time (bitwise equal: no atomics anywhere in the step, the MoE
+    combine included), times it and profiles it."""
     def step(use_kernel):
         pages = {k: v.clone() for k, v in snap["pages"].items()}
         torch.cuda.synchronize()
@@ -914,13 +971,21 @@ def decode_check(server, snap: dict) -> float:
         log(f"decode step of {rows} rows, "
             f"{'kernel' if use_kernel else 'plain'} attention: host wall "
             f"{ms:.2f} ms")
+    again = step(True)()
+    assert torch.equal(again, logits[True]), \
+        "two identical decode steps differ"
+    log(f"decode step of {rows} rows ({server.cfg.name}): a second call "
+        f"on a fresh copy of the pool is bitwise equal")
     log(f"profile of one decode step (kernel path): "
         f"{profile_step(step(True))}")
     return float((logits[True] - logits[False]).abs().max())
 
 
-def serve_phase(seed: int, kernel_row: dict) -> None:
-    cfg = get_config(SERVE_ARCH)
+def serve_phase(seed: int, kernel_row, arch: str = SERVE_ARCH) -> None:
+    """``arch`` at its published width and depth through the server.  The
+    launch count goes into ``kernel_row`` when one is given (the kernels
+    line keeps the dense serve phase's)."""
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     params = init_params(cfg, seed=seed, device="cuda")
     torch.cuda.synchronize()
@@ -975,7 +1040,8 @@ def serve_phase(seed: int, kernel_row: dict) -> None:
     assert snap.cached_prefix_tokens > 0, "prefix cache never hit"
     want = snap.decode_steps * cfg.num_layers
     assert counts["paged_attention"] == want, (counts, want)
-    kernel_row["launches"] = counts["paged_attention"]
+    if kernel_row is not None:
+        kernel_row["launches"] = counts["paged_attention"]
     tokens = sum(len(v) for v in results.values())
     log(f"serve: {len(results)} requests x {SERVE['new_tokens']} tokens, "
         f"{tokens} tokens in {wall:.3f} s = {tokens / (wall - t_probe):.1f} "
@@ -992,6 +1058,17 @@ def serve_phase(seed: int, kernel_row: dict) -> None:
         f"mid-run decode logits kernel vs plain max_abs_err {err:.3e} "
         f"(tol 5e-2) | max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    if cfg.family == "moe":
+        # every decode step's expert products read every expert's weights
+        nbytes = (cfg.num_layers * 3 * cfg.num_experts * cfg.d_model
+                  * cfg.d_ff * 2)
+        log(f"serve: a decode step's expert einsums read all "
+            f"{cfg.num_experts} experts of {cfg.num_layers} layers, "
+            f"{nbytes / 1e9:.2f} GB: bound "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms a step at 3.35 TB/s "
+            f"(the profiled step above: device busy vs this bound) | "
+            f"the MoE FFN launches no kernel of the port: plain einsums, "
+            f"as in the reference")
 
 
 # --------------------------- train phase ----------------------------- #
@@ -2353,6 +2430,315 @@ def tp_decode_phase(seed: int) -> None:
         f"the largest logit)")
 
 
+# ------------------------------ MoE phases ------------------------------ #
+def moe_train_phase(seed: int) -> None:
+    """olmoe-1b-7b at full width, MOE_TRAIN['layers'] layers, bf16, remat:
+    the memory reckoned first, then 5 AdamW steps (loss, aux, step wall,
+    tok/s, peak memory), every attention in the flash kernel's wgmma
+    variant, one step profiled."""
+    cfg = with_layer_units(get_config(MOE_ARCH), MOE_TRAIN["layers"])
+    p = cfg.param_count()
+    reckoned = (2 * p + 2 * p + 8 * p) / 1e9
+    t0 = time.perf_counter()
+    state = init_train_state(init_params(cfg, seed=seed, device="cuda"))
+    torch.cuda.synchronize()
+    log(f"moe train {cfg.name}: {cfg.num_layers} of 16 layers at full width "
+        f"(d_model {cfg.d_model}, {cfg.num_heads} x "
+        f"{cfg.resolved_head_dim} heads, {cfg.num_experts} experts of d_ff "
+        f"{cfg.d_ff}, top {cfg.experts_per_token}, vocab {cfg.vocab_size}), "
+        f"{cfg.dtype}; {p / 1e9:.3f}B params; reckoned before activations: "
+        f"params + grads (bf16) + AdamW moments (float32) = "
+        f"{reckoned:.2f} GB; random weights (seed {seed}) and AdamW state "
+        f"in {time.perf_counter() - t0:.1f} s")
+    steps = MOE_TRAIN["steps"]
+    opt_cfg = AdamWConfig(lr=MOE_TRAIN["lr"], warmup_steps=max(steps // 20, 1),
+                          total_steps=steps, schedule="cosine")
+    step_fn = make_train_step(cfg, opt_cfg)
+    batches = [lm_batch(cfg, MOE_TRAIN["batch"], MOE_TRAIN["seq"], i)
+               for i in range(steps + 1)]
+    tokens = MOE_TRAIN["batch"] * MOE_TRAIN["seq"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, auxes, walls = [], [], []
+    for i in range(steps):
+        state, metrics, loss, wall = timed_step(step_fn, state, batches[i])
+        losses.append(loss)
+        auxes.append(float(metrics["aux"]))
+        walls.append(wall)
+        log(f"moe train step {i}: loss {loss:.4f} (ce "
+            f"{float(metrics['ce']):.4f}, aux {auxes[-1]:.4f}) | grad_norm "
+            f"{float(metrics['grad_norm']):.3f} | wall {wall * 1e3:.1f} ms | "
+            f"{tokens / wall:.1f} tok/s")
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    assert all(math.isfinite(x) for x in losses + auxes), (losses, auxes)
+    assert losses[-1] < losses[0], f"loss did not fall: {losses}"
+    want = dict.fromkeys(ops.WRAPPERS, 0)
+    want["flash_attention"] = 2 * cfg.num_layers * steps
+    assert counts == want, (counts, want)
+    variants = ops.variant_launch_counts()["flash_attention"]
+    assert variants == {"simt_f32": 0, "mma_sync": 0,
+                        "wgmma": want["flash_attention"]}, variants
+    steady = float(np.median(walls[1:]))
+    log(f"moe train: {steps} steps of {MOE_TRAIN['batch']} x "
+        f"{MOE_TRAIN['seq']} tokens, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, aux {auxes[0]:.4f} -> {auxes[-1]:.4f} | step "
+        f"wall median of steps 1-{steps - 1} {steady * 1e3:.1f} ms (step 0 "
+        f"{walls[0] * 1e3:.1f} ms) = {tokens / steady:.1f} tok/s | "
+        f"max_memory_allocated {peak_gb:.3f} GB (reckoned {reckoned:.2f} GB "
+        f"before activations) | flash_attention launches per step "
+        f"{counts['flash_attention'] // steps} (2 x {cfg.num_layers} "
+        f"layers: forward and remat), every one the wgmma variant; the "
+        f"kernels line keeps the dense train phase's count")
+    holder = {"state": state}
+
+    def one_step():
+        holder["state"], _ = step_fn(holder["state"], batches[steps])
+    log(f"profile of one moe train step (kernel route): "
+        f"{profile_step(one_step)}")
+
+
+def ep_forward_phase(seed: int) -> None:
+    """moe_ffn_ep at olmoe-1b-7b's full width on 8 rank threads, forward
+    only: each of MOE_EP['layers'] layers' MoE FFNs on the input the
+    single-rank route gives it (so a route's rounding never reroutes a
+    later layer's tokens), for every grid and algorithm, float32 and bf16,
+    against that layer's single-rank ``moe_ffn`` at the same grouping
+    (one call a row, as each EP rank routes one row)."""
+    from repro_torch.models import moe, moe_ep
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.sharding.rules import for_grid
+
+    base = with_layer_units(get_config(MOE_ARCH), MOE_EP["layers"])
+    eng = get_engine()
+    kw = dict(top_k=base.experts_per_token,
+              capacity_factor=base.capacity_factor)
+    b, s = MOE_EP["rows"], MOE_EP["seq"]
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        params = init_params(cfg, seed=seed, device="cuda")
+        tokens = lm_batch(cfg, b, s, 3)["tokens"]
+        inputs, want, want32, err_plain = [], [], [], []
+        with torch.no_grad():
+            x = tf._embed(params, cfg, tokens)
+            for lp in params["layers"]:
+                a, _ = tf._attention_sublayer(
+                    cfg, rms_norm(x, lp["ln1"], cfg.norm_eps), lp)
+                x = x + a
+                h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+                ws = (lp["router"], lp["eg"], lp["eu"], lp["ed"])
+                out = torch.cat([moe.moe_ffn(h[i:i + 1], *ws, **kw)[0]
+                                 for i in range(b)])
+                inputs.append(h)
+                want.append(out)
+                if dtype == "bfloat16":
+                    w32 = [w.float() for w in ws]
+                    out32 = torch.cat([moe.moe_ffn(h[i:i + 1].float(), *w32,
+                                                   **kw)[0]
+                                       for i in range(b)])
+                    want32.append(out32)
+                    err_plain.append(float((out.float() - out32).abs()
+                                           .max()))
+                x = x + out
+        for shape, names in MOE_EP["grids"]:
+            for alg in MOE_EP["algorithms"]:
+                def rank(grid):
+                    dp = for_grid(grid).data_axes
+                    per = b // math.prod(grid.axis_size(a) for a in dp)
+                    rows = slice(grid.axes_index(dp) * per,
+                                 (grid.axes_index(dp) + 1) * per)
+                    ep_axes = moe_ep._ep_axes_for(grid)
+                    spec = ep_axes if len(ep_axes) > 1 else ep_axes[0]
+                    fsdp = ("data" if "data" in names
+                            and "data" not in ep_axes else None)
+                    lp = params["layers"][0]
+                    held = moe.expert_weights(grid, lp["eg"], lp["eu"],
+                                              lp["ed"], spec, fsdp)
+                    outs = []
+                    with torch.no_grad(), ambient_grid(grid):
+                        for h, lp in zip(inputs, params["layers"]):
+                            outs.append(moe_ep.moe_ffn_ep(
+                                h[rows], lp["router"], lp["eg"], lp["eu"],
+                                lp["ed"], algorithm=alg, engine=eng,
+                                **kw)[0])
+                    torch.cuda.synchronize()
+                    return rows, outs, [w.shape[0] for w in held], ep_axes
+
+                before = eng.stats_snapshot()
+                t0 = time.perf_counter()
+                res = run_local_grid(rank, shape, names, "cuda")
+                wall = time.perf_counter() - t0
+                after = eng.stats_snapshot()
+                ep_axes = res[0][3]
+                n_ep = math.prod(shape[names.index(a)] for a in ep_axes)
+                errs = []
+                for rows, outs, held, _ in res:
+                    assert held == [base.num_experts // n_ep] * 3, held
+                    for l, out in enumerate(outs):
+                        assert torch.isfinite(out).all()
+                        if dtype == "float32":
+                            torch.testing.assert_close(
+                                out, want[l][rows], rtol=1e-4, atol=1e-4)
+                            errs.append(float((out - want[l][rows]).abs()
+                                              .max()))
+                        else:
+                            # several bf16 roundings (h, u, the hidden,
+                            # y, each weighted add): held, as the bf16
+                            # single-rank route is, to the float32 route;
+                            # its error may exceed that route's own by
+                            # one bf16 ulp of the largest output
+                            ref = want32[l][rows]
+                            err = float((out.float() - ref).abs().max())
+                            bound = err_plain[l] + float(bf16_ulp(
+                                want32[l].abs().max()))
+                            assert err <= bound, (alg, names, l, err, bound)
+                            errs.append(err)
+                # a rank's exchange: its rows' [G_l, E, Cap, D] buffer
+                nbytes = (b // math.prod(shape)) \
+                    * base.num_experts * moe.moe_capacity(
+                        s, base.num_experts, base.experts_per_token,
+                        base.capacity_factor) * base.d_model * (
+                            4 if dtype == "float32" else 2)
+                if len(ep_axes) > 1:
+                    plan = (eng.plan_multi(
+                        "all_to_all", ep_axes,
+                        [shape[names.index(a)] for a in ep_axes], nbytes,
+                        shape=None if alg in ("auto", "lax") else alg)
+                            .describe() if alg != "lax" else "native")
+                else:
+                    plan = ("native" if alg == "lax" else "all_to_all["
+                            + eng.select("all_to_all", nbytes, n_ep)
+                            .algorithm + "] (one axis: the plan shape "
+                            "collapses to the 1D selector)")
+                what = ("max abs err vs the single-rank route "
+                        f"{max(errs):.3e} (tol 1e-4)" if dtype == "float32"
+                        else f"max abs err vs the float32 single-rank route "
+                        f"{max(errs):.3e} (the bf16 single-rank route's own "
+                        f"{max(err_plain):.3e}; tol: that + 1 bf16 ulp of "
+                        f"the largest output)")
+                log(f"ep forward {dtype} {shape[0]}x{shape[1]} "
+                    f"{'/'.join(names)} algorithm={alg}: EP axes {ep_axes} "
+                    f"({n_ep} ranks, {base.num_experts // n_ep} experts a "
+                    f"rank), exchange {nbytes / 1e6:.1f} MB a rank x 2 a "
+                    f"layer, plan {plan} | {what} | plan hits "
+                    f"{after['plan_hits'] - before['plan_hits']}, misses "
+                    f"{after['plan_misses'] - before['plan_misses']}, "
+                    f"selector hits {after['hits'] - before['hits']}, misses "
+                    f"{after['misses'] - before['misses']} | host wall "
+                    f"{wall * 1e3:.1f} ms ({MOE_EP['layers']} layers, 8 "
+                    f"threads on one card, not a fabric time)")
+        del params, inputs, want, want32
+        torch.cuda.empty_cache()
+
+
+def row_invariance(cfg, params, seed: int) -> str:
+    """Why a DP rank's decode call keeps the whole slot shape (ROADMAP
+    C20): a mid-run decode step of one server's 8 rows, run again as
+    calls of 1, 2 and 4 rows (each on a fresh copy of the pool), compared
+    row by row with the 8-row call; and each 2-D weight of layer 0 and
+    the unembedding as GEMMs of M 1, 2 and 4 rows against M 8.  Reports;
+    asserts nothing (the DP streams check is the assertion)."""
+    server = ContinuousBatchingServer(
+        cfg, params, SERVE["batch"], max_len=SERVE["system_len"]
+        + SERVE["suffix"][1] + SERVE["new_tokens"] + SERVE["block_size"],
+        block_size=SERVE["block_size"], prefill_chunk=SERVE["prefill_chunk"],
+        device="cuda")
+    for req in make_requests(cfg, seed)[:SERVE["batch"]]:
+        server.submit(req)
+    server.run(max_steps=12)
+    snap = snapshot_decode(server)
+    n = snap["ctx_lens"].shape[0]
+
+    def decode(rows):
+        pages = {k: v.clone() for k, v in snap["pages"].items()}
+        return decode_step_paged(
+            params, cfg, pages, {"tokens": snap["batch"]["tokens"][rows]},
+            snap["block_tables"][rows], snap["ctx_lens"][rows],
+            use_kernel=True)[0]
+
+    with torch.no_grad():
+        full = decode(slice(0, n))
+        calls = {w: all(torch.equal(decode(slice(i, i + w)), full[i:i + w])
+                        for i in range(0, n - w + 1, w)) for w in (1, 2, 4)}
+        x = params["embed"][snap["batch"]["tokens"][:, 0].long()]
+        gemms = {}
+        for name, w in [*params["layers"][0].items(),
+                        ("head", params["head"])]:
+            if w.dim() != 2 or w.shape[0] != x.shape[1]:
+                continue
+            y = x @ w
+            gemms[f"{name} {tuple(w.shape)}"] = [
+                m for m in (1, 2, 4) if not torch.equal(x[:m] @ w, y[:m])]
+    differ = [f"{k} at M {v}" for k, v in gemms.items() if v]
+    return (f"decode calls of 1 / 2 / 4 of the {n} rows bitwise equal to "
+            f"the {n}-row call: {calls[1]} / {calls[2]} / {calls[4]} | "
+            f"GEMMs on the residual stream whose rows differ from M {n}: "
+            f"{', '.join(differ) or 'none'} | the others agree: "
+            + ", ".join(k for k, v in gemms.items() if not v))
+
+
+def dp_serve_phase(seed: int) -> None:
+    """The serve phase's requests through one server and through
+    ContinuousBatchingServer(grid=) on a ("data",) grid of DP_SERVE
+    ['ranks'] rank threads sharing one copy of the weights (minicpm-2b
+    at full width, DP_SERVE['layers'] layers): every rank's greedy
+    streams equal the one server's."""
+    cfg = with_layer_units(get_config(SERVE_ARCH), DP_SERVE["layers"])
+    params = init_params(cfg, seed=seed, device="cuda")
+    max_len = (SERVE["system_len"] + SERVE["suffix"][1] + SERVE["new_tokens"]
+               + SERVE["block_size"])
+    eng = get_engine()
+    n = DP_SERVE["ranks"]
+
+    def serve(grid):
+        server = ContinuousBatchingServer(
+            cfg, params, SERVE["batch"], max_len=max_len, seed=seed,
+            grid=grid, engine=eng, block_size=SERVE["block_size"],
+            prefill_chunk=SERVE["prefill_chunk"], device="cuda")
+        for req in make_requests(cfg, seed):
+            server.submit(req)
+        results = server.run()
+        torch.cuda.synchronize()
+        return results, server.snapshot(), server.assembly_decision, \
+            server.assembly_regime
+
+    log(f"dp serve: row invariance (ROADMAP C20): "
+        f"{row_invariance(cfg, params, seed)}")
+    t0 = time.perf_counter()
+    want, want_snap, _, _ = serve(None)
+    t_one = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = run_local_grid(serve, (n,), ("data",), "cuda")
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    results, snap, dec, regime = out[0]
+    for r, (res, _, _, _) in enumerate(out):
+        diff = [rid for rid in want if res.get(rid) != want[rid]]
+        assert not diff, f"dp rank {r}: streams of {diff} differ"
+    assert snap.decode_steps == want_snap.decode_steps
+    want_launches = n * snap.decode_steps * cfg.num_layers
+    assert counts["paged_attention"] == want_launches, (counts,
+                                                        want_launches)
+    tokens = sum(len(v) for v in results.values())
+    log(f"dp serve {cfg.name}: {cfg.num_layers} of 40 layers at full width; "
+        f"one server {tokens} tokens in {t_one:.3f} s = {tokens / t_one:.1f} "
+        f"tok/s | {n} rank threads on a ('data',) grid, "
+        f"{SERVE['batch'] // n} slot rows a rank, one copy of the weights: "
+        f"{tokens} tokens in {wall:.3f} s = {tokens / wall:.1f} tok/s (host "
+        f"wall of threads on one card, not a fabric time; every rank runs "
+        f"every prefill) | greedy streams of every rank identical to the "
+        f"one server's | assembly_decision allgather[{dec.algorithm}] for "
+        f"{dec.nbytes} bytes over {dec.p} ranks, predicted "
+        f"{dec.predicted:.1f} (TPU model), {regime} regime | decode steps "
+        f"{snap.decode_steps} | paged_attention launches "
+        f"{counts['paged_attention']} (one a rank a layer a step, each over "
+        f"the whole slot array with the other ranks' rows idle: ROADMAP "
+        f"C20)")
+
+
 # ------------------------------ NCCL phase ------------------------------ #
 def nccl_worker(rank: int, world: int, init: str, seed: int) -> int:
     """One rank of the NCCL phase, on card ``rank``: the float32
@@ -2408,7 +2794,7 @@ def nccl_phase(seed: int) -> None:
     if cards < 2:
         log(f"nccl phase: not run ({cards} card); nor the 2D allreduce_multi "
             f"over a 2x2 ProcessGroupGrid (needs 4 cards), nor the DP "
-            f"trainer under torchrun (needs 2)")
+            f"and MoE EP trainers under torchrun (need 2)")
         return
     world = 1 << (cards.bit_length() - 1)   # a power of two (tree, doubling)
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -2460,6 +2846,37 @@ def nccl_phase(seed: int) -> None:
     log(f"nccl phase: torchrun --nproc-per-node 2 repro_torch.launch.train "
         f"--dp --grad-sync fsdp (NCCL, one card a process) passed in "
         f"{time.perf_counter() - t0:.1f} s")
+    # expert parallelism with a backward: one process a card, the
+    # dispatch and combine through the engine's all-to-all over NCCL
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
+         "--arch", MOE_ARCH, "--reduced", "--dp", "--moe-ep", "--steps",
+         "2", "--batch", "4", "--seq", "64", "--log-every", "1"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=root, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    assert proc.returncode == 0, err[-4000:]
+    assert "[moe_ep] WARNING" not in out, out[-4000:]
+    per_rank = {}
+    for line in out.splitlines():
+        if line.startswith("[train]") or line.startswith("[moe_ep]"):
+            log(f"nccl torchrun moe-ep: {line}")
+        if line.startswith("[train] rank "):
+            rank, _, losses = line[len("[train] rank "):].partition(
+                " losses ")
+            per_rank[int(rank)] = losses
+    assert len(per_rank) == 2 and len(set(per_rank.values())) == 1, per_rank
+    log(f"nccl phase: torchrun --nproc-per-node 2 repro_torch.launch.train "
+        f"--arch {MOE_ARCH} --reduced --dp --moe-ep (EP with a backward, "
+        f"NCCL) passed in {time.perf_counter() - t0:.1f} s; the loss equal "
+        f"on both ranks")
 
 
 def main(argv=None) -> int:
@@ -2536,6 +2953,16 @@ def main(argv=None) -> int:
     dp_train_phase(args.seed)
     torch.cuda.empty_cache()
     tp_decode_phase(args.seed)
+    torch.cuda.empty_cache()
+    serve_phase(args.seed, None, MOE_ARCH)
+    torch.cuda.empty_cache()
+    moe_train_phase(args.seed)
+    torch.cuda.empty_cache()
+    dense_route_phase(args.seed, MOE_ARCH)
+    torch.cuda.empty_cache()
+    ep_forward_phase(args.seed)
+    torch.cuda.empty_cache()
+    dp_serve_phase(args.seed)
     torch.cuda.empty_cache()
     nccl_phase(args.seed)
     for r in rows.values():

@@ -34,10 +34,12 @@ def tensor_from_numpy(arr: np.ndarray, device: torch.device
 
 def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig,
                     device: DeviceLike = None) -> Params:
-    """The reference's dense-decoder or SSM parameter tree (numpy leaves)
-    as the port's parameters on ``device`` (default ``cuda``).  Each
-    leaf keeps its dtype: the SSM's float32 ``a_log`` and ``d_skip`` stay
-    float32 in a bfloat16 model."""
+    """The reference's dense, MoE or SSM parameter tree (numpy leaves)
+    as the port's parameters on ``device`` (default ``cuda``), every
+    ``[L, ...]`` leaf unstacked into the per-layer dictionaries (the MoE
+    ``router``, ``eg``, ``eu``, ``ed`` and the nested ``dense_mlp`` too).
+    Each leaf keeps its dtype: the SSM's float32 ``a_log`` and ``d_skip``
+    and the MoE's float32 router stay float32 in a bfloat16 model."""
     if cfg.family not in INIT_FAMILIES:
         raise NotImplementedError(
             f"params_from_jax: the port covers families {INIT_FAMILIES}, "
@@ -45,11 +47,14 @@ def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig,
     dev = resolve_device(device)
     out: Params = {name: tensor_from_numpy(tree[name], dev)
                    for name in ("embed", "ln_f", "head")}
-    stacked = tree["layers"]
-    out["layers"] = [
-        {name: tensor_from_numpy(arr[i], dev)
-         for name, arr in stacked.items()}
-        for i in range(cfg.num_layers)]
+
+    def layer(stacked: Dict[str, Any], i: int) -> Dict[str, Any]:
+        return {name: (layer(arr, i) if isinstance(arr, dict)
+                       else tensor_from_numpy(arr[i], dev))
+                for name, arr in stacked.items()}
+
+    out["layers"] = [layer(tree["layers"], i)
+                     for i in range(cfg.num_layers)]
     return out
 
 

@@ -6,18 +6,33 @@
 serves the architecture at its published width with random weights;
 without ``--full-width`` it serves the ``.reduced()`` variant, as the
 reference CLI always does.  The flags are those of the reference CLI's
-single-server path, plus ``--device`` and ``--full-width``.  The
-data-parallel path (``--dp``) and the fleet flags are later slices of
-the port (ROADMAP.md) and raise ``NotImplementedError``.
+single-server path, plus ``--device`` and ``--full-width``.
+
+``--dp`` stripes the slot rows over a 1-D ("data",) grid of every rank
+of the ``torch.distributed`` world and assembles the sampled tokens
+through the CollectiveEngine's allgather, as the reference does over
+every device.  Under ``torch.distributed.run`` (torchrun) that is one
+process a rank, NCCL on CUDA (each process on the card its
+``LOCAL_RANK`` names) and gloo with ``--device cpu``:
+
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.serve --dp --device cpu
+
+Without torchrun the world is this process alone.  The greedy streams
+are identical with and without ``--dp``.  The fleet flags are a later
+slice of the port (ROADMAP.md) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import time
 
 import numpy as np
+import torch.distributed as dist
 
+from repro_torch.collectives.comm import ProcessGroupGrid, single_rank_grid
 from repro_torch.configs import get_config
 from repro_torch.models import init_params, supports_paged
 from repro_torch.serving import (ContinuousBatchingServer, Request,
@@ -55,7 +70,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="serve the published widths instead of the "
                          ".reduced() variant")
     ap.add_argument("--dp", action="store_true",
-                    help="data-parallel serving (not ported yet)")
+                    help="stripe the slot rows over every rank of the "
+                         "torch.distributed world (torchrun) and route "
+                         "token sync through the CollectiveEngine")
     ap.add_argument("--replicas", type=int, default=1)
     ap.add_argument("--router", default="round_robin")
     ap.add_argument("--queue-cap", type=int, default=None)
@@ -66,12 +83,27 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def main(argv=None) -> None:
+def make_serve_grid(device=None):
+    """The 1-D ("data",) grid over every rank of the ``torch.distributed``
+    world (joined here under torchrun: ``launch.train.init_world``), or
+    over this process alone."""
+    from repro_torch.launch.train import init_world
+    dev = init_world(device)
+    if not dist.is_initialized():
+        return single_rank_grid(("data",), dev)
+    return ProcessGroupGrid((dist.get_world_size(),), ("data",), device=dev)
+
+
+def streams_digest(results) -> str:
+    """A short digest of every request's tokens, in request order."""
+    text = ";".join(f"{rid}:{','.join(map(str, results[rid]))}"
+                    for rid in sorted(results))
+    return hashlib.sha1(text.encode()).hexdigest()[:16]
+
+
+def main(argv=None):
+    """Serve the requests; returns {rid: generated tokens}."""
     args = parse_args(argv)
-    if args.dp:
-        raise NotImplementedError(
-            "--dp serving needs the CollectiveEngine over "
-            "torch.distributed, a later slice of the port (ROADMAP.md A)")
     fleet = [k for k, v in _FLEET_DEFAULTS.items() if getattr(args, k) != v]
     if fleet:
         raise NotImplementedError(
@@ -84,8 +116,27 @@ def main(argv=None) -> None:
         raise SystemExit(
             f"--arch {args.arch} (family {cfg.family!r}, frontend "
             f"{cfg.frontend!r}) is not servable by the port yet: the paged "
-            f"KV cache covers the dense text decoders")
-    params = init_params(cfg, seed=0, device=args.device)
+            f"KV cache covers the dense and MoE text decoders")
+    grid, batch, owns_world = None, args.batch, False
+    if args.dp:
+        owns_world = not dist.is_initialized()
+        grid = make_serve_grid(args.device)
+        ndev = grid.axis_size("data")
+        if batch % ndev:
+            batch += -batch % ndev
+            print(f"[serve] rounding batch to {batch} "
+                  f"(dp axis = {ndev} ranks)")
+    device = grid.device if grid is not None else args.device
+    try:
+        return _serve(args, cfg, grid, batch, device)
+    finally:
+        if owns_world and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _serve(args, cfg, grid, batch, device):
+    lead = grid is None or grid.rank == 0
+    params = init_params(cfg, seed=0, device=device)
     max_len = args.prompt_len + args.new_tokens + args.block_size
     rng = np.random.default_rng(0)
     shared = [rng.integers(0, cfg.vocab_size,
@@ -105,8 +156,9 @@ def main(argv=None) -> None:
                        max_new_tokens=args.new_tokens,
                        sampling=SamplingParams(temperature=args.temperature))
 
-    server = ContinuousBatchingServer(cfg, params, args.batch,
-                                      max_len=max_len, device=args.device,
+    server = ContinuousBatchingServer(cfg, params, batch,
+                                      max_len=max_len, grid=grid,
+                                      device=device,
                                       block_size=args.block_size,
                                       prefill_chunk=args.prefill_chunk,
                                       top_k=args.top_k,
@@ -118,6 +170,13 @@ def main(argv=None) -> None:
     dt = time.time() - t0
     snap = server.snapshot()
     total = sum(len(v) for v in results.values())
+    if not lead:
+        return results
+    if grid is not None:
+        dec = server.assembly_decision
+        print(f"[serve] dp axis 'data' = {grid.axis_size('data')} ranks; "
+              f"token assembly: allgather[{dec.algorithm}] "
+              f"({server.assembly_regime} regime, {batch * 4} bytes)")
     print(f"[serve] {cfg.name} on {server.device}: {len(results)} requests, "
           f"{total} tokens in {dt:.1f}s ({total / dt:.1f} tok/s)")
     lc = (f" (low confidence, n={snap.ttft_samples})"
@@ -137,6 +196,8 @@ def main(argv=None) -> None:
           f"{snap.kv_blocks_evictable}")
     for rid in sorted(results)[:3]:
         print(f"  req {rid}: {results[rid][:8]}...")
+    print(f"[serve] streams digest {streams_digest(results)}")
+    return results
 
 
 if __name__ == "__main__":

@@ -26,17 +26,28 @@ each rank trains on its rows of the global batch and the gradients sync
 through the paper's collectives (``--grad-sync allreduce | fsdp``,
 ``--fused`` for the engine's fused reduce-scatter, ``--fabric`` for
 per-axis link constants).  Outside torchrun the world is this one
-process and the sync has no axis, as the reference on one device.  The
-dense and SSM families train here; the other families, expert
-parallelism (``--moe-ep``, ``--experts``: ROADMAP.md A.4), checkpoints
-and the observability flags (``--ckpt-dir``, ``--trace``,
-``--obs-report``, ``--metrics-out``: A.7) are later slices of the port,
-refused by name.
+process and the sync has no axis, as the reference on one device.
+
+The dense, MoE and SSM families train here.  ``--experts N`` overrides
+the expert count; ``--moe-ep [ALG]`` routes the MoE dispatch and combine
+through explicit all-to-all exchanges over the DP grid's expert axes
+(``models/moe_ep.py``; ``lax``: the communicator's native exchange,
+else an engine algorithm or plan shape, default ``auto``):
+
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.train --arch olmoe-1b-7b --reduced --dp \
+        --moe-ep --steps 2 --batch 4 --seq 64 --device cpu
+
+Without ``--dp`` (no grid) ``--moe-ep`` falls back, loudly, as the
+reference does.  The other families, checkpoints and the observability
+flags (``--ckpt-dir``, ``--trace``, ``--obs-report``, ``--metrics-out``:
+ROADMAP.md A.7) are later slices of the port, refused by name.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import math
 import os
 import time
@@ -60,13 +71,11 @@ from repro_torch.train.step import GradSyncConfig, make_train_step
 DP_AXES = ("pod", "data")
 
 
-def make_dp_grid(device: DeviceLike = None) -> GridComm:
-    """The (pod, data) grid over every rank of the ``torch.distributed``
-    world, the reference's ``make_dp_mesh`` rule: two pods when the
-    world has four or more ranks and splits evenly, one otherwise.  Under
-    torchrun (``WORLD_SIZE`` set) the world is initialised here from its
-    environment, NCCL on CUDA (this process on card ``LOCAL_RANK``) and
-    gloo on the CPU; without it the world is this process alone."""
+def init_world(device: DeviceLike = None) -> torch.device:
+    """This process's device, after joining the ``torch.distributed``
+    world when torchrun started it (``WORLD_SIZE`` set): NCCL on CUDA
+    (this process on card ``LOCAL_RANK``), gloo on the CPU, initialised
+    from torchrun's environment."""
     dev = resolve_device(device)
     if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
         if dev.type == "cuda":
@@ -74,10 +83,20 @@ def make_dp_grid(device: DeviceLike = None) -> GridComm:
             torch.cuda.set_device(dev)
         dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
                                 init_method="env://")
+    if dist.is_initialized() and dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+    return dev
+
+
+def make_dp_grid(device: DeviceLike = None) -> GridComm:
+    """The (pod, data) grid over every rank of the ``torch.distributed``
+    world, the reference's ``make_dp_mesh`` rule: two pods when the
+    world has four or more ranks and splits evenly, one otherwise.  Under
+    torchrun the world is initialised here (:func:`init_world`); without
+    it the world is this process alone."""
+    dev = init_world(device)
     if not dist.is_initialized():
         return single_rank_grid(DP_AXES, dev)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
     world = dist.get_world_size()
     pod = 2 if world >= 4 and world % 2 == 0 else 1
     return ProcessGroupGrid((pod, world // pod), DP_AXES, device=dev)
@@ -105,7 +124,8 @@ def run(arch: str, steps: int, batch_size: int, seq_len: int,
         reduced: bool = True, lr: float = 3e-4, microbatches: int = 1,
         log_every: int = 10, device: DeviceLike = None, dp: bool = False,
         grad_sync_mode: str = "allreduce", fused: bool = False,
-        fabric_spec: Optional[str] = None) -> List[float]:
+        fabric_spec: Optional[str] = None, moe_ep: Optional[str] = None,
+        num_experts: Optional[int] = None) -> List[float]:
     """Train ``arch`` for ``steps`` steps on synthetic data; returns the
     loss of every step (under ``dp`` the global batch's, on every
     rank)."""
@@ -116,6 +136,16 @@ def run(arch: str, steps: int, batch_size: int, seq_len: int,
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
+    if num_experts is not None:
+        cfg = dataclasses.replace(cfg, num_experts=num_experts)
+    if moe_ep is not None:
+        if cfg.family != "moe":
+            raise SystemExit(f"--moe-ep needs an MoE architecture; "
+                             f"{arch} is family={cfg.family!r}")
+        cfg = dataclasses.replace(cfg, moe_ep=True,
+                                  moe_ep_algorithm=moe_ep)
+        print(f"[train] expert-parallel MoE dispatch: "
+              f"all_to_all[{moe_ep}]")
     if fused or cfg.fused_tp:
         set_fused_tp(True)
         print("[train] fused matmul+reduce-scatter executor enabled")
@@ -174,13 +204,15 @@ def run(arch: str, steps: int, batch_size: int, seq_len: int,
         print(f"[train] done: {len(losses)} steps of {cfg.name} on {dev} in "
               f"{time.time() - t_start:.1f}s; loss {losses[0]:.4f} -> "
               f"{losses[-1]:.4f}", flush=True)
+    if grid is not None and grid.size > 1:
+        # every rank's losses, to hold them equal across the world
+        print(f"[train] rank {grid.rank} losses "
+              + " ".join(f"{x:.6f}" for x in losses), flush=True)
     return losses
 
 
 #: flags of the reference's CLI that wait for later slices of the port
-_LATER = {"moe_ep": "--moe-ep: expert parallelism (ROADMAP.md A.4)",
-          "experts": "--experts: the MoE family (ROADMAP.md A.4)",
-          "ckpt_dir": "--ckpt-dir: checkpoints (ROADMAP.md A.7)",
+_LATER = {"ckpt_dir": "--ckpt-dir: checkpoints (ROADMAP.md A.7)",
           "trace": "--trace: observability (ROADMAP.md A.7)",
           "obs_report": "--obs-report: observability (ROADMAP.md A.7)",
           "metrics_out": "--metrics-out: observability (ROADMAP.md A.7)"}
@@ -217,9 +249,15 @@ def main(argv: Optional[List[str]] = None) -> List[float]:
                          "topology file; the planner prices each axis "
                          "with its declared link constants")
     ap.add_argument("--moe-ep", nargs="?", const="auto", default=None,
-                    help=argparse.SUPPRESS)
+                    metavar="ALGO",
+                    help="route MoE expert dispatch/combine through "
+                         "explicit all-to-all (models/moe_ep.py): "
+                         "'lax' = the native exchange, else an engine "
+                         "algorithm or plan shape ('auto', "
+                         "'hierarchical', 'ring', ...; default auto)")
     ap.add_argument("--experts", type=int, default=None,
-                    help=argparse.SUPPRESS)
+                    help="override num_experts (e.g. to tile the EP "
+                         "world under --reduced)")
     ap.add_argument("--ckpt-dir", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--trace", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--obs-report", action="store_true",
@@ -234,7 +272,8 @@ def main(argv: Optional[List[str]] = None) -> List[float]:
                microbatches=args.microbatches, log_every=args.log_every,
                device=args.device, dp=args.dp,
                grad_sync_mode=args.grad_sync, fused=args.fused,
-               fabric_spec=args.fabric)
+               fabric_spec=args.fabric, moe_ep=args.moe_ep,
+               num_experts=args.experts)
 
 
 if __name__ == "__main__":

@@ -26,8 +26,11 @@ One forward handles both phases:
 Where the reference threads the pool through ``lax.scan`` and donates
 it, the port writes each layer's new K/V **in place** into per-layer
 views of the pool: ``forward_paged`` returns the same ``pages`` dict it
-was given, updated.  Only the dense decoder family is covered until the
-MoE FFN is ported; vision soft tokens are a later slice too.
+was given, updated.  The dense and MoE decoder families are covered;
+vision soft tokens are a later slice.  The MoE FFN groups tokens by
+batch row, so a prefill chunk ``[1, chunk]`` and a decode step ``[B,
+1]`` fill their experts' capacity as the reference's do at those shapes
+(ROADMAP C18).
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ from repro_torch.models.transformer import (Params, _embed, _ffn_sublayer,
 
 Pages = Dict[str, torch.Tensor]
 
-PAGED_FAMILIES = ("dense",)
+PAGED_FAMILIES = ("dense", "moe")
 
 
 def supports_paged(cfg: ArchConfig) -> bool:
@@ -158,7 +161,8 @@ def _paged_decoder_block(cfg: ArchConfig, x: torch.Tensor, lp: Params,
     else:
         out = _gathered_attention(q, kp, vp, block_tables, ctx_lens)
     x = x + out.reshape(b, t, h * hd) @ lp["wo"]
-    return x + _ffn_sublayer(cfg, rms_norm(x, lp["ln2"], cfg.norm_eps), lp)
+    f, _ = _ffn_sublayer(cfg, rms_norm(x, lp["ln2"], cfg.norm_eps), lp)
+    return x + f
 
 
 def forward_paged(params: Params, cfg: ArchConfig, pages: Pages,

@@ -17,16 +17,21 @@ of ``[L, ...]`` arrays stacked for ``lax.scan``::
     dense: {"embed": [V, D], "ln_f": [D], "head": [D, V],
             "layers": [{"ln1", "ln2", "wq", "wk", "wv", "wo",
                         "wg", "wu", "wd"}, ...]}
+    moe:   the dense layer with "router" [D, E] (float32), "eg", "eu"
+           [E, D, F], "ed" [E, F, D] in place of "wg", "wu", "wd", and
+           "dense_mlp" {"wg", "wu", "wd"} when ``moe_dense_ff`` is set
+           (Arctic's parallel dense residual)
     ssm:   {"embed", "ln_f", "head",
             "layers": [{"ln", "in_proj", "conv_w", "x_proj", "dt_w",
                         "dt_b", "a_log", "d_skip", "out_proj"}, ...]}
 
 ``use_kernel`` (``None``: when the parameters live on a CUDA device)
-routes the dense family's long-sequence attention through the flash
-kernel and the SSM's scan through the scan kernels.  The dense decode
-cache is written in place: ``decode_step`` returns the cache tensors it
-was given, updated.  MoE, hybrid and encoder-decoder families are later
-slices of the port.
+routes the dense and MoE families' long-sequence attention through the
+flash kernel and the SSM's scan through the scan kernels.  The MoE FFN
+(``models/moe.py``, ``moe_ep.py``) is plain products, as in the
+reference.  The decode cache is written in place: ``decode_step``
+returns the cache tensors it was given, updated.  Hybrid and
+encoder-decoder families are later slices of the port.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (_ambient_grid, apply_rope,
                                       attention, flash_decode,
@@ -60,31 +66,51 @@ def _dense(gen: Optional[torch.Generator], shape, scale: float, dtype
             * scale).to(dtype)
 
 
+def _mlp_layer(gen: Optional[torch.Generator], d: int, f: int, dtype
+               ) -> Params:
+    return {"wg": _dense(gen, (d, f), d ** -0.5, dtype),
+            "wu": _dense(gen, (d, f), d ** -0.5, dtype),
+            "wd": _dense(gen, (f, d), f ** -0.5, dtype)}
+
+
+def _moe_layer(gen: Optional[torch.Generator], cfg: ArchConfig, dtype
+               ) -> Params:
+    d, e, f = cfg.d_model, cfg.num_experts, cfg.d_ff
+    p = {"router": _dense(gen, (d, e), d ** -0.5, torch.float32),
+         "eg": _dense(gen, (e, d, f), d ** -0.5, dtype),
+         "eu": _dense(gen, (e, d, f), d ** -0.5, dtype),
+         "ed": _dense(gen, (e, f, d), f ** -0.5, dtype)}
+    if cfg.moe_dense_ff:
+        p["dense_mlp"] = _mlp_layer(gen, d, cfg.moe_dense_ff, dtype)
+    return p
+
+
 def _decoder_layer(gen: Optional[torch.Generator], cfg: ArchConfig, dtype,
                    device: torch.device) -> Params:
-    d, h, kv, hd, f = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                       cfg.resolved_head_dim, cfg.d_ff)
+    d, h, kv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                    cfg.resolved_head_dim)
     s = d ** -0.5
-    return {
+    p = {
         "ln1": _norm(d, dtype, device),
         "ln2": _norm(d, dtype, device),
         "wq": _dense(gen, (d, h * hd), s, dtype),
         "wk": _dense(gen, (d, kv * hd), s, dtype),
         "wv": _dense(gen, (d, kv * hd), s, dtype),
         "wo": _dense(gen, (h * hd, d), (h * hd) ** -0.5, dtype),
-        "wg": _dense(gen, (d, f), s, dtype),
-        "wu": _dense(gen, (d, f), s, dtype),
-        "wd": _dense(gen, (f, d), f ** -0.5, dtype),
     }
+    if cfg.family == "moe":
+        p.update(_moe_layer(gen, cfg, dtype))
+    else:
+        p.update(_mlp_layer(gen, d, cfg.d_ff, dtype))
+    return p
 
 
 #: families whose parameters the port initialises
-INIT_FAMILIES = ("dense", "ssm")
+INIT_FAMILIES = ("dense", "moe", "ssm")
 
 
 def _not_ported(fn: str, cfg: ArchConfig) -> NotImplementedError:
-    later = {"moe": "the MoE slice (ROADMAP.md A.4)",
-             "hybrid": "the hybrid family (ROADMAP.md A.6)",
+    later = {"hybrid": "the hybrid family (ROADMAP.md A.6)",
              "encdec": "the encoder-decoder family (ROADMAP.md A.8)"}
     return NotImplementedError(
         f"{fn}: the port covers families {INIT_FAMILIES}; {cfg.family!r} "
@@ -102,7 +128,7 @@ def kernel_route(params: Params, use_kernel: Optional[bool]) -> bool:
 
 def init_params(cfg: ArchConfig, seed: int = 0,
                 device: DeviceLike = None) -> Params:
-    """Random weights of a dense decoder or a Mamba stack, drawn from a
+    """Random weights of a dense or MoE decoder or a Mamba stack, drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device`` (default
     ``cuda``).  Shapes and scales follow the reference; norm weights
     start at zero.  The draws differ from ``jax.random``'s: to hold the
@@ -156,10 +182,29 @@ def _unembed(params: Params, cfg: ArchConfig,
     return (x @ params["head"]).to(out_dtype)
 
 
-def _ffn_sublayer(cfg: ArchConfig, x: torch.Tensor,
-                  p: Params) -> torch.Tensor:
-    """Dense SwiGLU FFN (the MoE branch is a later slice)."""
-    return swiglu(x, p["wg"], p["wu"], p["wd"])
+def _ffn_sublayer(cfg: ArchConfig, x: torch.Tensor, p: Params
+                  ) -> Tuple[torch.Tensor, Any]:
+    """Returns (ffn_out, aux_loss): the dense SwiGLU, or the MoE FFN
+    chosen as the reference chooses it (``moe_ep``: the engine's
+    all-to-all; ``moe_shardmap_ep``: the model-axis path; else the
+    one-device one), plus Arctic's dense residual."""
+    if cfg.family == "moe":
+        if cfg.moe_ep:
+            from repro_torch.models.moe_ep import moe_ffn_ep
+
+            def moe_fn(*a, **kw):
+                return moe_ffn_ep(*a, algorithm=cfg.moe_ep_algorithm, **kw)
+        else:
+            moe_fn = (moe_lib.moe_ffn_sharded if cfg.moe_shardmap_ep
+                      else moe_lib.moe_ffn)
+        out, aux = moe_fn(x, p["router"], p["eg"], p["eu"], p["ed"],
+                          top_k=cfg.experts_per_token,
+                          capacity_factor=cfg.capacity_factor)
+        if cfg.moe_dense_ff:
+            dm = p["dense_mlp"]
+            out = out + swiglu(x, dm["wg"], dm["wu"], dm["wd"])
+        return out, aux
+    return swiglu(x, p["wg"], p["wu"], p["wd"]), 0.0
 
 
 # ====================================================================== #
@@ -235,20 +280,19 @@ def _decoder_block(cfg: ArchConfig, x: torch.Tensor, p: Params, *,
                    smax: Optional[int] = None,
                    window: Optional[int] = None,
                    use_kernel: Optional[bool] = None
-                   ) -> Tuple[torch.Tensor, KV, float]:
-    """Pre-norm attention + dense FFN; returns (out, new_kv, aux).  The
-    reference's ``grad_barrier`` and ``sp_residuals`` are sharding levers
-    (an optimization barrier on the TP all-reduce, a sequence-sharded
-    residual): on one device they change nothing, and are ignored."""
-    if cfg.family == "moe":
-        raise _not_ported("the MoE FFN", cfg)
+                   ) -> Tuple[torch.Tensor, KV, Any]:
+    """Pre-norm attention + dense or MoE FFN; returns (out, new_kv,
+    aux).  The reference's ``grad_barrier`` and ``sp_residuals`` are
+    sharding levers (an optimization barrier on the TP all-reduce, a
+    sequence-sharded residual): on one device they change nothing, and
+    are ignored."""
     a, new_kv = _attention_sublayer(
         cfg, rms_norm(x, p["ln1"], cfg.norm_eps), p, causal=True,
         window=window, pos=pos, cache_kv=cache_kv, smax=smax,
         use_kernel=use_kernel)
     x = x + a
-    f = _ffn_sublayer(cfg, rms_norm(x, p["ln2"], cfg.norm_eps), p)
-    return x + f, new_kv, 0.0
+    f, aux = _ffn_sublayer(cfg, rms_norm(x, p["ln2"], cfg.norm_eps), p)
+    return x + f, new_kv, aux
 
 
 def _check_family(fn: str, cfg: ArchConfig, batch: Dict[str, Any]) -> None:
@@ -276,8 +320,9 @@ def _ssm_layer(cfg: ArchConfig, h: torch.Tensor, lp: Params,
 
 def forward_train(params: Params, cfg: ArchConfig, batch: Dict[str, Any],
                   remat: bool = True, use_kernel: Optional[bool] = None
-                  ) -> Tuple[torch.Tensor, float]:
-    """Returns (logits [B, S, V], aux_loss).  ``remat`` checkpoints each
+                  ) -> Tuple[torch.Tensor, Any]:
+    """Returns (logits [B, S, V], aux_loss: the MoE layers' load-balance
+    losses summed, 0.0 for the other families).  ``remat`` checkpoints each
     layer (``torch.utils.checkpoint``, non-reentrant: the counterpart of
     ``jax.checkpoint`` with ``nothing_saveable``); ``use_kernel`` (None:
     on a CUDA device) routes the dense family's chunked attention through
@@ -300,22 +345,25 @@ def forward_train(params: Params, cfg: ArchConfig, batch: Dict[str, Any],
 
     if cfg.family == "ssm":
         def layer(h, lp):
-            return _ssm_layer(cfg, h, lp, uk)[0]
+            return _ssm_layer(cfg, h, lp, uk)[0], 0.0
     else:
         def layer(h, lp):
-            return _decoder_block(cfg, h, lp, use_kernel=uk)[0]
+            h, _, aux = _decoder_block(cfg, h, lp, use_kernel=uk)
+            return h, aux
 
+    aux = 0.0
     for lp in params["layers"]:
         if remat and torch.is_grad_enabled():
-            x = checkpoint(layer, x, lp, use_reentrant=False)
+            x, aux_i = checkpoint(layer, x, lp, use_reentrant=False)
         else:
-            x = layer(x, lp)
-    return _unembed(params, cfg, x), 0.0
+            x, aux_i = layer(x, lp)
+        aux = aux + aux_i
+    return _unembed(params, cfg, x), aux
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device: DeviceLike = None) -> Dict[str, torch.Tensor]:
-    """Zeroed decode cache on ``device`` (default ``cuda``).  Dense:
+    """Zeroed decode cache on ``device`` (default ``cuda``).  Dense and MoE:
     per-layer K/V {"k", "v": [L, B, max_len, Hkv, hd]}; SSM: {"conv":
     [L, B, K-1, di], "h": [L, B, di, N] float32}; both with "pos", an
     int32 scalar on the CPU."""

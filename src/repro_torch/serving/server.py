@@ -1,6 +1,5 @@
-"""The serving engine: paged KV cache + continuous batching on one device
-(counterpart of ``repro/serving/server.py`` without its data-parallel
-``mesh``/``engine`` path, which waits for the collective slices).
+"""The serving engine: paged KV cache + continuous batching over the
+CollectiveEngine (counterpart of ``repro/serving/server.py``).
 
 ``ContinuousBatchingServer`` glues the host-side ``Scheduler`` to the
 paged model entry points (``repro_torch.models.paged``):
@@ -15,6 +14,27 @@ paged model entry points (``repro_torch.models.paged``):
 * **sampling** is per (request, position) id, so tokens do not depend on
   slot placement.
 
+Data-parallel serving (``grid=``, this rank's ``GridComm``; one server
+per rank) stripes the slot rows over the ``dp_axis`` as the reference's
+``mesh=`` does.  Every rank runs the same deterministic scheduler over
+the whole batch, and runs every prefill chunk itself, so each rank's KV
+pool holds every prompt.  A decode step serves only this rank's stripe
+of slot rows: they are live in the call, writing their new K/V into the
+rank's own pool, and the other ranks' rows are idle in it (masked to
+the scratch block, as a single server's empty slots are).  The call
+keeps the server's ``[B, 1]`` shape on purpose: cuBLAS picks its GEMM
+kernel by the row count, and a stripe-shaped call rounds some rows
+differently (on an H100 the unembedding ``[M, 2304] @ [2304, 122753]``
+of ``minicpm-2b`` at M 1 or 2 against M 4 or 8), which flips greedy
+tokens at near-ties; at the slot shape every row is computed as one
+server computes it (ROADMAP C20).  The per-rank sampled tokens are
+assembled through the engine's cached model-driven ``allgather_inside``
+over the DP axis, so that every rank's scheduler sees the global token
+vector.  The pools stay coherent for what each rank reads: blocks
+shared between rows (the prefix cache, copy-on-write sources) are only
+ever written by prefill, which every rank runs, and a row's decode K/V
+is read only by the rank that owns its slot.
+
 PyTorch runs eagerly, so nothing is traced or compiled; the KV pool is
 updated in place where the reference donates it to each program.
 """
@@ -27,6 +47,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.collectives.comm import GridComm
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.paged import (copy_blocks, decode_step_paged,
                                       forward_paged, init_pages,
@@ -55,21 +76,28 @@ class StepOutcome:
 
 class ContinuousBatchingServer:
     """Paged-cache continuous-batching server on ``device`` (default
-    ``cuda``; the CPU only when asked for)."""
+    ``cuda``; the CPU only when asked for); with ``grid`` (this rank's
+    ``GridComm``) one data-parallel rank of a server striped over
+    ``dp_axis``."""
 
     def __init__(self, cfg, params, batch_size: int, max_len: int,
-                 seed: int = 0, *, device: DeviceLike = None,
+                 seed: int = 0, grid: Optional[GridComm] = None,
+                 dp_axis: str = "data", engine=None, *,
+                 device: DeviceLike = None,
                  block_size: int = 16, num_blocks: Optional[int] = None,
                  prefill_chunk: int = 32, prefill_per_step: int = 1,
                  top_k: int = 0, prefix_cache: bool = True):
         if not supports_paged(cfg):
             raise NotImplementedError(
-                f"serving covers the dense decoder family, not "
+                f"serving covers the dense and MoE decoder families, not "
                 f"{cfg.family!r} (frontend {cfg.frontend!r})")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
                              f"the server on {self.device}")
+        if grid is not None and grid.device.type != self.device.type:
+            raise ValueError(f"the grid's ranks live on {grid.device}, the "
+                             f"server on {self.device}")
         self.cfg = cfg
         self.params = params
         self.batch = batch_size
@@ -94,6 +122,35 @@ class ContinuousBatchingServer:
         self._step = 0
         self.pages = init_pages(cfg, num_blocks, block_size, self.device)
 
+        self.grid = grid
+        self.dp_axis = dp_axis
+        self._engine = engine
+        self.assembly_decision = None
+        self.assembly_regime = None
+        self._rows = slice(0, batch_size)       # this rank's slot rows
+        if grid is not None:
+            n_dp = grid.axis_size(dp_axis)
+            if batch_size % n_dp != 0:
+                raise ValueError(
+                    f"batch {batch_size} not divisible by dp axis {n_dp}")
+            if engine is None:
+                from repro_torch.collectives.api import get_engine
+                self._engine = get_engine(device=grid.device)
+            self._dp_comm = grid.sub(dp_axis)
+            per = batch_size // n_dp
+            self._rows = slice(self._dp_comm.rank * per,
+                               (self._dp_comm.rank + 1) * per)
+            # Decode token assembly gathers one int32 per sequence over
+            # the DP axis -- a few hundred bytes, below the latency /
+            # bandwidth crossover.  The planner's decision, computed
+            # once, says which side of it the serving hot path landed on.
+            eng = self._engine
+            dec = eng.select("allgather", batch_size * 4, n_dp,
+                             fabric=eng.topology.for_axis(dp_axis))
+            self.assembly_decision = dec
+            self.assembly_regime = ("latency" if dec.algorithm == "oneshot"
+                                    else "bandwidth")
+
     # ------------------------------------------------------------------ #
     def submit(self, req: Request) -> None:
         if req.soft_emb is not None:
@@ -114,10 +171,14 @@ class ContinuousBatchingServer:
 
     # ------------------------------------------------------------------ #
     def _sample_rows(self, logits: torch.Tensor, reqs: List[Request],
-                     rows: List[int]) -> np.ndarray:
+                     rows: List[int], gathered: bool = False
+                     ) -> np.ndarray:
         """logits [B, V] -> host tokens [B]; per-(request, position) ids
-        make the result independent of slot placement."""
-        b = logits.shape[0]
+        make the result independent of slot placement and of DP.  With
+        ``gathered``, ``logits`` holds this rank's stripe of the slot
+        rows: it samples those and the engine's allgather over the DP
+        axis assembles the whole batch's tokens."""
+        b = self.batch if gathered else logits.shape[0]
         sids = np.zeros((b,), np.int64)
         temps = np.zeros((b,), np.float32)
         topks = np.zeros((b,), np.int32)
@@ -126,12 +187,18 @@ class ContinuousBatchingServer:
                          + len(req.out)) % _SAMPLE_MOD
             temps[row] = req.sampling.temperature
             topks[row] = req.sampling.top_k or self.top_k
+        if gathered:
+            sids, temps, topks = (a[self._rows] for a in (sids, temps,
+                                                          topks))
         if not np.any(temps > 0):       # all-greedy hot path: argmax only
             toks = torch.argmax(logits.float(), dim=-1)
         else:
             toks = sample_tokens(logits, self._tensor(sids),
                                  self._tensor(temps), self.seed,
                                  self._tensor(topks))
+        if gathered:
+            toks = self._engine.allgather_inside(toks.to(torch.int32),
+                                                 self._dp_comm)
         return toks.cpu().numpy()
 
     def _append_token(self, req: Request, token: int) -> None:
@@ -179,7 +246,10 @@ class ContinuousBatchingServer:
         tokens = np.zeros((self.batch, 1), np.int32)
         bt = np.zeros((self.batch, self.max_blocks_per_seq), np.int32)
         ctx = np.zeros((self.batch,), np.int32)
+        sl = self._rows
         for i, req in running:
+            if not sl.start <= i < sl.stop:
+                continue    # another DP rank's row: idle here
             tokens[i, 0] = req.out[-1]
             bt[i, :len(req.table.blocks)] = req.table.blocks
             ctx[i] = req.ctx_len
@@ -187,7 +257,8 @@ class ContinuousBatchingServer:
             self.params, self.cfg, self.pages,
             {"tokens": self._tensor(tokens)}, self._tensor(bt),
             self._tensor(ctx), use_kernel=self.use_kernel)
-        toks = self._sample_rows(logits[:, 0], reqs, rows)
+        toks = self._sample_rows(logits[sl, 0], reqs, rows,
+                                 gathered=self.grid is not None)
         for i, req in running:
             req.ctx_len += 1
             self._append_token(req, int(toks[i]))

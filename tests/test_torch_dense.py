@@ -201,8 +201,7 @@ def test_init_params_layout_matches_jax():
             assert lp[name].dtype == torch.bfloat16, name
 
 
-@pytest.mark.parametrize("arch,item", [("olmoe-1b-7b", "A.4"),
-                                       ("recurrentgemma-9b", "A.6"),
+@pytest.mark.parametrize("arch,item", [("recurrentgemma-9b", "A.6"),
                                        ("whisper-medium", "A.8")])
 def test_unported_families_raise_naming_their_slice(arch, item):
     cfg = get_config(arch).reduced()
@@ -213,6 +212,27 @@ def test_unported_families_raise_naming_their_slice(arch, item):
                lambda: decode_step({}, cfg, {}, {"tokens": None})):
         with pytest.raises(NotImplementedError, match=item):
             fn()
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b"])
+def test_moe_family_runs_every_entry_point(arch):
+    """The MoE family, refused before its slice (ROADMAP A.4), runs
+    through init_params, init_cache, forward_train, prefill and
+    decode_step (its parity with the reference: test_torch_moe.py)."""
+    cfg = get_config(arch).reduced()
+    params = init_params(cfg, device="cpu")
+    toks = torch.from_numpy(_tokens(cfg, 2, 8, seed=5))
+    with torch.no_grad():
+        logits, aux = forward_train(params, cfg, {"tokens": toks})
+        last, cache = prefill(params, cfg, {"tokens": toks})
+        cache = dict(cache, **{k: torch.nn.functional.pad(
+            cache[k], (0, 0, 0, 0, 0, 4)) for k in ("k", "v")})
+        step, cache = decode_step(params, cfg, cache,
+                                  {"tokens": toks[:, :1]})
+    assert logits.shape == (2, 8, cfg.vocab_size) and float(aux) > 0
+    assert torch.isfinite(logits).all() and torch.isfinite(step).all()
+    assert set(init_cache(cfg, 2, 8, device="cpu")) == {"k", "v", "pos"}
+    assert int(cache["pos"]) == 9
 
 
 def test_train_cli_dense_on_cpu(capsys):

@@ -18,7 +18,9 @@ of the plain product's max-abs. The collective tests use integer-valued
 inputs (exact in any order); the NCCL test skips below two cards.
 ``flash_attention`` within 2e-5 (float32) and 5e-2 (bfloat16) of its
 plain version, lse within 1e-4, and its gradient (plain backward) within
-1e-4 of autograd's max-abs.
+1e-4 of autograd's max-abs.  The MoE FFN (plain products, no kernel of
+its own) on CUDA within 1e-5 of the CPU in float32, and bitwise equal
+on a second call.
 """
 
 import dataclasses
@@ -1275,3 +1277,74 @@ def test_remat_with_fused_tp_on_cuda_is_refused(cuda_device):
     want, _ = forward_train(params, cfg, {"tokens": tokens}, remat=False)
     for logits, _ in out:
         torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-5)
+
+
+# ------------------------------ the MoE FFN ------------------------------ #
+def _moe_inputs(g, gs, d, e, f, dtype, device, seed=11):
+    rng = np.random.default_rng(seed)
+    t = lambda *shape, s=1.0: torch.from_numpy(
+        (rng.normal(size=shape) * s).astype(np.float32))
+    x, router = t(g, gs, d), t(d, e, s=d ** -0.5)
+    ws = [t(e, d, f, s=d ** -0.5), t(e, d, f, s=d ** -0.5),
+          t(e, f, d, s=f ** -0.5)]
+    return ([x.to(dtype).to(device), router.to(device)]
+            + [w.to(dtype).to(device) for w in ws])
+
+
+@pytest.mark.gpu
+def test_moe_ffn_on_cuda_matches_the_cpu(cuda_device):
+    """float32 at 1e-5, with a capacity that drops tokens (group 256,
+    E 16, top 4, capacity factor 0.5: 32 slots an expert for 64 entries
+    on average)."""
+    from repro_torch.models import moe
+    args = _moe_inputs(2, 256, 128, 16, 64, torch.float32, cuda_device)
+    got, aux = moe.moe_ffn(*args, top_k=4, capacity_factor=0.5)
+    want, want_aux = moe.moe_ffn(*(a.cpu() for a in args), top_k=4,
+                                 capacity_factor=0.5)
+    r = moe.Routing(args[0].cpu(), args[1].cpu(), 4, 0.5)
+    assert int((~r.keep).sum()) > 0
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    assert float(aux) == pytest.approx(float(want_aux), abs=1e-6)
+
+
+@pytest.mark.gpu
+def test_moe_combine_is_bitwise_repeatable_on_cuda(cuda_device):
+    """Two calls at olmoe-1b-7b's widths (E 64, top 8, D 2048, F 1024,
+    bf16): no atomics in the dispatch or the combine."""
+    from repro_torch.models import moe
+    args = _moe_inputs(2, 128, 2048, 64, 1024, torch.bfloat16, cuda_device)
+    a, aux_a = moe.moe_ffn(*args, top_k=8)
+    b, aux_b = moe.moe_ffn(*args, top_k=8)
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+
+
+@pytest.mark.gpu
+def test_paged_kernel_at_olmoe_decode_shape(cuda_device):
+    """olmoe-1b-7b's decode: 16 / 16 heads x 128, bf16, blocks of 16,
+    serving-length rows (paged_simt)."""
+    _check_paged(*_paged_rows(8, 16, 16, 128, 16, 240,
+                              [97, 0, 130, 211, 16, 305, 64, 383],
+                              torch.bfloat16, cuda_device))
+
+
+@pytest.mark.gpu
+def test_moe_ep_on_cuda_threads_is_forward_only(cuda_device):
+    """EP on 4 CUDA rank threads: the forward equals moe_ffn; a backward
+    through its exchanges is refused (ROADMAP C15)."""
+    from repro_torch.collectives import CollectiveEngine, run_local_grid
+    from repro_torch.models import layers, moe, moe_ep
+    args = _moe_inputs(4, 32, 64, 8, 32, torch.float32, cuda_device)
+    eng = CollectiveEngine(persist=False, device=cuda_device)
+    want, _ = moe.moe_ffn(*args, top_k=2)
+
+    def rank(grid, grad):
+        with torch.set_grad_enabled(grad), layers.ambient_grid(grid):
+            return moe_ep.moe_ffn_ep(args[0][grid.rank:grid.rank + 1],
+                                     *args[1:], top_k=2, engine=eng)[0]
+
+    outs = run_local_grid(lambda g: rank(g, False), (4,), ("data",),
+                          cuda_device, timeout=60)
+    torch.testing.assert_close(torch.cat(outs), want, rtol=1e-5, atol=1e-5)
+    with pytest.raises(NotImplementedError, match="C15"):
+        run_local_grid(lambda g: rank(g, True), (4,), ("data",),
+                       cuda_device, timeout=60)

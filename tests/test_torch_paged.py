@@ -1,6 +1,7 @@
 """The port's paged model path against the JAX package's: chunked
 prefill and decode logits on the same weights (moved across with
-``params_from_jax``), float32, the reference's own bound of 2e-4; pool
+``params_from_jax``), float32, the reference's own bound of 2e-4, for
+the dense family and the MoE family (``olmoe-1b-7b``); pool
 copy-on-write and scratch-block isolation; the weight conversion and
 initialisation layout."""
 
@@ -67,7 +68,8 @@ def _paged_logits(arch, chunk):
     return out
 
 
-@pytest.mark.parametrize("arch", ["minicpm-2b", "mistral-nemo-12b"])
+@pytest.mark.parametrize("arch", ["minicpm-2b", "mistral-nemo-12b",
+                                  "olmoe-1b-7b"])
 @pytest.mark.parametrize("chunk", [8, 12])
 def test_paged_prefill_and_decode_match_jax(arch, chunk):
     """MHA (minicpm) and GQA (mistral-nemo): every prefill chunk's valid
@@ -153,7 +155,11 @@ def test_init_params_layout_matches_jax():
 
 
 def test_paged_rejects_unported_families():
-    for arch in ("falcon-mamba-7b", "olmoe-1b-7b", "llava-next-34b"):
+    """The SSM keeps its constant-size state and llava's soft tokens wait
+    for A.5; the MoE family serves (``test_paged_prefill_and_decode_
+    match_jax``)."""
+    assert supports_paged(configs("olmoe-1b-7b")[1])
+    for arch in ("falcon-mamba-7b", "llava-next-34b"):
         _, tcfg = configs(arch)
         assert not supports_paged(tcfg)
         with pytest.raises(NotImplementedError):

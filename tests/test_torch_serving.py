@@ -193,6 +193,14 @@ def test_serve_cli_on_cpu(capsys):
                 "--shared-prompts", "2"])
     out = capsys.readouterr().out
     assert "3 requests, 9 tokens" in out and "on cpu" in out
-    for flags in (["--dp"], ["--replicas", "2"], ["--router", "cost"]):
+    for flags in (["--replicas", "2"], ["--router", "cost"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             serve.main(["--device", "cpu", *flags])
+    # --dp serves (test_torch_serving_dp.py); in one process the DP axis
+    # is that process alone, and the streams are the same
+    plain = serve.main(["--device", "cpu", "--requests", "3", "--batch",
+                        "2", "--prompt-len", "8", "--new-tokens", "3"])
+    dp = serve.main(["--device", "cpu", "--requests", "3", "--batch", "2",
+                     "--prompt-len", "8", "--new-tokens", "3", "--dp"])
+    assert dp == plain
+    assert "dp axis 'data' = 1 ranks" in capsys.readouterr().out

@@ -36,6 +36,7 @@ from repro_torch.train.state import (abstract_train_state,
 ROOT = Path(__file__).resolve().parents[1]
 
 ARCHS = ("minicpm-2b", "phi3-mini-3.8b", "mistral-nemo-12b", "yi-34b",
+         "olmoe-1b-7b", "arctic-480b",
          "llava-next-34b", "falcon-mamba-7b")
 MESHES = {"8": ((8,), ("data",)),
           "24": ((2, 4), ("data", "model")),
@@ -138,15 +139,22 @@ def test_param_specs_equal_the_reference(ref, arch, mesh, fsdp, red):
     seen = set()
     for name, spec in specs.items():
         if name == "layers":
-            for i, layer in enumerate(spec):
-                for leaf, got in layer.items():
-                    key = f"['layers']['{leaf}']"
-                    full = want[key]
-                    n_lead = len(full) - params["layers"][i][leaf].dim()
+            def walk(specs_, params_, key):
+                # nested dicts (Arctic's dense_mlp) nest in the key too
+                for leaf, got in specs_.items():
+                    k = f"{key}['{leaf}']"
+                    if isinstance(got, dict):
+                        walk(got, params_[leaf], k)
+                        continue
+                    full = want[k]
+                    n_lead = len(full) - params_[leaf].dim()
                     assert n_lead <= 1 and all(
-                        a is None for a in full[:n_lead]), (key, full)
-                    assert got == full[n_lead:], (key, got, full)
-                    seen.add(key)
+                        a is None for a in full[:n_lead]), (k, full)
+                    assert got == full[n_lead:], (k, got, full)
+                    seen.add(k)
+
+            for i, layer in enumerate(spec):
+                walk(layer, params["layers"][i], "['layers']")
         else:
             key = f"['{name}']"
             assert spec == want[key], (key, spec, want[key])

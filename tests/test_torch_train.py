@@ -184,12 +184,14 @@ def test_train_cli_on_cpu(capsys):
     assert "[train] done: 3 steps of falcon-mamba-7b on cpu" in out
 
 
-@pytest.mark.parametrize("arch,item", [("olmoe-1b-7b", "MoE slice"),
+@pytest.mark.parametrize("arch,item", [("whisper-medium",
+                                        "encoder-decoder family"),
                                        ("recurrentgemma-9b",
                                         "hybrid family")])
 def test_train_cli_defaults_to_cuda_and_refuses_other_families(arch, item):
-    """The dense and SSM families train; a family the port has not
-    reached yet is refused, naming the slice it waits for."""
+    """The dense, MoE and SSM families train; a family the port has not
+    reached yet is refused, naming the slice it waits for; ``--moe-ep``
+    on a family without experts exits with the reference's message."""
     from repro_torch.launch import train
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device would run")
@@ -198,6 +200,8 @@ def test_train_cli_defaults_to_cuda_and_refuses_other_families(arch, item):
                     "1"])
     with pytest.raises(NotImplementedError, match=item):
         train.run(arch, 1, 2, 8, device="cpu")
-    with pytest.raises(SystemExit):
-        train.main(["--arch", "falcon-mamba-7b", "--moe-ep"])
+    with pytest.raises(SystemExit, match="--moe-ep needs an MoE "
+                       "architecture; falcon-mamba-7b is family='ssm'"):
+        train.main(["--arch", "falcon-mamba-7b", "--moe-ep", "--device",
+                    "cpu"])
     assert dataclasses.is_dataclass(adamw.AdamWConfig)
