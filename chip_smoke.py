@@ -119,11 +119,31 @@
    on a ("data",) grid of 4 rank threads sharing one copy of the
    weights, the serve phase's requests: every rank's greedy streams
    identical to one server's on the same model, the token assembly's
-   ``assembly_decision``.
+   ``assembly_decision``;
+20. calibration and observability phase (``repro_torch.obs``), tracing
+   on and measuring: (a) the six ops under every algorithm on the 8
+   rank threads and the four multi-axis ops (auto and a phased shape) on
+   a 2 x 4 (pod, data) grid at 64 KB - 16 MB, float32 exact, the spans
+   held to the trace contract (decided, measured, planned, phases
+   nested, the Chrome trace round-trips); (b) ``calibrate_launch`` from
+   rank 0's spans: ``t_launch`` and the seconds per model cycle; (c)
+   ``calibrate(grid=)`` on the 2 x 4 thread grid at 64 KB - 2 GB in a
+   cache directory of its own: each axis's fitted Fabric, auto's
+   allreduce picks at 4 KB - 64 MB stock and fitted, the topology
+   persisted and restored there, and not under
+   ``REPRO_TORCH_RESTORE_TOPOLOGY=0``; (d) the model-error tables; (e)
+   one traced fsdp DP step and a short traced DP serve run at the
+   earlier phases' configurations: span counts, the model-error table,
+   the serve telemetry and engine stats through a metrics registry.
+   Thread walls on one card are not a fabric; the predictions are the
+   TPU model's.  At the end ``get_engine()`` under the usual cache still
+   prices with the stock constants.
 
-Phase 10 (NCCL, two or more cards) ends with the trainer under torchrun
-with ``--arch olmoe-1b-7b --reduced --dp --moe-ep`` (EP with a
-backward), the loss equal on both ranks.
+Phase 10 (NCCL, two or more cards) also times neighbour shifts over
+NCCL and runs ``calibrate(grid=)`` one process a card (the NVLink
+constants, persisted in a cache directory of the phase's own), and ends
+with the trainer under torchrun with ``--arch olmoe-1b-7b --reduced
+--dp --moe-ep`` (EP with a backward), the loss equal on both ranks.
 
 It exits non-zero, printing no result, without a GPU or outside a
 checkout of the repository.  The last lines are a JSON line of per-kernel
@@ -138,9 +158,11 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -160,8 +182,16 @@ from repro_torch.collectives import (CollectiveEngine,  # noqa: E402
                                      ProcessGroupComm, ProcessGroupGrid,
                                      get_engine, planner, run_local,
                                      run_local_grid)
+from repro_torch.collectives import api as collectives_api  # noqa: E402
+from repro_torch.collectives.engine import (  # noqa: E402
+    ICI_ELEMENT_BYTES, find_calibrated_topology, fit_launch,
+    measure_ppermute)
 from repro_torch.collectives.overlap import (  # noqa: E402
     bucket_algorithm_plan)
+from repro_torch.core import patterns as pat  # noqa: E402
+from repro_torch.core import selector  # noqa: E402
+from repro_torch.core.model import (FabricTopology,  # noqa: E402
+                                    TPU_V5E_AXIS)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import with_layer_units  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLMDataset  # noqa: E402
@@ -182,8 +212,12 @@ from repro_torch.models import (decode_step_paged, forward_train,  # noqa
                                 init_params)
 from repro_torch.models.layers import ambient_grid, set_fused_tp  # noqa
 from repro_torch.models.transformer import shard_decode_cache  # noqa: E402
+from repro_torch.obs import model_error as obs_model_error  # noqa: E402
+from repro_torch.obs import registry as obs_registry  # noqa: E402
+from repro_torch.obs import trace as obs_trace  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
 from repro_torch.serving import ContinuousBatchingServer, Request  # noqa
+from repro_torch.serving.telemetry import export_to_registry  # noqa: E402
 from repro_torch.train.state import init_train_state  # noqa: E402
 from repro_torch.train.step import (GradSyncConfig,  # noqa: E402
                                     make_decode_step, make_prefill_step,
@@ -383,6 +417,22 @@ MOE_EP = dict(layers=2, rows=8, seq=1024,
 #: threads taking turns on the interpreter lock between eager calls),
 #: against one server of the same model
 DP_SERVE = dict(ranks=4, layers=4)
+#: calibration and observability phase: the traced collectives' bytes per
+#: rank and repeats (calibrate_launch takes each signature's best), the
+#: shift sizes and repeats of calibrate(grid=), the sizes auto's picks are
+#: printed at, and the short traced DP serve run.  The shifts go to 2 GB a
+#: rank: on 8 threads of one H100 the 'data' axis's fit up to 64 MB was
+#: refused as noise-dominated (the barriers' jitter, 1-3.6 ms a shift,
+#: hid the copies; 1 GB a rank added 3.3 ms over it)
+OBS_BYTES = (64 << 10, 256 << 10, 1 << 20, 4 << 20, 16 << 20)
+OBS_REPEATS = 2
+OBS_MULTI = {"allreduce": "hierarchical", "reduce_scatter": "cascade",
+             "allgather": "cascade", "all_to_all": "hierarchical"}
+CALIBRATE_BYTES = (64 << 10, 1 << 20, 16 << 20, 256 << 20, 1 << 30,
+                   2 << 30)
+CALIBRATE_REPEATS = 5          # calibrate()'s own best-of
+AUTO_BYTES = (4 << 10, 64 << 10, 1 << 20, 16 << 20, 64 << 20)
+OBS_SERVE = dict(requests=8, new_tokens=16)
 
 
 def log(msg: str) -> None:
@@ -2739,6 +2789,332 @@ def dp_serve_phase(seed: int) -> None:
         f"C20)")
 
 
+# ---------------------- calibration and observability -------------------- #
+THREADS_NOTE = "threads on one card, not a fabric"
+
+
+def top_spans(spans) -> list:
+    return [s for s in spans if s.cat == obs_trace.CAT_COLLECTIVE
+            and s.parent_id is None]
+
+
+def check_spans(spans, multi_names) -> str:
+    """The trace contract of phase (a): ``validate_spans`` clean; every
+    top-level collective span decided (a prediction unless forced, cache
+    hit / miss / forced) and measured; every multi-axis span planned;
+    every phase span nested under a collective span of its thread; the
+    Chrome trace round-trips."""
+    problems = obs_trace.validate_spans(spans)
+    assert problems == [], problems[:5]
+    by_id = {s.span_id: s for s in spans}
+    tops = top_spans(spans)
+    for s in tops:
+        a = s.args
+        assert a["predicted"] is not None or a.get("algorithm_forced"), a
+        assert a["cache"] in ("hit", "miss", "forced"), a
+        assert a["measured_s"] is not None and a["measured_s"] > 0, a
+        if s.name in multi_names:
+            assert a["plan"] is not None and a["n_chunks"] >= 1, a
+    phases = [s for s in spans if s.cat == obs_trace.CAT_PHASE]
+    assert phases
+    for ph in phases:
+        parent = by_id[ph.parent_id]
+        assert parent.cat == obs_trace.CAT_COLLECTIVE, ph
+        assert parent.tid == ph.tid, ph
+    path = Path(build.BUILD_DIR) / f"obs_trace_{os.getpid()}.json"
+    tracer = obs_trace.get_tracer()
+    n = tracer.export_chrome(str(path))
+    loaded = obs_trace.load_chrome_trace(str(path))
+    path.unlink()
+    want = sorted(spans, key=lambda s: (s.t0, s.span_id))
+    assert n == len(spans)
+    assert [(s.span_id, s.parent_id, s.name) for s in loaded] == [
+        (s.span_id, s.parent_id, s.name) for s in want]
+    assert obs_trace.validate_spans(loaded) == []
+    return (f"{len(spans)} spans ({len(tops)} top-level collective spans "
+            f"over every rank, {len(phases)} phase spans): validate_spans "
+            f"clean, every top-level span decided and measured, every "
+            f"multi-axis span planned, phases nested, the Chrome trace "
+            f"round-trips")
+
+
+def launch_samples(spans) -> list:
+    """calibrate_launch's samples from rank 0's single-axis spans: the
+    best measured wall of each (op, P, bytes, algorithm) whose algorithm
+    has a closed form."""
+    best = {}
+    for s in top_spans(spans):
+        a = s.args
+        if a["rank"] != 0 or s.name.endswith("_multi"):
+            continue
+        p = math.prod(a["axis_sizes"])
+        b = max(1, a["bytes"] // ICI_ELEMENT_BYTES)
+        if a["algorithm"] not in selector.predict_collective(
+                a["op"], p, b, TPU_V5E_AXIS, include_autogen=False):
+            continue
+        key = (a["op"], p, a["bytes"], a["algorithm"])
+        best[key] = min(best.get(key, math.inf), a["measured_s"])
+    return [k + (t,) for k, t in sorted(best.items())]
+
+
+def span_counts(spans) -> str:
+    counts = {}
+    for s in top_spans(spans):
+        counts[s.name] = counts.get(s.name, 0) + 1
+    return ", ".join(f"{k} {v}" for k, v in sorted(counts.items()))
+
+
+def traced_collectives(seed: int) -> list:
+    """Phase (a): the six single-axis ops under every algorithm on the
+    collective phase's 8 rank threads (axis "data"), and the four
+    multi-axis ops (auto and one phased shape) on a 2 x 4 (pod, data)
+    grid, at OBS_BYTES, OBS_REPEATS times, with tracing on and
+    measuring; float32 results held exact as in the collective phase.
+    Returns the spans."""
+    p = COLLECTIVE_RANKS
+    eng = CollectiveEngine(device="cuda", persist=False)
+    tracer = obs_trace.get_tracer()
+    tracer.clear()
+    for _ in range(OBS_REPEATS):
+        for nbytes in OBS_BYTES:
+            xs = collective_inputs(p, nbytes, torch.float32, seed + nbytes)
+            for op, algs in ALGORITHMS.items():
+                wants = [collective_expected(op, xs, r) for r in range(p)]
+                for alg in algs:
+                    outs = run_local(
+                        lambda c: run_collective(eng, op, alg, xs, c), p,
+                        axis="data")
+                    for r in range(p):
+                        if wants[r] is not None:
+                            check_collective(op, outs[r], wants[r])
+            for op, shape in OBS_MULTI.items():
+                xs2 = inputs_2d(op, nbytes, torch.float32, seed + nbytes)
+                for alg in ("auto", shape):
+                    outs = run_local_grid(
+                        lambda g: (getattr(eng, op + "_multi")(
+                            xs2[g.rank], g, ("pod", "data"), alg),
+                            g.members(("pod", "data"))),
+                        (2, 4), ("pod", "data"))
+                    for r, (out, members) in enumerate(outs):
+                        check_2d(op, out, xs2, members, r, None)
+            del xs, xs2
+            torch.cuda.empty_cache()
+    return tracer.spans
+
+
+def calibrated_error_table(samples, fabric, s_per_cycle: float) -> str:
+    """The model-error table of the launch-calibrated model on the
+    samples it was fitted to: each sample re-priced on ``fabric`` (with
+    its fitted ``t_launch``) and scored at ``s_per_cycle``."""
+    mon = obs_model_error.ModelErrorMonitor(seconds_per_cycle=s_per_cycle)
+    for op, p, nbytes, alg, secs in samples:
+        pred = selector.predict_collective(
+            op, p, max(1, nbytes // ICI_ELEMENT_BYTES), fabric,
+            include_autogen=False)
+        mon.observe(op, str(p), nbytes, pred[alg], secs)
+    return mon.render_table()
+
+
+def calibrate_grid_phase() -> None:
+    """Phase (c), in a cache directory of its own: calibrate(grid=) on a
+    2 x 4 (pod, data) thread grid, auto's allreduce picks under the
+    fitted constants beside the stock ones, the topology persisted and
+    restored there, and not under REPRO_TORCH_RESTORE_TOPOLOGY=0."""
+    usual = os.environ.get("REPRO_TORCH_CACHE_DIR")
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="obs_cache_", dir=build.BUILD_DIR)
+    os.environ["REPRO_TORCH_CACHE_DIR"] = tmp
+    try:
+        cal = CollectiveEngine(device="cuda")
+        t0 = time.perf_counter()
+        out = run_local_grid(
+            lambda g: (measure_ppermute(g.sub("data"), CALIBRATE_BYTES,
+                                        CALIBRATE_REPEATS),
+                       cal.calibrate(grid=g, sizes_bytes=CALIBRATE_BYTES)),
+            (2, 4), ("pod", "data"))
+        shifts, topo = out[0]
+        assert all(t == topo for _, t in out) and cal.topology == topo
+        log(f"obs (c) measure_ppermute on a 'data' row (4 rank threads; "
+            f"the slowest rank's best of {CALIBRATE_REPEATS}): " + ", ".join(
+                f"{nb >> 10} KB {t * 1e6:.1f} us" for nb, t in shifts)
+            + f" ({THREADS_NOTE})")
+        for axis, fab in topo.axis_fabrics:
+            log(f"obs (c) calibrate(grid=) axis {axis!r}: Fabric("
+                f"name={fab.name!r}, t_r={fab.t_r:.6g}, link_bw="
+                f"{fab.link_bw:.6g}, store_cost={fab.store_cost:g}, "
+                f"multicast={fab.multicast}) from shifts of "
+                f"{CALIBRATE_BYTES[0] >> 10} KB - {CALIBRATE_BYTES[-1] >> 20}"
+                f" MB a rank, best of {CALIBRATE_REPEATS}, the slowest rank's "
+                f"({THREADS_NOTE}); {time.perf_counter() - t0:.1f} s")
+        stock = CollectiveEngine(device="cuda", persist=False)
+        fab = topo.for_axis("data")
+        for nbytes in AUTO_BYTES:
+            d0 = stock.select("allreduce", nbytes, COLLECTIVE_RANKS)
+            d1 = cal.select("allreduce", nbytes, COLLECTIVE_RANKS,
+                            fabric=fab)
+            p0 = stock.plan_multi("allreduce", ("pod", "data"), (2, 4),
+                                  nbytes)
+            p1 = cal.plan_multi("allreduce", ("pod", "data"), (2, 4),
+                                nbytes)
+            log(f"obs (c) auto allreduce {nbytes >> 10} KB, P "
+                f"{COLLECTIVE_RANKS}: stock {d0.algorithm} | fitted "
+                f"('data' axis) {d1.algorithm}; 2 x 4 (pod, data): stock "
+                f"{p0.describe()} | fitted {p1.describe()}")
+        cal.flush()
+        assert find_calibrated_topology() == topo
+        os.environ["REPRO_TORCH_RESTORE_TOPOLOGY"] = "0"
+        try:
+            assert find_calibrated_topology() is None
+        finally:
+            del os.environ["REPRO_TORCH_RESTORE_TOPOLOGY"]
+        log(f"obs (c) the calibrated topology {topo.name!r} persisted in "
+            f"the phase's own cache directory "
+            f"({os.path.basename(cal._cache_path())}) and restores there; "
+            f"not under REPRO_TORCH_RESTORE_TOPOLOGY=0")
+    finally:
+        if usual is None:
+            os.environ.pop("REPRO_TORCH_CACHE_DIR", None)
+        else:
+            os.environ["REPRO_TORCH_CACHE_DIR"] = usual
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def obs_phase(seed: int) -> None:
+    """Calibration and observability on one card (ROADMAP A.2.b, A.7 (a)):
+    (a) traced collectives, (b) calibrate_launch from their spans, (c)
+    calibrate(grid=) on a 2 x 4 thread grid in a cache directory of its
+    own, and auto's picks under the fitted constants beside the stock
+    ones, (d) the model-error report, (e) a traced fsdp DP step and a
+    short traced DP serve run with their registry export.  At the end
+    the script's usual cache still gives the stock constants."""
+    t_phase = time.perf_counter()
+    tracer = obs_trace.enable_tracing(measure=True)
+    try:
+        # (a) traced collectives
+        t0 = time.perf_counter()
+        spans = traced_collectives(seed)
+        multi = {op + "_multi" for op in OBS_MULTI}
+        log(f"obs (a) traced collectives: 6 ops x every algorithm on "
+            f"{COLLECTIVE_RANKS} LocalComm ranks and 4 multi-axis ops x "
+            f"(auto, {', '.join(sorted(set(OBS_MULTI.values())))}) on a "
+            f"2 x 4 (pod, data) grid, {len(OBS_BYTES)} sizes "
+            f"{OBS_BYTES[0] >> 10} KB - {OBS_BYTES[-1] >> 20} MB a rank, "
+            f"{OBS_REPEATS} repeats, float32 exact, tracing on and "
+            f"measuring: {check_spans(spans, multi)}; "
+            f"{time.perf_counter() - t0:.1f} s ({THREADS_NOTE})")
+        # (b) calibrate_launch from the spans
+        samples = launch_samples(spans)
+        launches = sorted({pat.launch_count(op, alg, p)
+                           for op, p, _, alg, _ in samples})
+        s_per_cycle, _ = fit_launch(samples)
+        launch_eng = CollectiveEngine(device="cuda", persist=False)
+        t_launch = launch_eng.calibrate_launch(samples)
+        log(f"obs (b) calibrate_launch: {len(samples)} samples (rank 0's "
+            f"best wall of each op x algorithm x size with a closed form; "
+            f"launch counts {launches[0]:g} - {launches[-1]:g}): t_launch "
+            f"{t_launch:.6g} model cycles, {s_per_cycle:.6e} s a model "
+            f"cycle, i.e. {t_launch * s_per_cycle * 1e6:.3f} us a launch "
+            f"({THREADS_NOTE}; the model cycles are the TPU model's)")
+        # (c) calibrate(grid=) on the 2 x 4 thread grid
+        calibrate_grid_phase()
+        # (d) the model-error reports
+        mon = obs_model_error.ModelErrorMonitor(
+            seconds_per_cycle=s_per_cycle)
+        fed = mon.observe_spans(spans)
+        log(f"obs (d) model error over (a)'s spans (rank 0's model-selected"
+            f" ones: {fed}; their predictions are the stock TPU v5e model's,"
+            f" scored at (b)'s {s_per_cycle:.6e} s a cycle; "
+            f"{THREADS_NOTE}):\n" + mon.render_table())
+        log(f"obs (d) model error of the launch-calibrated model (t_launch "
+            f"{t_launch:.6g}) on (b)'s {len(samples)} samples, in sample "
+            f"({THREADS_NOTE}):\n" + calibrated_error_table(
+                samples, launch_eng.fabric, s_per_cycle))
+        # (e) a traced fsdp DP step and a short traced DP serve run
+        tracer.clear()
+        obs_dp_and_serve(seed)
+    finally:
+        obs_trace.disable_tracing()
+        obs_trace.get_tracer().clear()
+    stock_topo = FabricTopology.uniform(TPU_V5E_AXIS)
+    assert find_calibrated_topology() is None
+    assert get_engine().topology == stock_topo
+    saved = dict(collectives_api._ENGINES)
+    collectives_api._ENGINES.clear()
+    try:
+        assert get_engine().topology == stock_topo
+    finally:
+        collectives_api._ENGINES.clear()
+        collectives_api._ENGINES.update(saved)
+    log(f"obs phase: {time.perf_counter() - t_phase:.1f} s; the script's "
+        f"usual cache still gives get_engine() the stock TPU_V5E_AXIS "
+        f"constants")
+
+
+def obs_dp_and_serve(seed: int) -> None:
+    """Phase (e): one fsdp step of the DP phase's configuration and a
+    short DP serve run of the DP serve phase's, traced; the span counts,
+    the model-error table, and the serve telemetry with the engine stats
+    through a registry."""
+    tracer = obs_trace.get_tracer()
+    cfg = with_layer_units(get_config(DP_ARCH), DP_TRAIN["layers"])
+    t0 = time.perf_counter()
+    out = dp_run(cfg, "fsdp", False, 1, DP_TRAIN["lr"], timed=True,
+                 seed=seed)
+    assert all(math.isfinite(o[0][0]) for o in out), out
+    dp_wall = time.perf_counter() - t0
+    dp_spans = tracer.spans
+    log(f"obs (e) traced fsdp DP step ({cfg.name}, {cfg.num_layers} layers, "
+        f"{DP_TRAIN['grid'][0]} x {DP_TRAIN['grid'][1]} rank threads): loss "
+        f"{out[0][0][0]:.4f}, {dp_wall:.1f} s with set-up; collective "
+        f"spans (every rank): {span_counts(dp_spans)}")
+    tracer.clear()
+    scfg = with_layer_units(get_config(SERVE_ARCH), DP_SERVE["layers"])
+    params = init_params(scfg, seed=seed, device="cuda")
+    max_len = (SERVE["system_len"] + SERVE["suffix"][1]
+               + OBS_SERVE["new_tokens"] + SERVE["block_size"])
+    def serve(grid):
+        server = ContinuousBatchingServer(
+            scfg, params, SERVE["batch"], max_len=max_len, seed=seed,
+            grid=grid, block_size=SERVE["block_size"],
+            prefill_chunk=SERVE["prefill_chunk"], device="cuda")
+        for req in make_requests(scfg, seed)[:OBS_SERVE["requests"]]:
+            server.submit(dataclasses.replace(
+                req, max_new_tokens=OBS_SERVE["new_tokens"]))
+        results = server.run()
+        torch.cuda.synchronize()
+        return results, server.snapshot()
+
+    t0 = time.perf_counter()
+    out = run_local_grid(serve, (DP_SERVE["ranks"],), ("data",))
+    serve_wall = time.perf_counter() - t0
+    assert all(o[0] == out[0][0] for o in out)
+    serve_spans = tracer.spans
+    log(f"obs (e) traced DP serve ({scfg.name}, {scfg.num_layers} layers, "
+        f"{DP_SERVE['ranks']} rank threads, {OBS_SERVE['requests']} "
+        f"requests x "
+        f"{OBS_SERVE['new_tokens']} tokens): {serve_wall:.1f} s; collective "
+        f"spans (every rank): {span_counts(serve_spans)}")
+    spans = dp_spans + serve_spans
+    assert obs_trace.validate_spans(spans) == []
+    mon = obs_model_error.ModelErrorMonitor()
+    fed = mon.observe_spans(spans)
+    log(f"obs (e) model error over the DP step's and the serve run's spans "
+        f"(rank 0's model-selected ones: {fed}; each bin anchors on its "
+        f"first {mon.min_samples}; TPU-model predictions, {THREADS_NOTE}):"
+        f"\n" + mon.render_table())
+    reg = obs_registry.MetricsRegistry()
+    export_to_registry(out[0][1], reg)
+    obs_registry.export_engine_stats(get_engine(), reg)
+    blob = reg.export_json()
+    assert obs_registry.validate_export(blob) == [], blob
+    gauges = blob["gauges"]
+    log(f"obs (e) registry: {len(gauges)} gauges, validate_export clean; "
+        f"serve_decode_steps {gauges['serve_decode_steps']:g}, "
+        f"serve_tokens_out {gauges['serve_tokens_out']:g}, engine "
+        + ", ".join(f"{k.split('{')[0]} {v:g}" for k, v in gauges.items()
+                    if k.startswith("engine_")))
+
+
 # ------------------------------ NCCL phase ------------------------------ #
 def nccl_worker(rank: int, world: int, init: str, seed: int) -> int:
     """One rank of the NCCL phase, on card ``rank``: the float32
@@ -2769,6 +3145,7 @@ def nccl_worker(rank: int, world: int, init: str, seed: int) -> int:
     err = _rel_err(got, gathered)
     assert err <= FUSED_TOL, err
     grid_note = "no grid (fewer than 4 cards)"
+    grid = None
     if world >= 4:
         shape = (2, world // 2)
         grid = ProcessGroupGrid(shape, ("pod", "data"), device=comm.device)
@@ -2781,6 +3158,7 @@ def nccl_worker(rank: int, world: int, init: str, seed: int) -> int:
         grid_note = (f"allreduce_multi over a {shape[0]}x{shape[1]} "
                      f"ProcessGroupGrid as {', '.join(NCCL_2D_SHAPES)}: "
                      f"exact")
+    nccl_calibrate(rank, world, comm, grid)
     torch.cuda.synchronize(comm.device)
     torch.distributed.destroy_process_group()
     print(f"nccl rank {rank}/{world}: {checks} float32 collective checks "
@@ -2789,20 +3167,54 @@ def nccl_worker(rank: int, world: int, init: str, seed: int) -> int:
     return 0
 
 
+def nccl_calibrate(rank: int, world: int, comm, grid) -> None:
+    """The NVLink half of the calibration: neighbour shifts over the
+    whole NCCL world (``measure_ppermute``), then ``calibrate(grid=)``
+    over every axis of the grid (a ("data",) grid of the world below 4
+    cards), persisted in the phase's cache (``REPRO_TORCH_CACHE_DIR``,
+    set by :func:`nccl_phase`); rank 0 prints the shifts, the fitted
+    constants and auto's allreduce picks, stock and fitted."""
+    shifts = measure_ppermute(comm, CALIBRATE_BYTES, CALIBRATE_REPEATS)
+    if grid is None:
+        grid = ProcessGroupGrid((world,), ("data",), device=comm.device)
+    cal = CollectiveEngine(device=comm.device)
+    topo = cal.calibrate(grid=grid, sizes_bytes=CALIBRATE_BYTES)
+    stock = CollectiveEngine(device=comm.device, persist=False)
+    fab = topo.for_axis(grid.axis_names[-1])
+    picks = [f"{nb >> 10} KB {stock.select('allreduce', nb, world).algorithm}"
+             f" -> {cal.select('allreduce', nb, world, fabric=fab).algorithm}"
+             for nb in AUTO_BYTES]
+    cal.flush()
+    if rank == 0:
+        print(f"nccl calibrate: {world} ProcessGroupComm ranks, one a card: "
+              f"neighbour shifts (the slowest rank's best of "
+              f"{CALIBRATE_REPEATS}) " + ", ".join(
+                  f"{nb >> 10} KB {t * 1e6:.2f} us" for nb, t in shifts)
+              + " | fitted " + "; ".join(
+                  f"{a!r}: t_r {f.t_r:.6g}, link_bw {f.link_bw:.6g}"
+                  for a, f in topo.axis_fabrics)
+              + f" ({topo.name}, NVLink through NCCL) | auto allreduce P "
+              f"{world}, stock -> fitted: " + ", ".join(picks), flush=True)
+
+
 def nccl_phase(seed: int) -> None:
     cards = torch.cuda.device_count()
     if cards < 2:
         log(f"nccl phase: not run ({cards} card); nor the 2D allreduce_multi "
             f"over a 2x2 ProcessGroupGrid (needs 4 cards), nor the DP "
-            f"and MoE EP trainers under torchrun (need 2)")
+            f"and MoE EP trainers under torchrun (need 2); the NVLink half "
+            f"of the calibration (measure_ppermute and calibrate(grid=) "
+            f"over NCCL, one process a card) was not run")
         return
     world = 1 << (cards.bit_length() - 1)   # a power of two (tree, doubling)
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     init = build.BUILD_DIR / f"nccl_rendezvous_{os.getpid()}"
     init.unlink(missing_ok=True)
+    cal_dir = tempfile.mkdtemp(prefix="nccl_cache_", dir=build.BUILD_DIR)
     procs = [subprocess.Popen(
         [sys.executable, __file__, "--seed", str(seed), "--nccl-worker",
          str(r), str(world), f"file://{init}"],
+        env=dict(os.environ, REPRO_TORCH_CACHE_DIR=cal_dir),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(world)]
     t0 = time.perf_counter()
@@ -2817,8 +3229,21 @@ def nccl_phase(seed: int) -> None:
     for r, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"nccl rank {r} failed:\n{out[-4000:]}"
         for line in out.splitlines():
-            if line.startswith("nccl rank"):
+            if line.startswith(("nccl rank", "nccl calibrate")):
                 log(line)
+    usual = os.environ.get("REPRO_TORCH_CACHE_DIR")
+    os.environ["REPRO_TORCH_CACHE_DIR"] = cal_dir
+    try:
+        persisted = find_calibrated_topology()
+    finally:
+        if usual is None:
+            os.environ.pop("REPRO_TORCH_CACHE_DIR", None)
+        else:
+            os.environ["REPRO_TORCH_CACHE_DIR"] = usual
+        shutil.rmtree(cal_dir, ignore_errors=True)
+    assert persisted is not None
+    log(f"nccl calibrate: the NVLink topology persisted in the phase's "
+        f"cache and restores: {persisted.describe()}")
     log(f"nccl phase: {world} ProcessGroupComm ranks, one per card, passed "
         f"in {time.perf_counter() - t0:.1f} s of host wall")
     # the DP trainer as users start it: one process a card under torchrun
@@ -2963,6 +3388,8 @@ def main(argv=None) -> int:
     ep_forward_phase(args.seed)
     torch.cuda.empty_cache()
     dp_serve_phase(args.seed)
+    torch.cuda.empty_cache()
+    obs_phase(args.seed)
     torch.cuda.empty_cache()
     nccl_phase(args.seed)
     for r in rows.values():

@@ -53,9 +53,13 @@ def get_engine(fabric: _FabricKey = TPU_V5E_AXIS,
     raises without a GPU.
 
     The first time the stock default fabric is requested, the port's
-    cache directory is checked for a calibrated v3 ``FabricTopology``;
-    when one is found the engine is built on it, as in the reference.
-    ``set_engine`` installs another."""
+    cache directory is checked for a calibrated v3 ``FabricTopology``
+    (``engine.find_calibrated_topology``); when one is found the engine
+    is built on it, as in the reference.  ``REPRO_TORCH_RESTORE_TOPOLOGY=0``
+    (the port's ``REPRO_RESTORE_TOPOLOGY``) opts out: the stock
+    constants, whatever a calibration left in the cache.  An explicitly
+    requested ``FabricTopology`` key is never overridden.  ``set_engine``
+    installs another."""
     dev = resolve_device(device)
     with _ENGINES_LOCK:
         key = (fabric, dev.type)

@@ -94,13 +94,18 @@ class Comm:
 
     ``axis`` names the axis, or the tuple of axes a grid's folded subset
     spans, for a per-axis fabric lookup (``FabricTopology.for_axis``);
-    None prices with the default fabric.
+    None prices with the default fabric.  A comm cut from a grid
+    (:meth:`GridComm.sub`) also knows the sizes of those axes
+    (``axis_sizes``) and this rank's rank in the grid (``grid_rank``),
+    which the engine's spans record; a bare comm leaves both None.
     """
 
     rank: int
     size: int
     device: torch.device
     axis: AxisName
+    axis_sizes: Optional[Tuple[int, ...]] = None
+    grid_rank: Optional[int] = None
 
     def _check(self, x: torch.Tensor) -> None:
         if x.device.type != self.device.type:
@@ -380,6 +385,8 @@ class GridComm:
             members = self.members(key)
             axis = key[0] if len(key) == 1 else key
             comm = self._make_sub(members, members.index(self.rank), axis)
+            comm.axis_sizes = tuple(self.axis_size(a) for a in key)
+            comm.grid_rank = self.rank
             self._subs[key] = comm
         return comm
 

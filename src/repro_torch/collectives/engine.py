@@ -46,10 +46,26 @@ grid is 1 ``plan_misses`` and P-1 ``plan_hits`` for its plan; the
 phases' own lookups (per-axis ``select``, the plan of a hierarchical
 plan's multi-axis middle phase) add hits and misses the same way.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``calibrate`` / ``calibrate_launch`` / ``measure_ppermute`` on
-NVLink, and spans (``obs/``): the port behaves as the reference does with
-tracing off.
+**Calibration** -- ``calibrate()`` refits the Fabric constants from
+timed neighbour shifts (``measure_ppermute`` on a :class:`Comm`, every
+axis of a :class:`GridComm` of size > 1) or from given measurements: a
+list refits one uniform Fabric, a dict one Fabric per axis on the
+fastest axis's time base (a ``FabricTopology``); ``calibrate_launch()``
+fits ``Fabric.t_launch`` from measured collective walls (the samples
+``obs.replay.measure_spans`` or traced spans give).  A refit clears the
+decisions, plans and tree rounds and moves the cache file's name; the
+next save records the topology in the v3 ``topology`` section, which
+``api.get_engine()`` restores in a later process (unless
+``REPRO_TORCH_RESTORE_TOPOLOGY=0``).  On ``LocalComm`` threads a shift
+is a barrier and a device copy, not a link (ROADMAP C23).
+
+**Spans** -- with tracing on (``repro_torch.obs``), every public
+``*_inside`` and ``*_multi`` op and ``fused_matmul_reduce_scatter``
+opens a collective span that ``_resolve`` / ``plan_multi`` annotate with
+the decision, and a multi-axis plan's phases nest as phase spans inside
+``torch.profiler.record_function`` scopes.  Every rank's span carries
+its ``rank``; a port span is always ``mode="eager"`` (ROADMAP C22).
+With tracing off each op is a call of the plain function.
 """
 
 from __future__ import annotations
@@ -64,6 +80,7 @@ import time
 from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
                     Union)
 
+import numpy as np
 import torch
 
 from repro_torch.collectives import planner
@@ -75,6 +92,7 @@ from repro_torch.core.autogen import autogen_tree, cache_dir, compute_tables
 from repro_torch.core.model import (Fabric, FabricTopology, TPU_V5E_AXIS,
                                     as_topology, ceil_div)
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.obs import trace as obs_trace
 
 #: one model "element" on the TPU fabric (512-byte flit group).  A TPU
 #: figure, kept so that the port's decisions match the reference's.
@@ -91,16 +109,6 @@ MODEL_VERSION = 3
 SCHEMA_VERSION = 3
 
 Rounds = Tuple[Tuple[Tuple[int, int], ...], ...]
-
-_NOT_PORTED = {
-    "calibrate": "ROADMAP A.2.b: calibrate on NVLink with an H100 Fabric",
-}
-
-
-def _not_ported(name: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{name} is not ported to repro_torch yet ({_NOT_PORTED[item]})")
-
 
 def _topo_key(op: str, topo: Sequence[int], nbytes: int) -> str:
     return f"{op}|t={'x'.join(str(int(s)) for s in topo)}|B={nbytes}"
@@ -123,12 +131,148 @@ class Decision:
     rounds: Optional[Rounds] = None   # Auto-Gen schedule, when selected
 
 
-def fit_fabric(*args, **kwargs) -> Fabric:
-    raise _not_ported("fit_fabric", "calibrate")
+def _fit_line(measurements: Sequence[Tuple[int, float]],
+              element_bytes: int) -> Tuple[float, float]:
+    """Least-squares ``seconds = alpha + beta * B`` over one axis's
+    neighbour-shift timings; returns the raw ``(alpha, beta)`` --
+    callers decide how to treat a degenerate (non-positive) slope."""
+    if len(measurements) < 2:
+        raise ValueError("need >= 2 (nbytes, seconds) points to calibrate")
+    els = np.array([max(1, nb // element_bytes) for nb, _ in measurements],
+                   dtype=np.float64)
+    secs = np.array([t for _, t in measurements], dtype=np.float64)
+    beta, alpha = np.polyfit(els, secs, 1)
+    return float(alpha), float(beta)
 
 
-def measure_ppermute(*args, **kwargs):
-    raise _not_ported("measure_ppermute", "calibrate")
+def fit_fabric(measurements: Sequence[Tuple[int, float]],
+               base: Fabric = TPU_V5E_AXIS, name: Optional[str] = None,
+               element_bytes: int = ICI_ELEMENT_BYTES,
+               ref_cycle: Optional[float] = None) -> Fabric:
+    """Fit Fabric constants from measured one-hop shift timings.
+
+    ``measurements`` is a sequence of ``(nbytes, seconds)`` for a single
+    neighbour ppermute.  Under the model a hop costs
+    ``(2*t_r + B / link_bw) * cycle`` seconds with B in elements, so a
+    least-squares line ``seconds = alpha + beta * B`` recovers the
+    constants.  With ``ref_cycle=None`` the axis defines its own time
+    base (``t_r = alpha / (2 * beta * base.link_bw)``, ``link_bw =
+    base.link_bw``); fitting several axes needs a shared time base: pass
+    the fastest axis's beta as ``ref_cycle`` and the fit recovers
+    ``link_bw = ref_cycle / beta`` and ``t_r = alpha / (2 * ref_cycle)``
+    (the reference's fit, constant for constant)."""
+    alpha, beta = _fit_line(measurements, element_bytes)
+    beta = max(beta, 1e-30)
+    if ref_cycle is None:
+        t_r = max(alpha / (2.0 * beta * base.link_bw), 0.0)
+        link_bw = base.link_bw
+    else:
+        ref = max(float(ref_cycle), 1e-30)
+        t_r = max(alpha / (2.0 * ref), 0.0)
+        link_bw = ref / beta
+    return Fabric(name=name or f"{base.name}_calibrated",
+                  t_r=t_r, store_cost=base.store_cost,
+                  link_bw=link_bw, multicast=base.multicast)
+
+
+def fit_launch(samples: Sequence[Tuple[str, int, int, str, float]],
+               fabric: Fabric = TPU_V5E_AXIS,
+               element_bytes: int = ICI_ELEMENT_BYTES
+               ) -> Tuple[float, float]:
+    """The two-column least squares behind
+    :meth:`CollectiveEngine.calibrate_launch`: ``seconds = c * base_i +
+    d * L_i`` over ``samples`` of ``(op, p, nbytes, algorithm,
+    seconds)``, with ``base_i`` the closed form at ``t_launch = 0`` on
+    ``fabric`` and ``L_i`` the launch count.  Returns ``(c, t_launch)``:
+    the seconds per model cycle and ``max(d / c, 0)`` in cycles.  Raises
+    on fewer than 2 samples, an algorithm without a closed form, equal
+    launch counts and a non-positive ``c``, as the reference does."""
+    samples = list(samples)
+    if len(samples) < 2:
+        raise ValueError("calibrate_launch() needs >= 2 samples")
+    rows, secs = [], []
+    base_fab = dataclasses.replace(fabric, t_launch=0.0)
+    for op, p, nbytes, algorithm, seconds in samples:
+        b = max(1, int(nbytes) // element_bytes)
+        preds = selector.predict_collective(op, int(p), b, base_fab,
+                                            include_autogen=False)
+        if algorithm not in preds:
+            raise ValueError(
+                f"calibrate_launch(): no closed form for "
+                f"{op!r}/{algorithm!r} at P={p}")
+        rows.append((preds[algorithm],
+                     pat.launch_count(op, algorithm, int(p))))
+        secs.append(float(seconds))
+    a = np.array(rows, dtype=np.float64)
+    y = np.array(secs, dtype=np.float64)
+    if np.ptp(a[:, 1]) == 0.0:
+        raise ValueError(
+            "calibrate_launch(): all samples have the same launch "
+            "count; mix algorithms/sizes so the per-launch column "
+            "is identifiable")
+    (c, d), *_ = np.linalg.lstsq(a, y, rcond=None)
+    if c <= 0.0:
+        raise ValueError(
+            "calibrate_launch(): non-positive fitted cycle scale; "
+            "timings are noise-dominated -- use larger sizes or "
+            "more repeats")
+    return float(c), max(float(d / c), 0.0)
+
+
+def measure_ppermute(comm: Comm,
+                     sizes_bytes: Sequence[int] = (1 << 12, 1 << 16,
+                                                   1 << 20, 1 << 22),
+                     repeats: int = 5) -> List[Tuple[int, float]]:
+    """Time one neighbour shift (rank i to i + 1, ``comm.ppermute``) per
+    size of a float32 payload; feed to :func:`fit_fabric`.
+
+    Every rank of ``comm`` must call it in lockstep, with the same sizes
+    and repeats: each shift is a round of the whole group.  Per size one
+    warm-up shift, then the best of ``repeats``; on CUDA the comm's
+    device is synchronised before each reading of the clock.  The ranks
+    then agree on the slowest rank's best per size (an ``all_gather``
+    over ``comm``), so every rank returns the same
+    ``[(nbytes, seconds), ...]``.  On :class:`LocalComm` threads a shift
+    is a barrier and a device copy, not a link (ROADMAP C23)."""
+    p = comm.size
+    perm = [(i, (i + 1) % p) for i in range(p)]
+    cuda = comm.device.type == "cuda"
+
+    def sync() -> None:
+        if cuda:
+            torch.cuda.synchronize(comm.device)
+
+    best_of = []
+    for nbytes in sizes_bytes:
+        x = torch.zeros(max(1, int(nbytes) // 4), dtype=torch.float32,
+                        device=comm.device)
+        comm.ppermute(x, perm)
+        best = float("inf")
+        for _ in range(max(1, repeats)):
+            sync()
+            t0 = time.perf_counter()
+            comm.ppermute(x, perm)
+            sync()
+            best = min(best, time.perf_counter() - t0)
+        best_of.append(best)
+    mine = torch.tensor([best_of], dtype=torch.float64, device=comm.device)
+    slowest = comm.all_gather(mine).amax(dim=0).tolist()
+    return [(int(nb), float(t)) for nb, t in zip(sizes_bytes, slowest)]
+
+
+def _slowest_over_grid(grid: GridComm,
+                       measurements: Dict[str, List[Tuple[int, float]]]
+                       ) -> Dict[str, List[Tuple[int, float]]]:
+    """Every axis's timings replaced by the slowest over all ranks of
+    the grid (each sub-group measured its own rows), so that every rank
+    fits the same constants."""
+    axes = list(measurements)
+    mine = torch.tensor([[t for _, t in measurements[a]] for a in axes],
+                        dtype=torch.float64, device=grid.device)
+    whole = grid.sub(grid.axis_names)
+    slowest = whole.all_gather(mine[None]).amax(dim=0).tolist()
+    return {a: [(nb, float(t)) for (nb, _), t in zip(measurements[a], row)]
+            for a, row in zip(axes, slowest)}
 
 
 def fabric_to_dict(f: Fabric) -> Dict[str, Any]:
@@ -181,8 +325,18 @@ def find_calibrated_topology(base: Fabric = TPU_V5E_AXIS
     """Newest calibrated :class:`FabricTopology` persisted under the
     port's cache directory (never the JAX package's), or None.
 
-    Only *calibrated* topologies (named ``<base>_calibrated``) of
-    ``base``'s family qualify, as in the reference."""
+    Only *calibrated* topologies (named ``<base>_calibrated`` by
+    :meth:`CollectiveEngine.calibrate`) of ``base``'s family qualify, as
+    in the reference: a topology declared by a ``--fabric`` spec, or one
+    of another fabric family, never leaks into an unrelated process
+    sharing the cache directory.  Set ``REPRO_TORCH_RESTORE_TOPOLOGY=0``
+    (or ``false``, ``no``, empty; the port's counterpart of the
+    reference's ``REPRO_RESTORE_TOPOLOGY``, as ``REPRO_TORCH_CACHE_DIR``
+    is of ``REPRO_CACHE_DIR``) to opt out: the process then prices with
+    the stock constants whatever a previous calibration left behind."""
+    if os.environ.get("REPRO_TORCH_RESTORE_TOPOLOGY", "1").lower() in (
+            "0", "false", "no", ""):
+        return None
     d = cache_dir()
     try:
         names = os.listdir(d)
@@ -438,9 +592,19 @@ class CollectiveEngine:
                    sizes: Sequence[int], nbytes: int,
                    shape: Optional[str] = None) -> planner.CollectivePlan:
         """The joint plan for an op over an axis tuple of ``sizes``
-        (:meth:`_plan_multi_meta` without the cache-hit bit)."""
-        plan, _ = self._plan_multi_meta(op, axes, sizes, nbytes,
-                                        shape=shape)
+        (:meth:`_plan_multi_meta` without the cache-hit bit).  Annotates
+        the innermost open span on this thread (if any) with the plan
+        and its predicted cost."""
+        plan, hit = self._plan_multi_meta(op, axes, sizes, nbytes,
+                                          shape=shape)
+        sp = obs_trace.get_tracer().current_span()
+        if getattr(sp, "args", {}).get("plan") is None:
+            sp.set(plan=plan.describe(), n_chunks=int(plan.n_chunks),
+                   algorithm=str(plan.shape),
+                   predicted=float(plan.predicted),
+                   cache="hit" if hit else "miss")
+            if shape is not None:
+                sp.set(algorithm_forced=True)
         return plan
 
     def _plan_multi_meta(self, op: str, axes: Sequence[str],
@@ -500,13 +664,140 @@ class CollectiveEngine:
                           key=lambda d: (d.op, d.p, d.nbytes))
 
     # ------------------------------------------------------------------ #
-    # not ported yet
+    # calibration
     # ------------------------------------------------------------------ #
-    def calibrate(self, *args, **kwargs):
-        raise _not_ported("calibrate", "calibrate")
+    def _refit(self, topology: FabricTopology) -> None:
+        """Install refitted constants: the cache namespace (file name)
+        moves with them, and the in-memory decisions, plans and tree
+        rounds predate them."""
+        self.topology = topology
+        self._decisions.clear()
+        self._plans.clear()
+        self._tree_rounds.clear()
+        self._loaded = False
 
-    def calibrate_launch(self, *args, **kwargs):
-        raise _not_ported("calibrate_launch", "calibrate")
+    def calibrate(self, measurements: Optional[Any] = None,
+                  grid: Optional[GridComm] = None,
+                  axis: Optional[str] = None,
+                  sizes_bytes: Sequence[int] = (1 << 12, 1 << 16, 1 << 20,
+                                                1 << 22)
+                  ) -> "Fabric | FabricTopology":
+        """Refit the fabric constants from timings and drop stale
+        decisions.
+
+        * ``measurements=[(nbytes, seconds), ...]`` -- refit the default
+          fabric (uniform topology); returns the fitted :class:`Fabric`.
+        * ``measurements={axis: [(nbytes, seconds), ...], ...}`` -- fit
+          one Fabric *per axis* on a shared time base: the fastest
+          axis's fitted cycle anchors ``link_bw=1`` and slower axes get
+          proportionally smaller ``link_bw`` (and their own ``t_r``).
+          Returns the new :class:`FabricTopology`.
+        * ``grid=...`` (this rank's :class:`GridComm`, where the
+          reference takes a mesh) -- :func:`measure_ppermute` on
+          ``grid.sub(a)`` for every axis of size > 1 (or just ``axis``),
+          at ``sizes_bytes``, best of 5; every rank of the
+          grid must call it in lockstep, and all fit the slowest rank's
+          timings, so every rank (or every thread sharing this engine)
+          installs the same constants.  Fitted per axis as above.
+
+        Either way the engine's cache namespace moves to the new
+        constants; the next persisted save records the topology in the
+        v3 ``topology`` section.  A noise-dominated (non-positive or
+        vanishing) slope on any axis of a dict raises, naming the axes,
+        and leaves the engine as it was: raise ``sizes_bytes``."""
+        if measurements is None:
+            if grid is None:
+                raise ValueError("calibrate() needs measurements or a grid")
+            axes = ([axis] if axis is not None
+                    else [a for a in grid.axis_names
+                          if grid.axis_size(a) > 1])
+            if not axes:
+                raise ValueError(
+                    f"calibrate(grid=...): no axis of size > 1 to "
+                    f"measure in grid "
+                    f"{dict(zip(grid.axis_names, grid.shape))}")
+            measurements = _slowest_over_grid(grid, {
+                a: measure_ppermute(grid.sub(a), sizes_bytes)
+                for a in axes})
+        with self._lock:
+            base = self.topology.default
+            if isinstance(measurements, dict):
+                if not measurements:
+                    raise ValueError("calibrate() got an empty per-axis "
+                                     "measurements dict")
+                lines = {a: _fit_line(m, self.element_bytes)
+                         for a, m in measurements.items()}
+                # a non-positive -- or vanishing -- fitted slope means
+                # the timings carry no bandwidth signal; anchoring the
+                # shared time base on it would poison every axis's
+                # constants -- fail loudly
+                bad = []
+                for a, m in measurements.items():
+                    alpha, beta = lines[a]
+                    els = [max(1, nb // self.element_bytes)
+                           for nb, _ in m]
+                    rise = beta * (max(els) - min(els))
+                    scale = abs(alpha) + abs(beta) * max(els) + 1e-30
+                    if beta <= 0.0 or rise < 1e-6 * scale:
+                        bad.append(a)
+                bad.sort()
+                if bad:
+                    raise ValueError(
+                        f"calibrate(): non-positive fitted slope for "
+                        f"axis(es) {bad}; timings are noise-dominated "
+                        f"-- raise sizes_bytes/repeats or calibrate "
+                        f"those axes separately")
+                # shared time base: the fastest axis's seconds/element
+                ref = min(beta for _, beta in lines.values())
+                fitted = tuple(
+                    (a, fit_fabric(measurements[a], base=base,
+                                   name=f"{base.name}_{a}",
+                                   element_bytes=self.element_bytes,
+                                   ref_cycle=ref))
+                    for a in sorted(measurements))
+                result: "Fabric | FabricTopology" = FabricTopology(
+                    default=base, axis_fabrics=fitted,
+                    name=f"{base.name}_calibrated")
+                self._refit(result)
+            else:
+                fitted_f = fit_fabric(measurements, base=base,
+                                      element_bytes=self.element_bytes)
+                self._refit(FabricTopology.uniform(fitted_f))
+                result = fitted_f
+        return result
+
+    def calibrate_launch(self,
+                         samples: Sequence[Tuple[str, int, int, str, float]]
+                         ) -> float:
+        """Fit ``Fabric.t_launch`` from measured collective wall times.
+
+        ``samples`` is ``[(op, p, nbytes, algorithm, seconds), ...]`` --
+        what ``obs.replay.measure_spans`` or measured spans give
+        (``nbytes`` in the model's convention: global bytes for
+        allgather).  Under the model a run costs ``seconds = cycle *
+        (base_i + t_launch * L_i)``, ``base_i`` the closed form at
+        ``t_launch = 0`` and ``L_i`` the number of sequential launches
+        (:func:`patterns.launch_count`); :func:`fit_launch` solves for
+        the seconds per cycle and the per-launch seconds.  Mixing sizes
+        *and* algorithms with different launch counts makes the two
+        columns separable.
+
+        The engine's topology moves to the fitted constant (every
+        per-axis fabric gets the same ``t_launch``), the cache namespace
+        moves with it, and stale decisions are dropped.  Returns the
+        fitted ``t_launch`` (cycles, >= 0)."""
+        _, t_launch = fit_launch(samples, self.topology.default,
+                                 self.element_bytes)
+        with self._lock:
+            new_default = dataclasses.replace(self.topology.default,
+                                              t_launch=t_launch)
+            new_axes = tuple(
+                (axis, dataclasses.replace(f, t_launch=t_launch))
+                for axis, f in self.topology.axis_fabrics)
+            self._refit(FabricTopology(default=new_default,
+                                       axis_fabrics=new_axes,
+                                       name=self.topology.name))
+        return t_launch
 
     # ------------------------------------------------------------------ #
     # dispatch: *_inside run on every rank of a Comm
@@ -525,12 +816,24 @@ class CollectiveEngine:
         written in terms of (callers of allgather pass shard * P);
         ``axis`` resolves the axis-local fabric."""
         fab = self.topology.for_axis(axis)
+        # annotate the innermost open span -- first writer wins, so a
+        # nested resolution (allreduce -> reduce) never overwrites the
+        # outer op's decision on the outer op's span
+        sp = obs_trace.get_tracer().current_span()
+        if getattr(sp, "args", {}).get("algorithm") is not None:
+            sp = obs_trace.NULL_SPAN
         if algorithm == "auto":
-            d, _ = self._select_meta(op, nbytes, p, fabric=fab)
+            d, hit = self._select_meta(op, nbytes, p, fabric=fab)
+            sp.set(algorithm=d.algorithm, predicted=float(d.predicted),
+                   cache="hit" if hit else "miss",
+                   regime=("latency" if d.algorithm == "oneshot"
+                           else "bandwidth"))
             if d.algorithm == "oneshot":
                 with self._lock:
                     self.stats["latency_dispatches"] += 1
             return d.algorithm, d.rounds
+        sp.set(algorithm=algorithm, algorithm_forced=True, cache="forced",
+               regime="latency" if algorithm == "oneshot" else "bandwidth")
         if algorithm == "oneshot":
             with self._lock:
                 self.stats["latency_dispatches"] += 1
@@ -551,9 +854,76 @@ class CollectiveEngine:
     def _nbytes(x: torch.Tensor) -> int:
         return x.numel() * x.element_size()
 
+    # ------------------------------------------------------------------ #
+    # span plumbing: every public collective opens one CAT_COLLECTIVE
+    # span; `_resolve` / `plan_multi` annotate it with the decision
+    # ------------------------------------------------------------------ #
+    @staticmethod
+    def _comm_axes(comm: Comm) -> Tuple[Tuple[str, ...], Tuple[int, ...],
+                                        int]:
+        """A comm's axis names, their sizes and this rank's rank in the
+        grid it was cut from (its own rank for a bare comm)."""
+        axis = comm.axis
+        if axis is None:
+            names: Tuple[str, ...] = ()
+        elif isinstance(axis, str):
+            names = (axis,)
+        else:
+            names = tuple(str(a) for a in axis)
+        sizes = comm.axis_sizes or (comm.size,)
+        rank = comm.rank if comm.grid_rank is None else comm.grid_rank
+        return names, tuple(int(s) for s in sizes), int(rank)
+
+    def _traced(self, name: str, op: str, where: Union[Comm, GridComm],
+                axes: Optional[Tuple[str, ...]], nbytes: int,
+                algorithm: str, run: Callable[[], torch.Tensor],
+                decided: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+        """``run()`` inside a collective span carrying every key the
+        trace schema requires (so a span conforms even when the op
+        bypasses the model: :meth:`_finish_collective` fills the rest).
+        ``where`` is the comm of a single-axis op, or the grid of a
+        multi-axis one over ``axes``; ``decided`` annotates the span
+        before the run (a decision made outside ``_resolve``)."""
+        if axes is None:
+            names, sizes, rank = self._comm_axes(where)
+        else:
+            names = axes
+            sizes = tuple(where.axis_size(a) for a in axes)
+            rank = where.rank
+        with obs_trace.get_tracer().span(
+                name, cat=obs_trace.CAT_COLLECTIVE, op=op, axes=names,
+                axis_sizes=sizes, bytes=int(nbytes),
+                requested=str(algorithm), plan=None, algorithm=None,
+                cache=None, predicted=None, measured_s=None, mode=None,
+                rank=rank) as sp:
+            if decided:
+                sp.set(**decided)
+            out = run()
+            self._finish_collective(sp, out, algorithm)
+            return out
+
+    @staticmethod
+    def _finish_collective(sp, out: torch.Tensor, requested: str) -> None:
+        """Close out a collective span: paths that never reached the
+        model (natives, size-1 axes) stamp the requested algorithm as
+        forced, then the result stamps the mode and the wall time."""
+        span = getattr(sp, "span", None)
+        if span is not None and span.args.get("algorithm") is None:
+            sp.set(algorithm=str(requested), algorithm_forced=True,
+                   cache="forced")
+        sp.finish_result(out)
+
     def reduce_inside(self, x: torch.Tensor, comm: Comm,
                       algorithm: str = "auto") -> torch.Tensor:
         """Paper Reduce: the full sum lands on rank 0 of the axis."""
+        if not obs_trace.get_tracer().enabled:
+            return self._reduce_inside(x, comm, algorithm)
+        return self._traced("reduce_inside", "reduce", comm, None,
+                            self._nbytes(x), algorithm,
+                            lambda: self._reduce_inside(x, comm, algorithm))
+
+    def _reduce_inside(self, x: torch.Tensor, comm: Comm,
+                       algorithm: str = "auto") -> torch.Tensor:
         self._check(x, comm)
         p = comm.size
         if p == 1:
@@ -572,6 +942,14 @@ class CollectiveEngine:
 
     def allreduce_inside(self, x: torch.Tensor, comm: Comm,
                          algorithm: str = "auto") -> torch.Tensor:
+        if not obs_trace.get_tracer().enabled:
+            return self._allreduce_inside(x, comm, algorithm)
+        return self._traced(
+            "allreduce_inside", "allreduce", comm, None, self._nbytes(x),
+            algorithm, lambda: self._allreduce_inside(x, comm, algorithm))
+
+    def _allreduce_inside(self, x: torch.Tensor, comm: Comm,
+                          algorithm: str = "auto") -> torch.Tensor:
         self._check(x, comm)
         if algorithm == "psum":
             return comm.psum(x)
@@ -586,7 +964,7 @@ class CollectiveEngine:
         if algorithm == "ring":
             flat = x.reshape(-1)
             return impl.ring_allreduce(flat, comm).reshape(x.shape)
-        red = self.reduce_inside(x, comm, algorithm)
+        red = self._reduce_inside(x, comm, algorithm)
         return impl.broadcast(red, comm, root=0)
 
     def reduce_scatter_inside(self, x: torch.Tensor, comm: Comm,
@@ -594,6 +972,15 @@ class CollectiveEngine:
         """Sum over the axis, shard the result: rank i gets chunk i
         (``lax.psum_scatter(..., tiled=True)`` semantics; leading dim
         divisible by P)."""
+        if not obs_trace.get_tracer().enabled:
+            return self._reduce_scatter_inside(x, comm, algorithm)
+        return self._traced(
+            "reduce_scatter_inside", "reduce_scatter", comm, None,
+            self._nbytes(x), algorithm,
+            lambda: self._reduce_scatter_inside(x, comm, algorithm))
+
+    def _reduce_scatter_inside(self, x: torch.Tensor, comm: Comm,
+                               algorithm: str = "auto") -> torch.Tensor:
         self._check(x, comm)
         p = comm.size
         if p == 1:
@@ -614,6 +1001,17 @@ class CollectiveEngine:
                          algorithm: str = "auto") -> torch.Tensor:
         """Gather shards along the axis into the leading dim
         (``lax.all_gather(..., tiled=True)`` semantics)."""
+        if not obs_trace.get_tracer().enabled:
+            return self._allgather_inside(x, comm, algorithm)
+        # the span (like the cost model) records the GLOBAL gathered
+        # bytes, shard * P -- the replayer relies on this convention
+        return self._traced(
+            "allgather_inside", "allgather", comm, None,
+            self._nbytes(x) * comm.size, algorithm,
+            lambda: self._allgather_inside(x, comm, algorithm))
+
+    def _allgather_inside(self, x: torch.Tensor, comm: Comm,
+                          algorithm: str = "auto") -> torch.Tensor:
         self._check(x, comm)
         p = comm.size
         if p == 1:
@@ -640,6 +1038,14 @@ class CollectiveEngine:
         axis, split_axis=0, concat_axis=0, tiled=True)`` semantics.
         ``algorithm``: ``lax`` (the native), ``ring`` (pairwise
         exchange), ``halving`` (Bruck), or ``auto`` (model argmin)."""
+        if not obs_trace.get_tracer().enabled:
+            return self._all_to_all_inside(x, comm, algorithm)
+        return self._traced(
+            "all_to_all_inside", "all_to_all", comm, None, self._nbytes(x),
+            algorithm, lambda: self._all_to_all_inside(x, comm, algorithm))
+
+    def _all_to_all_inside(self, x: torch.Tensor, comm: Comm,
+                           algorithm: str = "auto") -> torch.Tensor:
         self._check(x, comm)
         p = comm.size
         if p == 1:
@@ -658,6 +1064,15 @@ class CollectiveEngine:
 
     def broadcast_inside(self, x: torch.Tensor, comm: Comm, root: int = 0,
                          algorithm: str = "auto") -> torch.Tensor:
+        if not obs_trace.get_tracer().enabled:
+            return self._broadcast_inside(x, comm, root, algorithm)
+        return self._traced(
+            "broadcast_inside", "broadcast", comm, None, self._nbytes(x),
+            algorithm,
+            lambda: self._broadcast_inside(x, comm, root, algorithm))
+
+    def _broadcast_inside(self, x: torch.Tensor, comm: Comm, root: int,
+                          algorithm: str) -> torch.Tensor:
         self._check(x, comm)
         p = comm.size
         if p == 1:
@@ -702,23 +1117,54 @@ class CollectiveEngine:
         return blocks.permute(perm).reshape(x.shape)
 
     @staticmethod
+    def _phase_names(steps: Sequence[planner.PlanStep]) -> List[str]:
+        """Human labels for a plan's phases, mirroring
+        ``CollectivePlan.describe()`` per step."""
+        return [
+            f"{planner._KIND_ABBREV.get(s.kind, s.kind)}:"
+            f"{s.algorithm}@{'x'.join(s.axes)}"
+            for s in steps]
+
+    @staticmethod
     def _run_phases(chunks: List[torch.Tensor],
                     phase_fns: Sequence[Callable[[torch.Tensor],
-                                                 torch.Tensor]]
+                                                 torch.Tensor]],
+                    op: Optional[str] = None,
+                    phase_names: Optional[Sequence[str]] = None
                     ) -> List[torch.Tensor]:
         """Run ``phase_fns`` over payload ``chunks`` in the reference's
         wavefront order: in wave ``w``, chunk ``k`` runs phase ``w - k``.
         The chunks are data-independent; every rank issues the same
         sequence of collectives, one at a time, so the wavefront orders
         the calls but does not overlap them.  With a single chunk the
-        phases run back to back."""
+        phases run back to back.
+
+        With tracing on each phase call runs inside a
+        ``torch.profiler.record_function`` scope named after its phase
+        (the reference's ``jax.named_scope``) and a nested CAT_PHASE
+        span; phase spans never synchronise, whatever the tracer's
+        measurement mode."""
+        tracer = obs_trace.get_tracer()
         chunks = list(chunks)
         n = len(phase_fns)
         for wave in range(n + len(chunks) - 1):
             for k in range(len(chunks)):
                 r = wave - k
-                if 0 <= r < n:
+                if not 0 <= r < n:
+                    continue
+                if not tracer.enabled:
                     chunks[k] = phase_fns[r](chunks[k])
+                    continue
+                label = (phase_names[r]
+                         if phase_names and r < len(phase_names)
+                         else f"phase{r}")
+                scope = f"{op or 'collective'}.{label}".replace(":", "_")
+                with torch.profiler.record_function(scope), \
+                        tracer.span(label, cat=obs_trace.CAT_PHASE,
+                                    op=op, phase=r, chunk=k,
+                                    wave=wave) as sp:
+                    chunks[k] = phase_fns[r](chunks[k])
+                    sp.finish_result(chunks[k], block=False)
         return chunks
 
     @staticmethod
@@ -763,10 +1209,21 @@ class CollectiveEngine:
         ``plan.n_chunks`` payload slices), ``"psum"`` (the native over
         the folded axes), or a 1D backend name, which runs that backend
         on every axis, innermost first."""
-        axes, sizes, _ = self._grid_axes(grid, axes)
-        self._check(x, grid)
+        axes = self._grid_axes(grid, axes)[0]
         if len(axes) == 1:
             return self.allreduce_inside(x, grid.sub(axes), algorithm)
+        if not obs_trace.get_tracer().enabled:
+            return self._allreduce_multi(x, grid, axes, algorithm)
+        return self._traced(
+            "allreduce_multi", "allreduce", grid, axes, self._nbytes(x),
+            algorithm, lambda: self._allreduce_multi(x, grid, axes,
+                                                     algorithm))
+
+    def _allreduce_multi(self, x: torch.Tensor, grid: GridComm,
+                         axes: Tuple[str, ...], algorithm: str
+                         ) -> torch.Tensor:
+        axes, sizes, _ = self._grid_axes(grid, axes)
+        self._check(x, grid)
         if algorithm == "psum":
             return grid.sub(axes).psum(x)
         if all(s == 1 for s in sizes):
@@ -811,7 +1268,8 @@ class CollectiveEngine:
             flat = torch.cat([flat, flat.new_zeros(pad)])
         chunks = [flat[k * chunk_len:(k + 1) * chunk_len] for k in range(c)]
         fns = self._allreduce_phase_fns(grid, plan, base, chunk_len)
-        chunks = self._run_phases(chunks, fns)
+        chunks = self._run_phases(chunks, fns, op="allreduce",
+                                  phase_names=self._phase_names(plan.steps))
         out = torch.cat(chunks) if c > 1 else chunks[0]
         if pad:
             out = out[:n]
@@ -856,10 +1314,21 @@ class CollectiveEngine:
         dim divisible by the folded size).  ``algorithm``: ``"auto"``, a
         plan shape (``cascade``, ``flat``, ``cascade_pipelined``) or
         ``"psum_scatter"`` (the native)."""
-        axes, sizes, p = self._grid_axes(grid, axes)
-        self._check(x, grid)
+        axes = self._grid_axes(grid, axes)[0]
         if len(axes) == 1:
             return self.reduce_scatter_inside(x, grid.sub(axes), algorithm)
+        if not obs_trace.get_tracer().enabled:
+            return self._reduce_scatter_multi(x, grid, axes, algorithm)
+        return self._traced(
+            "reduce_scatter_multi", "reduce_scatter", grid, axes,
+            self._nbytes(x), algorithm,
+            lambda: self._reduce_scatter_multi(x, grid, axes, algorithm))
+
+    def _reduce_scatter_multi(self, x: torch.Tensor, grid: GridComm,
+                              axes: Tuple[str, ...], algorithm: str
+                              ) -> torch.Tensor:
+        axes, sizes, p = self._grid_axes(grid, axes)
+        self._check(x, grid)
         if algorithm == "psum_scatter":
             return grid.sub(axes).psum_scatter(x)
         if p == 1:
@@ -888,11 +1357,14 @@ class CollectiveEngine:
             (lambda v, s=step: self.reduce_scatter_inside(
                 v, grid.sub(s.axes[0]), s.algorithm))
             for step in steps[1:]]
+        names = self._phase_names(steps)
         c = max(1, plan.n_chunks)
         if c == 1:
-            return self._run_phases([x], fns)[0]
+            return self._run_phases([x], fns, op="reduce_scatter",
+                                    phase_names=names)[0]
         chunks, m = self._split_row_chunks(x, p, c)
-        chunks = self._run_phases(chunks, fns)
+        chunks = self._run_phases(chunks, fns, op="reduce_scatter",
+                                  phase_names=names)
         return torch.cat(chunks, dim=0)[:m]
 
     def allgather_multi(self, x: torch.Tensor, grid: GridComm,
@@ -903,10 +1375,22 @@ class CollectiveEngine:
         ``algorithm``: ``"auto"``, a plan shape (``cascade``, ``flat``,
         ``latency``, ``cascade_pipelined``) or ``"all_gather"`` (the
         native)."""
-        axes, sizes, p = self._grid_axes(grid, axes)
-        self._check(x, grid)
+        axes, _, p = self._grid_axes(grid, axes)
         if len(axes) == 1:
             return self.allgather_inside(x, grid.sub(axes), algorithm)
+        if not obs_trace.get_tracer().enabled:
+            return self._allgather_multi(x, grid, axes, algorithm)
+        # global gathered bytes, matching the model's B and the replayer
+        return self._traced(
+            "allgather_multi", "allgather", grid, axes,
+            self._nbytes(x) * p, algorithm,
+            lambda: self._allgather_multi(x, grid, axes, algorithm))
+
+    def _allgather_multi(self, x: torch.Tensor, grid: GridComm,
+                         axes: Tuple[str, ...], algorithm: str
+                         ) -> torch.Tensor:
+        axes, sizes, p = self._grid_axes(grid, axes)
+        self._check(x, grid)
         if algorithm == "all_gather":
             return grid.sub(axes).all_gather(x)
         if p == 1:
@@ -932,9 +1416,11 @@ class CollectiveEngine:
             (lambda v, s=step: self.allgather_inside(
                 v, grid.sub(s.axes[0]), s.algorithm))
             for step in steps[:-1]] + [f_last]
+        names = self._phase_names(steps)
         c = max(1, plan.n_chunks)
         if c == 1:
-            return self._run_phases([x], fns)[0]
+            return self._run_phases([x], fns, op="allgather",
+                                    phase_names=names)[0]
         s_len = x.shape[0]
         sc = ceil_div(s_len, c)
         pad = c * sc - s_len
@@ -942,7 +1428,8 @@ class CollectiveEngine:
         if pad:
             xp = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
         chunks = [xp[k * sc:(k + 1) * sc] for k in range(c)]
-        chunks = self._run_phases(chunks, fns)
+        chunks = self._run_phases(chunks, fns, op="allgather",
+                                  phase_names=names)
         return self._join_row_chunks(chunks, p, s_len)
 
     def all_to_all_multi(self, x: torch.Tensor, grid: GridComm,
@@ -958,13 +1445,24 @@ class CollectiveEngine:
         axes), or a 1D backend name (``ring``/``halving``), which runs
         the innermost-first phase order with that backend on every
         axis."""
-        axes, sizes, p = self._grid_axes(grid, axes)
-        self._check(x, grid)
+        axes = self._grid_axes(grid, axes)[0]
         if len(axes) == 1:
             # a plan shape collapses to the 1D selector on a bare axis
             if algorithm in planner.ALL_TO_ALL_SHAPES:
                 algorithm = "auto"
             return self.all_to_all_inside(x, grid.sub(axes), algorithm)
+        if not obs_trace.get_tracer().enabled:
+            return self._all_to_all_multi(x, grid, axes, algorithm)
+        return self._traced(
+            "all_to_all_multi", "all_to_all", grid, axes, self._nbytes(x),
+            algorithm, lambda: self._all_to_all_multi(x, grid, axes,
+                                                      algorithm))
+
+    def _all_to_all_multi(self, x: torch.Tensor, grid: GridComm,
+                          axes: Tuple[str, ...], algorithm: str
+                          ) -> torch.Tensor:
+        axes, sizes, p = self._grid_axes(grid, axes)
+        self._check(x, grid)
         if algorithm == "lax":
             return grid.sub(axes).all_to_all(x)
         if p == 1:
@@ -1030,12 +1528,15 @@ class CollectiveEngine:
         ``n_chunks > 1`` each block gives a row slice to each chunk and
         the phases run in wavefront order."""
         fns = self._a2a_phase_fns(grid, axes, sizes, steps)
+        names = self._phase_names(steps)
         c = max(1, n_chunks)
         if c == 1:
-            return self._run_phases([x], fns)[0]
+            return self._run_phases([x], fns, op="all_to_all",
+                                    phase_names=names)[0]
         p = math.prod(sizes)
         chunks, m = self._split_row_chunks(x, p, c)
-        chunks = self._run_phases(chunks, fns)
+        chunks = self._run_phases(chunks, fns, op="all_to_all",
+                                  phase_names=names)
         return self._join_row_chunks(chunks, p, m)
 
     # ------------------------------------------------------------------ #
@@ -1110,9 +1611,22 @@ class CollectiveEngine:
             use_fused = price["saved"] > 0.0
         if m % max(p, 1) != 0:
             use_fused = False       # the ring cannot tile the rows
-        if use_fused:
-            return impl.fused_matmul_rs(x, w, comm)
-        return impl.matmul_then_rs(x, w, comm)
+
+        def run() -> torch.Tensor:
+            if use_fused:
+                return impl.fused_matmul_rs(x, w, comm)
+            return impl.matmul_then_rs(x, w, comm)
+
+        if not obs_trace.get_tracer().enabled:
+            return run()
+        # the span's decision is the model's fused-vs-serial price
+        return self._traced(
+            "fused_matmul_rs", "fused_matmul_rs", comm, None,
+            m * n * x.element_size(), algorithm, run, decided=dict(
+                algorithm="fused_ring" if use_fused else "unfused",
+                algorithm_forced=algorithm != "auto", cache="model",
+                predicted=price["fused" if use_fused else "serial"],
+                overlap_saved=price["saved"]))
 
     # ------------------------------------------------------------------ #
     # outer wrappers.  The reference builds a shard_map over a mesh for
@@ -1149,7 +1663,7 @@ class CollectiveEngine:
         return self.all_to_all_inside(x, comm, algorithm)
 
 
-__all__ = ["CollectiveEngine", "Decision", "fit_fabric",
+__all__ = ["CollectiveEngine", "Decision", "fit_fabric", "fit_launch",
            "measure_ppermute", "load_topology", "find_calibrated_topology",
            "topology_to_dict", "topology_from_dict", "fabric_to_dict",
            "SCHEMA_VERSION", "MODEL_VERSION", "ICI_ELEMENT_BYTES"]

@@ -19,8 +19,13 @@ process a rank, NCCL on CUDA (each process on the card its
         -m repro_torch.launch.serve --dp --device cpu
 
 Without torchrun the world is this process alone.  The greedy streams
-are identical with and without ``--dp``.  The fleet flags are a later
-slice of the port (ROADMAP.md) and raise ``NotImplementedError``.
+are identical with and without ``--dp``.  ``--trace PATH``,
+``--obs-report`` and ``--metrics-out PATH`` (``repro_torch.obs.cli``)
+trace the engine's collectives (the DP token assembly), print the
+model-error table and dump the metrics registry with the serving
+telemetry, as the reference does; under torchrun each process writes its
+own files.  The fleet flags are a later slice of the port (ROADMAP.md)
+and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import torch.distributed as dist
 from repro_torch.collectives.comm import ProcessGroupGrid, single_rank_grid
 from repro_torch.configs import get_config
 from repro_torch.models import init_params, supports_paged
+from repro_torch.obs import cli as obs_cli
 from repro_torch.serving import (ContinuousBatchingServer, Request,
                                  SamplingParams)
 from repro_torch.serving.telemetry import ttft_low_confidence
@@ -80,6 +86,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--tenant-burst", type=float, default=None)
     ap.add_argument("--arrival", default="fixed")
     ap.add_argument("--arrival-rate", type=float, default=2.0)
+    obs_cli.add_obs_args(ap)
     return ap.parse_args(argv)
 
 
@@ -109,6 +116,7 @@ def main(argv=None):
         raise NotImplementedError(
             f"fleet flags {fleet}: the serving fleet is a later slice of "
             f"the port (ROADMAP.md A)")
+    obs_cli.begin(args.trace, args.obs_report, args.metrics_out)
     cfg = get_config(args.arch)
     if not args.full_width:
         cfg = cfg.reduced()
@@ -170,6 +178,11 @@ def _serve(args, cfg, grid, batch, device):
     dt = time.time() - t0
     snap = server.snapshot()
     total = sum(len(v) for v in results.values())
+    # every rank, while the world is up: a process grid replays in
+    # lockstep
+    obs_cli.finish(args.trace, args.obs_report, args.metrics_out,
+                   grid=grid, device=device, telemetry_snapshot=snap,
+                   label="serve")
     if not lead:
         return results
     if grid is not None:

@@ -39,9 +39,16 @@ else an engine algorithm or plan shape, default ``auto``):
         --moe-ep --steps 2 --batch 4 --seq 64 --device cpu
 
 Without ``--dp`` (no grid) ``--moe-ep`` falls back, loudly, as the
-reference does.  The other families, checkpoints and the observability
-flags (``--ckpt-dir``, ``--trace``, ``--obs-report``, ``--metrics-out``:
-ROADMAP.md A.7) are later slices of the port, refused by name.
+reference does.
+
+``--trace PATH``, ``--obs-report`` and ``--metrics-out PATH``
+(``repro_torch.obs.cli``) trace every engine collective of the run
+(each span measured: the device is synchronised after the call), then
+write the Chrome trace, print the model-error table and dump the
+metrics registry; under torchrun each process writes its own files,
+its rank before the extension.  The other families and checkpoints
+(``--ckpt-dir``: ROADMAP.md A.7) are later slices of the port, refused
+by name.
 """
 
 from __future__ import annotations
@@ -63,6 +70,7 @@ from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import init_params
 from repro_torch.models.layers import ambient_grid, set_fused_tp
+from repro_torch.obs import cli as obs_cli
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.sharding.rules import grad_sync_axes_for_grid
 from repro_torch.train.state import init_train_state
@@ -125,11 +133,15 @@ def run(arch: str, steps: int, batch_size: int, seq_len: int,
         log_every: int = 10, device: DeviceLike = None, dp: bool = False,
         grad_sync_mode: str = "allreduce", fused: bool = False,
         fabric_spec: Optional[str] = None, moe_ep: Optional[str] = None,
-        num_experts: Optional[int] = None) -> List[float]:
+        num_experts: Optional[int] = None, trace: Optional[str] = None,
+        obs_report: bool = False,
+        metrics_out: Optional[str] = None) -> List[float]:
     """Train ``arch`` for ``steps`` steps on synthetic data; returns the
     loss of every step (under ``dp`` the global batch's, on every
-    rank)."""
+    rank).  ``trace`` / ``obs_report`` / ``metrics_out``: the obs flags
+    (:mod:`repro_torch.obs.cli`)."""
     dev = resolve_device(device)
+    obs_cli.begin(trace, obs_report, metrics_out)
     if fabric_spec:
         topo = install_fabric_topology(fabric_spec)
         print(f"[train] fabric topology: {topo.describe()}")
@@ -197,25 +209,33 @@ def run(arch: str, steps: int, batch_size: int, seq_len: int,
                       f"lr={float(metrics['lr']):.2e} "
                       f"gnorm={float(metrics['grad_norm']):.3f} "
                       f"dt={time.time() - t0:.2f}s", flush=True)
+        # every rank, while the world is up: a process grid replays in
+        # lockstep
+        obs_cli.finish(trace, obs_report, metrics_out, grid=grid,
+                       device=dev, label="train")
     finally:
         if owns_world and dist.is_initialized():
             dist.destroy_process_group()
     if lead:
-        print(f"[train] done: {len(losses)} steps of {cfg.name} on {dev} in "
-              f"{time.time() - t_start:.1f}s; loss {losses[0]:.4f} -> "
-              f"{losses[-1]:.4f}", flush=True)
+        _say(f"[train] done: {len(losses)} steps of {cfg.name} on {dev} in "
+             f"{time.time() - t_start:.1f}s; loss {losses[0]:.4f} -> "
+             f"{losses[-1]:.4f}")
     if grid is not None and grid.size > 1:
         # every rank's losses, to hold them equal across the world
-        print(f"[train] rank {grid.rank} losses "
-              + " ".join(f"{x:.6f}" for x in losses), flush=True)
+        _say(f"[train] rank {grid.rank} losses "
+             + " ".join(f"{x:.6f}" for x in losses))
     return losses
 
 
+def _say(line: str) -> None:
+    """Print ``line`` in one write with its newline: the ranks' last
+    lines, printed together into a shared pipe, never interleave (an
+    unbuffered ``print`` writes the newline apart)."""
+    print(line + "\n", end="", flush=True)
+
+
 #: flags of the reference's CLI that wait for later slices of the port
-_LATER = {"ckpt_dir": "--ckpt-dir: checkpoints (ROADMAP.md A.7)",
-          "trace": "--trace: observability (ROADMAP.md A.7)",
-          "obs_report": "--obs-report: observability (ROADMAP.md A.7)",
-          "metrics_out": "--metrics-out: observability (ROADMAP.md A.7)"}
+_LATER = {"ckpt_dir": "--ckpt-dir: checkpoints (ROADMAP.md A.7)"}
 
 
 def main(argv: Optional[List[str]] = None) -> List[float]:
@@ -259,10 +279,7 @@ def main(argv: Optional[List[str]] = None) -> List[float]:
                     help="override num_experts (e.g. to tile the EP "
                          "world under --reduced)")
     ap.add_argument("--ckpt-dir", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--trace", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--obs-report", action="store_true",
-                    help=argparse.SUPPRESS)
-    ap.add_argument("--metrics-out", default=None, help=argparse.SUPPRESS)
+    obs_cli.add_obs_args(ap)
     args = ap.parse_args(argv)
     for name, what in _LATER.items():
         if getattr(args, name) not in (None, False):
@@ -273,7 +290,8 @@ def main(argv: Optional[List[str]] = None) -> List[float]:
                device=args.device, dp=args.dp,
                grad_sync_mode=args.grad_sync, fused=args.fused,
                fabric_spec=args.fabric, moe_ep=args.moe_ep,
-               num_experts=args.experts)
+               num_experts=args.experts, trace=args.trace,
+               obs_report=args.obs_report, metrics_out=args.metrics_out)
 
 
 if __name__ == "__main__":

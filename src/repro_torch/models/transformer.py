@@ -45,8 +45,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import (_ambient_grid, apply_rope,
-                                      attention, flash_decode,
+from repro_torch.models.layers import (_ambient_grid, ambient_grid,
+                                      apply_rope, attention, flash_decode,
                                       fused_tp_enabled, rms_norm, swiglu,
                                       use_flash_decode)
 
@@ -351,10 +351,17 @@ def forward_train(params: Params, cfg: ArchConfig, batch: Dict[str, Any],
             h, _, aux = _decoder_block(cfg, h, lp, use_kernel=uk)
             return h, aux
 
+    def grid_layer(h, lp):
+        # a checkpointed layer's recompute runs where the autograd engine
+        # runs it: on CUDA its own device thread, where this thread's
+        # ambient grid is not bound (ROADMAP C24); bind the forward's
+        with ambient_grid(grid):
+            return layer(h, lp)
+
     aux = 0.0
     for lp in params["layers"]:
         if remat and torch.is_grad_enabled():
-            x, aux_i = checkpoint(layer, x, lp, use_reentrant=False)
+            x, aux_i = checkpoint(grid_layer, x, lp, use_reentrant=False)
         else:
             x, aux_i = layer(x, lp)
         aux = aux + aux_i

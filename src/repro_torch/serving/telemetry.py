@@ -174,5 +174,67 @@ def ttft_low_confidence(snap: TelemetrySnapshot) -> bool:
     return snap.ttft_samples < TTFT_LOW_CONFIDENCE
 
 
+def export_to_registry(snap: TelemetrySnapshot, registry=None,
+                       prefix: str = "serve"):
+    """Mirror a snapshot into a :class:`repro_torch.obs.MetricsRegistry`
+    (the process-wide one by default), as the reference does.  Returns
+    the registry.
+
+    Percentile gauges are exported alongside ``{prefix}_ttft_samples``
+    and a 0/1 ``{prefix}_ttft_low_confidence`` flag rather than being
+    suppressed -- consumers decide what a thin sample base means."""
+    from repro_torch.obs import registry as obs_registry
+    reg = registry if registry is not None else obs_registry.REGISTRY
+
+    def g(name: str, value, help_: str) -> None:
+        if value is None:
+            return
+        reg.gauge(f"{prefix}_{name}", help=help_).set(float(value))
+
+    g("elapsed_s", snap.elapsed_s, "serving loop wall time")
+    g("steps", snap.steps, "scheduler iterations")
+    g("decode_steps", snap.decode_steps, "decode batches launched")
+    g("prefill_chunks", snap.prefill_chunks, "prefill chunks executed")
+    g("submitted", snap.submitted, "requests submitted")
+    g("finished", snap.finished, "requests finished")
+    g("preemptions", snap.preemptions, "requests preempted")
+    g("queue_depth", snap.queue_depth, "requests waiting")
+    g("active", snap.active, "requests in flight")
+    g("tokens_out", snap.tokens_out, "tokens generated")
+    g("tok_per_s", snap.tok_per_s, "generation throughput")
+    g("ttft_p50_ms", snap.ttft_p50_ms, "median time to first token")
+    g("ttft_p99_ms", snap.ttft_p99_ms, "p99 time to first token")
+    g("ttft_samples", snap.ttft_samples,
+      "TTFT observations behind the percentiles")
+    g("ttft_low_confidence", int(ttft_low_confidence(snap)),
+      f"1 when ttft_samples < {TTFT_LOW_CONFIDENCE}")
+    g("kv_blocks_total", snap.kv_blocks_total, "KV pool capacity")
+    g("kv_blocks_used", snap.kv_blocks_used, "KV blocks in use")
+    g("kv_occupancy", snap.kv_occupancy, "KV pool occupancy")
+    g("kv_peak_occupancy", snap.kv_peak_occupancy,
+      "peak KV pool occupancy")
+    g("kv_internal_frag_slots", snap.kv_internal_frag_slots,
+      "slots lost to block-internal fragmentation")
+    g("kv_blocks_live", snap.kv_blocks_live,
+      "KV blocks referenced by live requests (true load)")
+    g("kv_blocks_evictable", snap.kv_blocks_evictable,
+      "refcount-0 cached KV blocks resident until pool pressure")
+    g("prefill_tokens_computed", snap.prefill_tokens_computed,
+      "prompt tokens actually computed in prefill")
+    g("cached_prefix_tokens", snap.cached_prefix_tokens,
+      "prompt tokens served from the prefix cache")
+    g("cached_token_fraction", snap.cached_token_fraction,
+      "cached / (cached + computed) prefill tokens")
+    g("prefix_evictions", snap.prefix_evictions,
+      "cached blocks reclaimed under pool pressure")
+    g("queue_wait_p50_ms", snap.queue_wait_p50_ms,
+      "median submit -> admit latency")
+    g("queue_wait_samples", snap.queue_wait_samples,
+      "admissions behind the queue-wait percentiles")
+    g("queue_depth_max", snap.queue_depth_max,
+      "max queued depth over the per-step history")
+    return reg
+
+
 __all__ = ["Telemetry", "TelemetrySnapshot", "TTFT_LOW_CONFIDENCE",
-           "ttft_low_confidence"]
+           "ttft_low_confidence", "export_to_registry"]

@@ -18,6 +18,7 @@ import repro_torch.collectives.api as t_api
 import repro_torch.collectives.engine as t_engine
 import repro_torch.core.model as t_model
 from repro_torch.collectives import run_local
+from torch_util import record_engines
 
 OPS = ("reduce", "allreduce", "reduce_scatter", "allgather", "broadcast",
        "all_to_all")
@@ -26,8 +27,14 @@ NBYTES = (4, 512, 768, 4096, 65536, 262144, 1 << 20, 4 << 20, 64 << 20)
 
 @pytest.fixture(autouse=True)
 def _private_caches(tmp_path, monkeypatch):
+    """Each test persists under its own cache directories, and flushes
+    every engine it made before they are unset."""
     monkeypatch.setenv("REPRO_CACHE_DIR", str(tmp_path / "jax"))
     monkeypatch.setenv("REPRO_TORCH_CACHE_DIR", str(tmp_path / "torch"))
+    made = record_engines(monkeypatch)
+    yield
+    for eng in made:
+        eng.flush()
 
 
 def _engines(persist=False):
@@ -209,16 +216,31 @@ def test_calibrated_topology_restores_from_the_ports_cache_only(tmp_path):
         t_api._ENGINES.clear()
 
 
-@pytest.mark.parametrize("call", [
-    lambda e: e.calibrate([(4096, 1e-6), (8192, 2e-6)]),
-    lambda e: e.calibrate_launch([]),
-    lambda e: t_engine.measure_ppermute(None, "data"),
-    lambda e: t_engine.fit_fabric([(4096, 1e-6), (8192, 2e-6)]),
-], ids=["calibrate", "calibrate_launch", "measure_ppermute", "fit_fabric"])
-def test_left_out_entry_points_raise_naming_their_roadmap_item(call):
-    eng = t_engine.CollectiveEngine(persist=False, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.2\.b"):
-        call(eng)
+@pytest.mark.parametrize("value", ["0", "false", "no", "", "FALSE"])
+def test_restore_opt_out_keeps_the_stock_constants(tmp_path, monkeypatch,
+                                                   value):
+    """ROADMAP C21: a calibration persisted in the port's cache directory
+    is not restored under ``REPRO_TORCH_RESTORE_TOPOLOGY=0`` (or false,
+    no, empty), as the reference's ``REPRO_RESTORE_TOPOLOGY``; any other
+    value restores it."""
+    eng = t_engine.CollectiveEngine(persist=True, device="cpu")
+    topo = eng.calibrate(measurements={
+        "pod": [(nb, 1e-6 + nb * 4e-12) for nb in (4096, 1 << 20)],
+        "data": [(nb, 1e-6 + nb * 1e-12) for nb in (4096, 1 << 20)]})
+    eng.select("allreduce", 4096, 8)
+    eng.flush()
+    assert topo.name.endswith("_calibrated")
+    monkeypatch.setenv("REPRO_TORCH_RESTORE_TOPOLOGY", "1")
+    assert t_engine.find_calibrated_topology() == topo
+    monkeypatch.setenv("REPRO_TORCH_RESTORE_TOPOLOGY", value)
+    assert t_engine.find_calibrated_topology() is None
+    t_api._ENGINES.clear()
+    try:
+        stock = t_api.get_engine(device="cpu")
+        assert stock.topology == t_model.FabricTopology.uniform(
+            t_model.TPU_V5E_AXIS)
+    finally:
+        t_api._ENGINES.clear()
 
 
 def test_engine_defaults_to_cuda_and_refuses_other_devices():

@@ -1348,3 +1348,84 @@ def test_moe_ep_on_cuda_threads_is_forward_only(cuda_device):
     with pytest.raises(NotImplementedError, match="C15"):
         run_local_grid(lambda g: rank(g, True), (4,), ("data",),
                        cuda_device, timeout=60)
+
+
+# ------------------- calibration and observability ------------------- #
+@pytest.mark.gpu
+def test_measured_span_synchronises_on_cuda_threads(cuda_device):
+    """A collective span with the tracer measuring synchronises the
+    result's device before it closes: every rank's span has a wall
+    time, and the stream is idle when ``finish_result`` returns."""
+    from repro_torch.collectives import CollectiveEngine, run_local
+    from repro_torch.obs import trace
+    tr = trace.Tracer(enabled=True, measure=True)
+    prev = trace.set_tracer(tr)
+    try:
+        eng = CollectiveEngine(persist=False, device="cuda")
+        xs = [torch.full((1 << 20,), float(r), device="cuda")
+              for r in range(4)]
+        outs = run_local(lambda c: eng.allreduce_inside(xs[c.rank], c), 4,
+                         "cuda", axis="data")
+    finally:
+        trace.set_tracer(prev)
+    tops = [s for s in tr.spans if s.parent_id is None]
+    assert sorted(s.args["rank"] for s in tops) == [0, 1, 2, 3]
+    assert all(s.args["measured_s"] > 0 and s.args["mode"] == "eager"
+               for s in tops)
+    assert all(torch.equal(o, torch.full_like(o, 6.0)) for o in outs)
+    assert trace.validate_spans(tr.spans) == []
+    tr = trace.Tracer(enabled=True, measure=True)
+    a = torch.randn(4096, 4096, device="cuda")
+    with tr.span("matmul", cat=trace.CAT_PHASE) as sp:
+        sp.finish_result(a @ a)
+        assert torch.cuda.current_stream().query()
+    assert tr.spans[0].args["measured_s"] > 0
+
+
+@pytest.mark.gpu
+def test_measure_ppermute_on_cuda_threads_is_positive_and_size_ordered(
+        cuda_device):
+    """On 4 rank threads of one card a shift is two barriers (~1 ms on
+    an H100, PERF.md section 6) and 4 device copies: the copies order
+    the times from a few hundred MB a rank on."""
+    from repro_torch.collectives import run_local
+    from repro_torch.collectives.engine import measure_ppermute
+    sizes = (4096, 512 << 20, 2 << 30)
+    out = run_local(lambda c: measure_ppermute(c, sizes, 5), 4, "cuda")
+    assert all(m == out[0] for m in out)
+    assert [nb for nb, _ in out[0]] == list(sizes)
+    times = [t for _, t in out[0]]
+    assert 0 < times[0] < times[1] < times[2], times
+
+
+@pytest.mark.gpu
+def test_calibrate_grid_on_cuda_threads_persists_and_restores(
+        cuda_device, tmp_path, monkeypatch):
+    """``calibrate(grid=)`` on a 2 x 2 grid of CUDA rank threads: a
+    per-axis topology, persisted at the next flush; ``get_engine``
+    restores it, and not under ``REPRO_TORCH_RESTORE_TOPOLOGY=0``.  The
+    shifts go to 1 GB a rank so that the copies, not the barriers'
+    jitter, set the slope."""
+    from repro_torch.collectives import api, run_local_grid
+    from repro_torch.collectives.engine import (CollectiveEngine,
+                                                find_calibrated_topology)
+    monkeypatch.setenv("REPRO_TORCH_CACHE_DIR", str(tmp_path))
+    monkeypatch.delenv("REPRO_TORCH_RESTORE_TOPOLOGY", raising=False)
+    monkeypatch.setattr(api, "_ENGINES", {})
+    eng = CollectiveEngine(device="cuda")
+    topos = run_local_grid(
+        lambda g: eng.calibrate(grid=g, sizes_bytes=(1 << 20, 64 << 20,
+                                                     256 << 20, 1 << 30)),
+        (2, 2), ("pod", "data"), "cuda")
+    topo = topos[0]
+    assert all(t == topo for t in topos) and eng.topology == topo
+    assert topo.name == "tpu_v5e_axis_calibrated"
+    assert [a for a, _ in topo.axis_fabrics] == ["data", "pod"]
+    eng.select("allreduce", 4096, 8)
+    eng.flush()
+    assert find_calibrated_topology() == topo
+    assert api.get_engine(device="cuda").topology == topo
+    monkeypatch.setenv("REPRO_TORCH_RESTORE_TOPOLOGY", "0")
+    monkeypatch.setattr(api, "_ENGINES", {})
+    assert find_calibrated_topology() is None
+    assert api.get_engine(device="cuda").topology.is_uniform

@@ -344,3 +344,43 @@ def test_train_cli_moe_ep_under_torchrun(tmp_path):
     plain, _ = _torchrun_losses(tmp_path, [])
     assert plain[0] == plain[1]
     np.testing.assert_allclose(ep[0], plain[0], rtol=5e-2)
+
+
+def test_remat_recompute_takes_the_forward_route_off_the_grid_thread():
+    """ROADMAP C24: a checkpointed layer's recompute runs wherever the
+    autograd engine runs it (on CUDA its own device thread, where the
+    caller's ambient grid is not bound).  It must take the forward's EP
+    route all the same: a backward called outside the ``ambient_grid``
+    block (as the CUDA device thread sees it) gives the gradients of a
+    backward inside it."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward_train, init_params
+    from repro_torch.tree import tree_leaves, tree_map
+    import dataclasses
+
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b").reduced(),
+                              moe_ep=True, dtype="float32")
+    params = init_params(cfg, seed=3, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, size=(4, 16)).astype(np.int64))
+
+    def grads(grid, outside):
+        p = tree_map(lambda t: t.detach().clone().requires_grad_(), params)
+        rows = tokens[2 * grid.rank:2 * grid.rank + 2]
+        with ambient_grid(grid):
+            logits, aux = forward_train(p, cfg, {"tokens": rows},
+                                        remat=True)
+            loss = logits.float().square().mean() + AUX_C * aux
+            if not outside:
+                loss.backward()
+        if outside:
+            loss.backward()
+        return [t.grad for t in tree_leaves(p)]
+
+    inside = run_local_grid(lambda g: grads(g, False), (2,), ("data",),
+                            "cpu")
+    outside = run_local_grid(lambda g: grads(g, True), (2,), ("data",),
+                             "cpu")
+    for a_rank, b_rank in zip(inside, outside):
+        for a, b in zip(a_rank, b_rank):
+            assert torch.equal(a, b)
