@@ -137,7 +137,19 @@
    the serve telemetry and engine stats through a metrics registry.
    Thread walls on one card are not a fabric; the predictions are the
    TPU model's.  At the end ``get_engine()`` under the usual cache still
-   prices with the stock constants.
+   prices with the stock constants;
+21. hybrid phase (run after phase 13): ``recurrentgemma-9b`` at its
+   published width (RG-LRU blocks and MQA 16/1 local attention at head
+   dim 256, window 2048; bf16, random weights from ``--seed``): a 2 x
+   4096 prompt through ``prefill`` at full depth (38 layers, one
+   ``mma_sync`` flash launch per local layer), 16 greedy decode steps
+   over the ring caches (no launch), the prefill's and the first step's
+   logits held against the teacher-forced forward; 5 AdamW steps at 14
+   layers (4 pattern cycles and the tail), 2 x 4096, remat per cycle
+   (loss, step wall, tok/s, peak memory against the tree's reckoning, 8
+   flash launches a step, one step profiled); a float32 route check of
+   5 layers (1 x 4096, kernel vs plain).  The flash kernel at the local
+   layer's shape is among phase 2's cases.
 
 Phase 10 (NCCL, two or more cards) also times neighbour shifts over
 NCCL and runs ``calibrate(grid=)`` one process a card (the NVLink
@@ -278,14 +290,31 @@ DENSE_DECODE = dict(batch=2, prompt=4096, new_tokens=8, headroom=8)
 #: the configs whose head dims (96, 160) take the mma_sync / simt_f32
 #: variants: the same float32 route check as DENSE_ROUTE for each
 C12_ARCHS = ("phi3-mini-3.8b", "mistral-nemo-12b")
+HYBRID_ARCH = "recurrentgemma-9b"
+#: the hybrid's prefill + decode at its published width and depth (38
+#: layers, ~11.4 GB of bf16 weights): a 4096-token prompt, a multiple of
+#: the 2048 window (where the reference's cache agrees with the port's,
+#: ROADMAP C25), then 16 greedy steps over the ring
+HYBRID_DECODE = dict(batch=2, prompt=4096, new_tokens=16)
+#: its training at 4 of its 12 pattern cycles plus the 2-block tail (14
+#: layers, 3.37 B parameters: 40 GB at 12 bytes a parameter before
+#: activations; all 38 layers, 5.70 B, would hold ~68 GB, too much beside
+#: the 256000-word logits and their gradients on one 80 GB card), train_4k's
+#: sequence with the batch cut to 2, the train CLI's learning rate and
+#: its cosine schedule
+HYBRID_TRAIN = dict(units=4, batch=2, seq=4096, steps=5, lr=3e-4)
+#: kernel vs plain route: float32, one pattern cycle plus the tail (5
+#: layers, 2.5 B float32 parameters), one 4096 sequence
+HYBRID_ROUTE_UNITS = 1
 #: flash_attention's shapes (b, h, hkv, s, d, causal, window): the train
 #: phase's layer first (its timing shape); a synthetic GQA 32/8 shape at
 #: D 128 (no config has it: yi-34b, 56/8 at D 128, is the nearest); the
 #: full-width heads of phi3-mini-3.8b (MHA 32/32, D 96) and
 #: mistral-nemo-12b (GQA 32/8, D 160, as the repo's config resolves it);
 #: the local-attention window of recurrentgemma-9b (local_window's
-#: default, 2048) at minicpm-2b's heads; the DP rank's layer; and
-#: olmoe-1b-7b's train layer (MHA 16/16, D 128)
+#: default, 2048) at minicpm-2b's heads; the DP rank's layer;
+#: olmoe-1b-7b's train layer (MHA 16/16, D 128); and recurrentgemma-9b's
+#: local layer itself (MQA 16/1 at D 256, window 2048)
 FLASH_CASES = (("minicpm-2b train layer", 2, 36, 36, 4096, 64, True, None),
                ("synthetic GQA 32/8 D 128 (nearest config: yi-34b 56/8)",
                 1, 32, 8, 4096, 128, True, None),
@@ -297,7 +326,9 @@ FLASH_CASES = (("minicpm-2b train layer", 2, 36, 36, 4096, 64, True, None),
                ("minicpm-2b DP rank layer (1 x 4096)", 1, 36, 36, 4096, 64,
                 True, None),
                ("olmoe-1b-7b train layer", 2, 16, 16, 4096, 128, True,
-                None))
+                None),
+               ("recurrentgemma-9b local layer", 2, 16, 1, 4096, 256, True,
+                2048))
 #: kernel vs plain lse (float32 sums of up to 4096 terms in other
 #: orders, lse of magnitude ~10): 1e-4 absolute
 LSE_TOL = 1e-4
@@ -310,7 +341,9 @@ BF16_GRAD_TOL = 2.0 ** -6
 #: a power of two) plus O_FLOOR, which covers the float32 difference of
 #: the two sums (~1e-6) where the output is near 0
 O_FLOOR = 1e-5
-#: deliberate faults the bf16 check must reject, at the train shape
+#: the FLASH_CASES at which the bf16 check must reject FLASH_FAULTS
+FAULT_CASES = ("minicpm-2b train layer", "recurrentgemma-9b local layer")
+#: deliberate faults the bf16 check must reject
 FLASH_FAULTS = ("P rounded to bf16 before P V",
                 "key i dropped from row i (causal mask off by one)",
                 "first KV tile dropped for rows >= S/2")
@@ -1358,10 +1391,11 @@ def bf16_ratio(o: torch.Tensor, o_ref: torch.Tensor) -> float:
                   / (bf16_ulp(o_ref) + O_FLOOR)).max())
 
 
-def flash_faulty(q, k, v, fault: str) -> torch.Tensor:
-    """Causal attention with one head per KV head, as the plain version
-    computes it in float32, with one deliberate fault of FLASH_FAULTS;
-    the output rounded to q's dtype."""
+def flash_faulty(q, k, v, fault: str, window=None) -> torch.Tensor:
+    """Causal attention (with ``window``, if given) of q's heads over k's
+    and v's, which have as many heads or one (MQA, broadcast), as the
+    plain version computes it in float32, with one deliberate fault of
+    FLASH_FAULTS; the output rounded to q's dtype."""
     s = q.shape[2]
     qf, kf, vf = q.float() / q.shape[3] ** 0.5, k.float(), v.float()
     keys = torch.arange(s, device=q.device)[None, :]
@@ -1373,6 +1407,8 @@ def flash_faulty(q, k, v, fault: str) -> torch.Tensor:
             keep = (keys < rows) | (keys + rows == 0)
         elif fault == FLASH_FAULTS[2]:
             keep &= (rows < s // 2) | (keys >= 64)
+        if window is not None:
+            keep &= keys > rows - window
         logits = qf[:, :, q0:q0 + FLASH_CHUNK] @ kf.transpose(-1, -2)
         p = torch.softmax(logits.masked_fill(~keep, float("-inf")), dim=-1)
         if fault == FLASH_FAULTS[0]:
@@ -1419,8 +1455,9 @@ def flash_kernel_phase(seed: int) -> dict:
                 check = f"o max_abs_err {e_o:.3e} (tol {TOL[dtype]:.0e})"
                 assert e_o <= TOL[dtype] and e_l <= LSE_TOL, (label, dtype,
                                                               e_o, e_l)
-            if i == 0 and dtype == torch.bfloat16:
-                faults = {f: bf16_ratio(flash_faulty(q, k, v, f), o_ref)
+            if label in FAULT_CASES and dtype == torch.bfloat16:
+                faults = {f: bf16_ratio(flash_faulty(q, k, v, f, window),
+                                        o_ref)
                           for f in FLASH_FAULTS}
                 assert min(faults.values()) > 1.0, faults
                 log(f"kernel flash_attention bf16 check vs deliberate "
@@ -1611,17 +1648,30 @@ def dense_lr_witness(seed: int) -> None:
         torch.cuda.empty_cache()
 
 
+def attention_layers(cfg) -> int:
+    """The layers of ``cfg`` with self-attention (the hybrid's local
+    blocks; every layer of the other families)."""
+    if cfg.family != "hybrid":
+        return cfg.num_layers
+    pattern = cfg.block_pattern
+    return sum(pattern[i % len(pattern)] == "local"
+               for i in range(cfg.num_layers))
+
+
 def dense_route_phase(seed: int, arch: str = DENSE_ARCH) -> None:
-    """One train step of a float32 2-layer ``arch`` at full width through
-    the flash kernel (the simt_f32 variant: float32) and through the plain
-    chunked attention, from the same weights and batch; first the
-    gradients themselves.  The kernel route's gradients and updated
-    params stay on the card; the plain route's are compared as they come
-    and then freed (mistral-nemo-12b's 2 layers hold 1.9 B float32
-    params)."""
-    cfg = dataclasses.replace(
-        with_layer_units(get_config(arch), DENSE_ROUTE["layers"]),
-        dtype="float32")
+    """One train step of a float32 ``arch`` at full width (DENSE_ROUTE's
+    layers; the hybrid's HYBRID_ROUTE_UNITS pattern cycles and its tail)
+    through the flash kernel (the simt_f32 variant: float32) and through
+    the plain chunked attention, from the same weights and batch; first
+    the gradients themselves.  The kernel route's gradients and updated
+    params wait on the host, each leaf brought back to be compared; the
+    plain route's are compared as they come and then freed (the
+    hybrid's 5 layers hold 2.5 B float32 params: the two routes' states
+    would not fit the card together)."""
+    units = (HYBRID_ROUTE_UNITS if arch == HYBRID_ARCH
+             else DENSE_ROUTE["layers"])
+    cfg = dataclasses.replace(with_layer_units(get_config(arch), units),
+                              dtype="float32")
     opt_cfg = AdamWConfig(lr=DENSE_ROUTE["lr"], warmup_steps=1,
                           total_steps=5, schedule="wsd")
     batch = lm_batch(cfg, DENSE_ROUTE["batch"], DENSE_ROUTE["seq"], 0)
@@ -1632,9 +1682,9 @@ def dense_route_phase(seed: int, arch: str = DENSE_ARCH) -> None:
                                      use_kernel=use_kernel)
         grads = tree_leaves(grads)
         if use_kernel:
-            kept = grads
+            kept = [t.cpu() for t in grads]
         else:
-            d_grad = max(_rel_err(a, b) for a, b in zip(kept, grads))
+            d_grad = max(_rel_err(a.cuda(), b) for a, b in zip(kept, grads))
             del kept
         del grads
         step_fn = make_train_step(cfg, opt_cfg, use_kernel=use_kernel)
@@ -1646,16 +1696,16 @@ def dense_route_phase(seed: int, arch: str = DENSE_ARCH) -> None:
         want = dict.fromkeys(ops.WRAPPERS, 0)
         want_variants = dict.fromkeys(variants, 0)
         if use_kernel:
-            want["flash_attention"] = 2 * cfg.num_layers
-            want_variants["simt_f32"] = 2 * cfg.num_layers
+            want["flash_attention"] = 2 * attention_layers(cfg)
+            want_variants["simt_f32"] = 2 * attention_layers(cfg)
             launches = variants
         assert counts == want, (arch, counts, want)
         assert variants == want_variants, (arch, variants, want_variants)
         params = tree_leaves(state.params)
         if use_kernel:
-            kept_params = params
+            kept_params = [t.cpu() for t in params]
         else:
-            d_param = max(float((a - b).abs().max())
+            d_param = max(float((a.cuda() - b).abs().max())
                           for a, b in zip(kept_params, params))
         out[use_kernel] = (loss, float(metrics["grad_norm"]))
         log(f"dense route {arch} {'kernel' if use_kernel else 'plain '}: "
@@ -1750,6 +1800,181 @@ def dense_decode_phase(seed: int) -> None:
         f"cache, as in the reference) | logits vs teacher-forced forward "
         f"max_abs_err {err:.3e} (tol {tol:.3e}: 2 bf16 ulps of the largest "
         f"logit)")
+
+
+# ---------------------------- hybrid phase ---------------------------- #
+def hybrid_decode_phase(seed: int, rows: dict) -> None:
+    """recurrentgemma-9b at full width and depth: a 2 x 4096 prompt
+    through ``prefill`` (one flash launch, ``mma_sync`` at D 256, for each
+    of the 12 local layers), then greedy steps over the ring caches (no
+    launch: direct attention over the window, the RG-LRU's single step);
+    the prefill's and the first step's logits held against the
+    teacher-forced forward, every step's error logged."""
+    cfg = get_config(HYBRID_ARCH)
+    params = init_params(cfg, seed=seed, device="cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    n_local = attention_layers(cfg)
+    b, n_prompt = HYBRID_DECODE["batch"], HYBRID_DECODE["prompt"]
+    new = HYBRID_DECODE["new_tokens"]
+    prompt = lm_batch(cfg, b, n_prompt, 1)["tokens"]
+    prefill_step = make_prefill_step(cfg)
+    decode_step = make_decode_step(cfg)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill_step(params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want = dict.fromkeys(ops.WRAPPERS, 0)
+    want["flash_attention"] = n_local
+    assert counts == want, (counts, want)
+    variants = ops.variant_launch_counts()["flash_attention"]
+    assert variants == {"simt_f32": 0, "mma_sync": n_local,
+                        "wgmma": 0}, variants
+    rows["flash_attention"]["launches"] += counts["flash_attention"]
+    assert tuple(cache["k"].shape) == (
+        n_local, b, cfg.local_window, 1, cfg.resolved_head_dim), \
+        cache["k"].shape
+    steps, toks = [logits], []
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(new):
+        nxt = steps[-1][:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        toks.append(nxt)
+        logits, cache = decode_step(params, cache, {"tokens": nxt})
+        steps.append(logits)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    assert not any(ops.launch_counts().values()), ops.launch_counts()
+    assert int(cache["pos"]) == n_prompt + new
+    del cache
+    # teacher forcing over prompt + generated tokens, filled up to a whole
+    # KV chunk (the chunked branch needs S % 1024 == 0); causal, so the
+    # filler changes no position before it
+    seq = torch.cat([prompt] + toks, dim=1)
+    seq = torch.nn.functional.pad(seq, (0, -seq.shape[1] % 1024))
+    with torch.no_grad():
+        full, _ = forward_train(params, cfg, {"tokens": seq})
+    got = torch.cat(steps, dim=1)
+    want_logits = full[:, n_prompt - 1:n_prompt + new]
+    del full
+    errs = (got - want_logits).abs().amax(dim=(0, 2))
+    # bf16 model: both sides round every GEMM output and the logits to
+    # bf16, in GEMMs of other shapes (M = 2 per decode step vs 2 x 5120),
+    # and the RG-LRU state comes from the sequential step vs the chunked
+    # doubling scan; the dense decode check's bound, 2 bf16 ulps of the
+    # largest logit, on the prefill's and the first step's logits
+    tol = 2 * float(bf16_ulp(want_logits.abs().max()))
+    assert torch.isfinite(got).all() and float(errs[:2].max()) <= tol, \
+        (errs.tolist(), tol)
+    log(f"hybrid prefill + decode ({cfg.num_layers} layers: {n_local} "
+        f"local MQA {cfg.num_heads}/{cfg.num_kv_heads} x "
+        f"{cfg.resolved_head_dim}, window {cfg.local_window}, "
+        f"{cfg.num_layers - n_local} RG-LRU; {n_params / 1e9:.3f}B params "
+        f"in the tree, {cfg.dtype}): prefill {b} x {n_prompt} tokens in "
+        f"{t_prefill * 1e3:.1f} ms (flash_attention launches "
+        f"{counts['flash_attention']}, one per local layer, all mma_sync) | "
+        f"{new} greedy decode steps in {t_decode * 1e3:.1f} ms = "
+        f"{t_decode / new * 1e3:.1f} ms a step (no kernel: direct attention "
+        f"over the ring of {cfg.local_window}, the RG-LRU's single step) | "
+        f"logits vs teacher-forced forward max_abs_err: prefill "
+        f"{float(errs[0]):.3e}, first step {float(errs[1]):.3e} (tol "
+        f"{tol:.3e}: 2 bf16 ulps of the largest logit), all {new} steps "
+        f"{float(errs[1:].max()):.3e} (not held)")
+
+
+def hybrid_train_phase(seed: int, rows: dict) -> None:
+    """recurrentgemma-9b at full width, HYBRID_TRAIN['units'] pattern
+    cycles plus the tail, bf16, remat per cycle: the memory reckoned from
+    the tree first (``param_count`` counts an MLP in every RG-LRU layer
+    that the tree does not hold, ROADMAP C26), then 5 AdamW steps (loss,
+    step wall, tok/s, peak memory), every local layer's attention in the
+    flash kernel (forward and the cycle's recompute), one step
+    profiled."""
+    cfg = with_layer_units(get_config(HYBRID_ARCH), HYBRID_TRAIN["units"])
+    p = sum(t.numel() for t in tree_leaves(init_params(cfg, device="meta")))
+    reckoned = (2 * p + 2 * p + 8 * p) / 1e9
+    n_local = attention_layers(cfg)
+    t0 = time.perf_counter()
+    state = init_train_state(init_params(cfg, seed=seed, device="cuda"))
+    torch.cuda.synchronize()
+    log(f"hybrid train {cfg.name}: {cfg.num_layers} of 38 layers "
+        f"({HYBRID_TRAIN['units']} of 12 (rglru, rglru, local) cycles + the "
+        f"2-block RG-LRU tail) at full width (d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} x {cfg.resolved_head_dim} "
+        f"heads, window {cfg.local_window}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}), {cfg.dtype}; {p / 1e9:.3f}B params in the tree "
+        f"(param_count() says {cfg.param_count() / 1e9:.3f}B, C26); "
+        f"reckoned before activations: params + grads (bf16) + AdamW "
+        f"moments (float32) = {reckoned:.2f} GB; random weights (seed "
+        f"{seed}) and AdamW state in {time.perf_counter() - t0:.1f} s")
+    steps = HYBRID_TRAIN["steps"]
+    opt_cfg = AdamWConfig(lr=HYBRID_TRAIN["lr"],
+                          warmup_steps=max(steps // 20, 1),
+                          total_steps=steps, schedule="cosine")
+    step_fn = make_train_step(cfg, opt_cfg)
+    batches = [lm_batch(cfg, HYBRID_TRAIN["batch"], HYBRID_TRAIN["seq"], i)
+               for i in range(steps + 1)]
+    tokens = HYBRID_TRAIN["batch"] * HYBRID_TRAIN["seq"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, walls = [], []
+    for i in range(steps):
+        state, metrics, loss, wall = timed_step(step_fn, state, batches[i])
+        losses.append(loss)
+        walls.append(wall)
+        log(f"hybrid train step {i}: loss {loss:.4f} | grad_norm "
+            f"{float(metrics['grad_norm']):.3f} | lr {metrics['lr']:.2e} | "
+            f"wall {wall * 1e3:.1f} ms | {tokens / wall:.1f} tok/s")
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], f"loss did not fall: {losses}"
+    want = dict.fromkeys(ops.WRAPPERS, 0)
+    want["flash_attention"] = 2 * n_local * steps
+    assert counts == want, (counts, want)
+    variants = ops.variant_launch_counts()["flash_attention"]
+    assert variants == {"simt_f32": 0, "mma_sync": want["flash_attention"],
+                        "wgmma": 0}, variants
+    rows["flash_attention"]["launches"] += counts["flash_attention"]
+    steady = float(np.median(walls[1:]))
+    log(f"hybrid train: {steps} steps of {HYBRID_TRAIN['batch']} x "
+        f"{HYBRID_TRAIN['seq']} tokens, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} | step wall median of steps 1-{steps - 1} "
+        f"{steady * 1e3:.1f} ms (step 0 {walls[0] * 1e3:.1f} ms) = "
+        f"{tokens / steady:.1f} tok/s | max_memory_allocated {peak_gb:.3f} GB "
+        f"(reckoned {reckoned:.2f} GB before activations; "
+        f"max_memory_reserved {torch.cuda.max_memory_reserved() / 1e9:.3f} "
+        f"GB of {torch.cuda.get_device_properties(0).total_memory / 1e9:.3f}"
+        f") | flash_attention "
+        f"launches per step {counts['flash_attention'] // steps} (2 x "
+        f"{n_local} local layers: forward and the cycle's remat), every one "
+        f"mma_sync at D {cfg.resolved_head_dim}")
+    holder = {"state": state}
+
+    def one_step():
+        holder["state"], _ = step_fn(holder["state"], batches[steps])
+    log(f"profile of one hybrid train step (kernel route): "
+        f"{profile_step(one_step)}")
+
+
+def hybrid_phase(seed: int, rows: dict) -> None:
+    """The hybrid family's main path: prefill + decode at full depth,
+    training at 14 layers, and the float32 kernel-vs-plain route check
+    (the flash kernel at D 256 is in the kernel phase's FLASH_CASES)."""
+    walls = []
+    for part in (lambda: hybrid_decode_phase(seed, rows),
+                 lambda: hybrid_train_phase(seed, rows),
+                 lambda: dense_route_phase(seed, HYBRID_ARCH)):
+        t0 = time.perf_counter()
+        part()
+        torch.cuda.empty_cache()
+        walls.append(time.perf_counter() - t0)
+    log(f"hybrid phase: {sum(walls):.1f} s (prefill + decode "
+        f"{walls[0]:.1f} s, train {walls[1]:.1f} s, float32 route check "
+        f"{walls[2]:.1f} s)")
 
 
 # ---------------------- multi_add and matmul_tiled --------------------- #
@@ -3368,6 +3593,8 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     dense_decode_phase(args.seed)
+    torch.cuda.empty_cache()
+    hybrid_phase(args.seed, rows)
     torch.cuda.empty_cache()
     collective_phase(args.seed)
     torch.cuda.empty_cache()

@@ -490,7 +490,7 @@ class CollectiveEngine:
         try:
             path = self._cache_path()
             os.makedirs(os.path.dirname(path), exist_ok=True)
-            tmp = path + f".tmp{os.getpid()}"
+            tmp = path + f".tmp{os.getpid()}.{threading.get_ident()}"
             with open(tmp, "w") as f:
                 json.dump({"schema": SCHEMA_VERSION,
                            "fabric": self._fabric_tag(),

@@ -1,7 +1,9 @@
 """Weights from the JAX package's parameter tree into the port's layout.
 
 The reference stacks every layer's weights into ``[L, ...]`` arrays for
-``lax.scan``; the port keeps a list of per-layer dictionaries.  The
+``lax.scan``; the port keeps a list of per-layer dictionaries (the
+hybrid's ``cycles["b{j}"]`` ``[n_cycles, ...]`` arrays become lists of
+per-cycle dictionaries, and its unstacked ``tail`` list a tuple).  The
 input is the reference tree with its leaves already converted to numpy
 (``jax.tree.map(np.asarray, params)``), so this module imports nothing
 of JAX.  bfloat16 leaves arrive as ``ml_dtypes.bfloat16`` arrays, which
@@ -34,12 +36,14 @@ def tensor_from_numpy(arr: np.ndarray, device: torch.device
 
 def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig,
                     device: DeviceLike = None) -> Params:
-    """The reference's dense, MoE or SSM parameter tree (numpy leaves)
-    as the port's parameters on ``device`` (default ``cuda``), every
-    ``[L, ...]`` leaf unstacked into the per-layer dictionaries (the MoE
-    ``router``, ``eg``, ``eu``, ``ed`` and the nested ``dense_mlp`` too).
-    Each leaf keeps its dtype: the SSM's float32 ``a_log`` and ``d_skip``
-    and the MoE's float32 router stay float32 in a bfloat16 model."""
+    """The reference's dense, MoE, SSM or hybrid parameter tree (numpy
+    leaves) as the port's parameters on ``device`` (default ``cuda``),
+    every ``[L, ...]`` leaf unstacked into the per-layer dictionaries (the
+    MoE ``router``, ``eg``, ``eu``, ``ed`` and the nested ``dense_mlp``
+    too; the hybrid's ``[n_cycles, ...]`` leaves into per-cycle ones).
+    Each leaf keeps its dtype: the SSM's float32 ``a_log`` and ``d_skip``,
+    the MoE's float32 router and the RG-LRU's float32 ``lam`` stay
+    float32 in a bfloat16 model."""
     if cfg.family not in INIT_FAMILIES:
         raise NotImplementedError(
             f"params_from_jax: the port covers families {INIT_FAMILIES}, "
@@ -53,6 +57,15 @@ def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig,
                        else tensor_from_numpy(arr[i], dev))
                 for name, arr in stacked.items()}
 
+    if cfg.family == "hybrid":
+        cycles = tree["cycles"]
+        n_cycles = cfg.num_layers // len(cfg.block_pattern)
+        out["cycles"] = {name: [layer(stacked, c) for c in range(n_cycles)]
+                         for name, stacked in cycles.items()}
+        out["tail"] = tuple({name: tensor_from_numpy(arr, dev)
+                             for name, arr in block.items()}
+                            for block in tree["tail"])
+        return out
     out["layers"] = [layer(tree["layers"], i)
                      for i in range(cfg.num_layers)]
     return out

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import threading
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -133,7 +134,10 @@ def compute_tables(p_max: int, d_max: Optional[int] = None,
 
     if use_cache:
         os.makedirs(cache_dir(), exist_ok=True)
-        tmp = cache_path + f".tmp{os.getpid()}.npz"
+        # unique per process and thread: the ranks of a local grid are
+        # threads of one process, and two of them may build one table
+        tmp = (cache_path
+               + f".tmp{os.getpid()}.{threading.get_ident()}.npz")
         np.savez_compressed(tmp, energy=energy, split=split)
         os.replace(tmp, cache_path)
     return AutoGenTables(p_max, pairs, pair_index, energy, split)

@@ -13,6 +13,7 @@ with E*(1, 1, D) = 0 and E*(P, 1, 0) = inf for P >= 2.  The runtime bound
 from __future__ import annotations
 
 import os
+import threading
 from typing import Optional
 
 import numpy as np
@@ -49,7 +50,8 @@ def compute_lb_energy(p_max: int, d_max: Optional[int] = None,
             e[d, p] = cand.min()
     if use_cache:
         os.makedirs(cache_dir(), exist_ok=True)
-        tmp = cache_path + f".tmp{os.getpid()}.npy"
+        tmp = (cache_path
+               + f".tmp{os.getpid()}.{threading.get_ident()}.npy")
         np.save(tmp, e)
         os.replace(tmp, cache_path)
     return e

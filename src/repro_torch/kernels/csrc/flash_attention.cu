@@ -70,19 +70,25 @@
 //    masked scores are -inf and give exact zeros; a row whose running max
 //    is still -inf uses 0 in its place, as the reference's safe_m does.
 //
-// Head dims 96 (phi3-mini-3.8b) and 160 (mistral-nemo-12b) take the two
-// templated kernels, mma_sync and simt_f32: a row is 12 or 20 16-byte
-// cp.async chunks (the copy loop divides by a constant, no power of two
-// needed); the bf16 row pitch (D + 8) * 2 = 208 or 336 bytes is an odd
+// Head dims 96 (phi3-mini-3.8b), 160 (mistral-nemo-12b) and 256
+// (recurrentgemma-9b's local attention, MQA 16/1) take the two templated
+// kernels, mma_sync and simt_f32: a row is 12, 20 or 32 16-byte cp.async
+// chunks (the copy loop divides by a constant, no power of two needed);
+// the bf16 row pitch (D + 8) * 2 = 208, 336 or 528 bytes is an odd
 // multiple of 16 bytes, so fragment loads and ldmatrix stay conflict-free.
 // At D 160 the mma_sync kernel's 64-key tiles spilled (255 registers: 80
-// accumulators, Q's 40 fragment registers, S and P's halves), so that
-// instantiation takes 32-key KV tiles (block_k_bf16).  Shared memory is
-// 66,560 / 64,512 bytes (bf16) and 58,112 / 90,880 (float32), above 48 KB,
-// so each launch sets the dynamic-size attribute.
+// accumulators, Q's 40 fragment registers, S and P's halves), so D 160
+// and 256 take 32-key KV tiles (block_k_bf16).  At D 256 the output alone
+// is 128 float32 accumulators a thread, and Q's fragments would add 64:
+// there each warp reads its Q fragments from shared memory at every
+// k-step of Q K^T (q_in_registers), and simt_f32 walks P V one V column
+// at a time, so that no row of V is held in registers beside the 128
+// outputs.  Shared memory is 66,560 / 64,512 / 101,376 bytes (bf16) and
+// 58,112 / 90,880 / 140,032 (float32), above 48 KB, so each launch sets
+// the dynamic-size attribute.
 //
 // Limits (checked by the Python wrapper): T is float or bf16, D is 16, 32,
-// 64, 96, 128 or 160, S a multiple of 64 (flash_attention_tile()), the last dimension
+// 64, 96, 128, 160 or 256, S a multiple of 64 (flash_attention_tile()), the last dimension
 // of every tensor contiguous and, for bf16, 16-byte aligned rows (and so
 // strides that are multiples of 16 bytes, as TMA needs).
 // Plain C interface (loaded with ctypes); returns the cudaError_t of the
@@ -107,6 +113,11 @@ constexpr int kBlockK = 64;     // keys per KV tile, bf16 kernel
 // accumulators live together) spill: 32 keys there
 template <int D>
 __host__ __device__ constexpr int block_k_bf16() { return D > 128 ? 32 : kBlockK; }
+// whether the bf16 kernel keeps a warp's Q fragments in registers for
+// the whole KV loop (D / 4 registers a thread); above D 160 they are read
+// from shared memory at each k-step instead
+template <int D>
+__host__ __device__ constexpr bool q_in_registers() { return D <= 160; }
 constexpr int kBlockKF = 32;    // keys per KV tile, float32 kernel
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -243,6 +254,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Args a) {
   constexpr int NT = D / 8;     // n-tiles of the output
   constexpr int BK = block_k_bf16<D>();   // keys per KV tile
   constexpr int KK = BK / 16;   // k-steps of P V
+  constexpr bool kQRegs = q_in_registers<D>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);      // [64][P]
   bf16* ks = qs + kBlockQ * P;                       // [2][BK][P]
@@ -269,7 +281,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Args a) {
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};                           // this lane's part
-  uint32_t qf[KS][4];
+  uint32_t qf[kQRegs ? KS : 1][4];
 
   int kt_lo, kt_hi;
   kv_range(a, q0, BK, &kt_lo, &kt_hi);
@@ -291,14 +303,16 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Args a) {
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (kt == kt_lo) {
-      const bf16* qw = qs + warp * 16 * P;
+    const bf16* qw = qs + warp * 16 * P;
+    if constexpr (kQRegs) {
+      if (kt == kt_lo) {
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        qf[kk][0] = lds32(qw + g * P + kk * 16 + 2 * t4);
-        qf[kk][1] = lds32(qw + (g + 8) * P + kk * 16 + 2 * t4);
-        qf[kk][2] = lds32(qw + g * P + kk * 16 + 8 + 2 * t4);
-        qf[kk][3] = lds32(qw + (g + 8) * P + kk * 16 + 8 + 2 * t4);
+        for (int kk = 0; kk < KS; ++kk) {
+          qf[kk][0] = lds32(qw + g * P + kk * 16 + 2 * t4);
+          qf[kk][1] = lds32(qw + (g + 8) * P + kk * 16 + 2 * t4);
+          qf[kk][2] = lds32(qw + g * P + kk * 16 + 8 + 2 * t4);
+          qf[kk][3] = lds32(qw + (g + 8) * P + kk * 16 + 8 + 2 * t4);
+        }
       }
     }
     const bf16* kb = ks + buf * BK * P;
@@ -307,14 +321,35 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Args a) {
     // S = Q K^T for this warp's 16 rows x BK keys (n-tiles of 8 keys)
     float sc[BK / 8][4];
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
+    for (int nt = 0; nt < BK / 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
-      const bf16* krow = kb + (nt * 8 + g) * P + 2 * t4;
+    if constexpr (kQRegs) {
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-        mma_bf16(sc[nt], qf[kk], lds32(krow + kk * 16),
-                 lds32(krow + kk * 16 + 8));
+      for (int nt = 0; nt < BK / 8; ++nt) {
+        const bf16* krow = kb + (nt * 8 + g) * P + 2 * t4;
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          mma_bf16(sc[nt], qf[kk], lds32(krow + kk * 16),
+                   lds32(krow + kk * 16 + 8));
+      }
+    } else {
+      // k-step outer: one k-step's Q fragment (4 registers) serves every
+      // n-tile of keys
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t qk[4];
+        qk[0] = lds32(qw + g * P + kk * 16 + 2 * t4);
+        qk[1] = lds32(qw + (g + 8) * P + kk * 16 + 2 * t4);
+        qk[2] = lds32(qw + g * P + kk * 16 + 8 + 2 * t4);
+        qk[3] = lds32(qw + (g + 8) * P + kk * 16 + 8 + 2 * t4);
+#pragma unroll
+        for (int nt = 0; nt < BK / 8; ++nt) {
+          const bf16* krow = kb + (nt * 8 + g) * P + 2 * t4;
+          mma_bf16(sc[nt], qk, lds32(krow + kk * 16),
+                   lds32(krow + kk * 16 + 8));
+        }
+      }
     }
 
     // scale, mask, row max (rows g and g + 8 of the warp's 16)
@@ -499,15 +534,27 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(Args a) {
     __syncthreads();
 #pragma unroll 4
     for (int kk = 0; kk < kBlockKF; ++kk) {
-      float pv[4], vv[NC];
+      float pv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) pv[i] = ps[(4 * ty + i) * PP + kk];
+      if constexpr (NC <= 20) {
+        float vv[NC];
 #pragma unroll
-      for (int c = 0; c < NC; ++c) vv[c] = vs[kk * P + tx + 8 * c];
+        for (int c = 0; c < NC; ++c) vv[c] = vs[kk * P + tx + 8 * c];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
+          for (int c = 0; c < NC; ++c)
+            acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
+      } else {
+        // D 256: 128 outputs a thread; one V value live at a time
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const float vc = vs[kk * P + tx + 8 * c];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pv[i], vc, acc[i][c]);
+        }
+      }
     }
   }
 #pragma unroll
@@ -944,7 +991,8 @@ extern "C" int flash_attention_tile() { return kBlockQ; }
 // [b, hkv, s, d] and o [b, h, s, d] given by element strides (batch, head,
 // row; the last dimension contiguous); lse [b, h, s] contiguous float32.
 // causal and has_window are 0/1.  s % flash_attention_tile() == 0, d in
-// {16, 32, 64, 96, 128, 160} (the wrapper picks the variant and checks).
+// {16, 32, 64, 96, 128, 160, 256} (the wrapper picks the variant and
+// checks).
 extern "C" int flash_attention_fwd(
     int dtype, int variant, int d, const void* q, const void* k,
     const void* v, void* o, float* lse, int b, int h, int hkv, int s,
@@ -971,6 +1019,7 @@ extern "C" int flash_attention_fwd(
     case 96: return launch<96>(dtype, a, b, st);
     case 128: return launch<128>(dtype, a, b, st);
     case 160: return launch<160>(dtype, a, b, st);
+    case 256: return launch<256>(dtype, a, b, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -16,7 +16,7 @@ the port of ``repro/kernels/flash_attention.py::flash_attention``
   CPU tensor.
 
 The kernel takes float32 (SIMT FMAs) or bfloat16 (tensor cores: wgmma
-with TMA loads at D 64 and 128, mma.sync at D 16, 32, 96 and 160)
+with TMA loads at D 64 and 128, mma.sync at D 16, 32, 96, 160 and 256)
 inputs, D in ``HEAD_DIMS``, S a multiple of 64, and any batch, head and
 row strides as long as the last dimension is contiguous; bfloat16 rows must
 be 16-byte aligned.  The output takes q's strides, so that attention
@@ -35,7 +35,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import flash_attention_bwd_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 96, 128, 160)
+HEAD_DIMS = (16, 32, 64, 96, 128, 160, 256)
 #: the C entry point's variant codes: the float32 SIMT kernel, the
 #: mma.sync kernel (bf16, any head dim), the TMA + wgmma kernel
 VARIANTS = {"simt_f32": 0, "mma_sync": 1, "wgmma": 2}

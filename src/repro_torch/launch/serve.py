@@ -40,6 +40,7 @@ import torch.distributed as dist
 from repro_torch.collectives.comm import ProcessGroupGrid, single_rank_grid
 from repro_torch.configs import get_config
 from repro_torch.models import init_params, supports_paged
+from repro_torch.models.paged import PAGED_FAMILIES
 from repro_torch.obs import cli as obs_cli
 from repro_torch.serving import (ContinuousBatchingServer, Request,
                                  SamplingParams)
@@ -120,6 +121,12 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if not args.full_width:
         cfg = cfg.reduced()
+    if cfg.family not in PAGED_FAMILIES:
+        # the reference's own refusal (repro/launch/serve.py)
+        raise SystemExit(
+            f"--arch {args.arch} (family {cfg.family!r}) is not servable: "
+            f"the paged KV cache covers the dense and MoE decoder families "
+            f"(constant-state families keep the dense training cache)")
     if not supports_paged(cfg):
         raise SystemExit(
             f"--arch {args.arch} (family {cfg.family!r}, frontend "

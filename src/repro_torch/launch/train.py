@@ -11,10 +11,11 @@ world.
         --grad-sync fsdp --steps 5 --batch 8 --seq 64 --device cpu
 
 On a GPU the hand-written kernels run: the SSM's scan (forward with
-chunk checkpoints, recomputing backward) and the dense family's
-attention over sequences longer than 2048 (the flash kernel); on the
-CPU, which runs only when asked for with ``--device cpu``, their plain
-chunked versions.  ``minicpm-2b`` trains with the WSD schedule, every
+chunk checkpoints, recomputing backward) and the attention over
+sequences longer than 2048 of the dense, MoE and hybrid families (the
+flash kernel; the hybrid's local blocks at head dim 256 with a 2048
+window); on the CPU, which runs only when asked for with ``--device
+cpu``, their plain chunked versions.  ``minicpm-2b`` trains with the WSD schedule, every
 other architecture with cosine, as in the reference.  The weights are
 random from seed 0, as the reference's.
 
@@ -28,7 +29,9 @@ through the paper's collectives (``--grad-sync allreduce | fsdp``,
 per-axis link constants).  Outside torchrun the world is this one
 process and the sync has no axis, as the reference on one device.
 
-The dense, MoE and SSM families train here.  ``--experts N`` overrides
+The dense, MoE, SSM and hybrid families train here
+(``--arch recurrentgemma-9b --reduced --device cpu``: RG-LRU blocks and
+local attention).  ``--experts N`` overrides
 the expert count; ``--moe-ep [ALG]`` routes the MoE dispatch and combine
 through explicit all-to-all exchanges over the DP grid's expert axes
 (``models/moe_ep.py``; ``lax``: the communicator's native exchange,
@@ -46,9 +49,9 @@ reference does.
 (each span measured: the device is synchronised after the call), then
 write the Chrome trace, print the model-error table and dump the
 metrics registry; under torchrun each process writes its own files,
-its rank before the extension.  The other families and checkpoints
-(``--ckpt-dir``: ROADMAP.md A.7) are later slices of the port, refused
-by name.
+its rank before the extension.  The encoder-decoder family (ROADMAP.md
+A.8) and checkpoints (``--ckpt-dir``: A.7) are later slices of the
+port, refused by name.
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """Model parameters and entry points (counterpart of
-``repro/models/transformer.py``) for the dense decoder and the Mamba SSM
-stack: parameters, embedding, unembedding and the FFN sublayer (which the
-paged serving path runs too, ``models/paged.py``), the dense decoder
-block, and the three entry points of both families
+``repro/models/transformer.py``) for the dense and MoE decoders, the
+Mamba SSM stack and the RG-LRU hybrid: parameters, embedding,
+unembedding and the FFN sublayer (which the paged serving path runs too,
+``models/paged.py``), the dense decoder block, the hybrid's two blocks,
+and the three entry points of every family
 
     forward_train(params, cfg, batch)              -> (logits, aux)
     prefill(params, cfg, batch)                    -> (logits, cache)
@@ -24,14 +25,29 @@ of ``[L, ...]`` arrays stacked for ``lax.scan``::
     ssm:   {"embed", "ln_f", "head",
             "layers": [{"ln", "in_proj", "conv_w", "x_proj", "dt_w",
                         "dt_b", "a_log", "d_skip", "out_proj"}, ...]}
+    hybrid: {"embed", "ln_f", "head",
+             "cycles": {"b0": [block, ...], "b1": [...], ...},
+             "tail": (block, ...)}
+
+The hybrid keeps the reference's layout: ``cycles["b{j}"]`` lists, cycle
+by cycle, the block of kind ``block_pattern[j]`` (a "local" block is the
+dense decoder layer, an "rglru" block {"ln", "w_x", "w_y", "conv_w",
+"w_a", "w_i", "lam" (float32), "out"}); ``tail`` holds the
+``num_layers % len(block_pattern)`` blocks after the last whole cycle,
+of kinds ``block_pattern[:len(tail)]``.  ``tail`` is a tuple, not a
+list: a list is a stack of layers in the port's tree rules
+(``repro_torch.tree``), and the reference keeps its tail unstacked.  So
+the optimizer's weight decay (by stacked rank) and the DP sync's flat
+vectors see the reference's tree.
 
 ``use_kernel`` (``None``: when the parameters live on a CUDA device)
-routes the dense and MoE families' long-sequence attention through the
-flash kernel and the SSM's scan through the scan kernels.  The MoE FFN
-(``models/moe.py``, ``moe_ep.py``) is plain products, as in the
-reference.  The decode cache is written in place: ``decode_step``
-returns the cache tensors it was given, updated.  Hybrid and
-encoder-decoder families are later slices of the port.
+routes the dense, MoE and hybrid families' long-sequence attention
+through the flash kernel and the SSM's scan through the scan kernels.
+The MoE FFN (``models/moe.py``, ``moe_ep.py``) and the RG-LRU
+recurrence (``models/rglru.py``) are plain PyTorch, as the reference
+has no kernel for them.  A decode cache's K and V are written in place:
+``decode_step`` returns the K/V tensors it was given, updated.  The
+encoder-decoder family is a later slice of the port.
 """
 
 from __future__ import annotations
@@ -44,9 +60,11 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import (_ambient_grid, ambient_grid,
-                                      apply_rope, attention, flash_decode,
+from repro_torch.models.layers import (_ambient_grid, _direct_attention,
+                                      _repeat_kv, ambient_grid, apply_rope,
+                                      attention, flash_decode,
                                       fused_tp_enabled, rms_norm, swiglu,
                                       use_flash_decode)
 
@@ -106,12 +124,11 @@ def _decoder_layer(gen: Optional[torch.Generator], cfg: ArchConfig, dtype,
 
 
 #: families whose parameters the port initialises
-INIT_FAMILIES = ("dense", "moe", "ssm")
+INIT_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _not_ported(fn: str, cfg: ArchConfig) -> NotImplementedError:
-    later = {"hybrid": "the hybrid family (ROADMAP.md A.6)",
-             "encdec": "the encoder-decoder family (ROADMAP.md A.8)"}
+    later = {"encdec": "the encoder-decoder family (ROADMAP.md A.8)"}
     return NotImplementedError(
         f"{fn}: the port covers families {INIT_FAMILIES}; {cfg.family!r} "
         f"waits for {later.get(cfg.family, 'a later slice (ROADMAP.md A)')}")
@@ -128,10 +145,10 @@ def kernel_route(params: Params, use_kernel: Optional[bool]) -> bool:
 
 def init_params(cfg: ArchConfig, seed: int = 0,
                 device: DeviceLike = None) -> Params:
-    """Random weights of a dense or MoE decoder or a Mamba stack, drawn from a
-    ``torch.Generator`` seeded with ``seed`` on ``device`` (default
-    ``cuda``).  Shapes and scales follow the reference; norm weights
-    start at zero.  The draws differ from ``jax.random``'s: to hold the
+    """Random weights of a dense or MoE decoder, a Mamba stack or an
+    RG-LRU hybrid, drawn from a ``torch.Generator`` seeded with ``seed``
+    on ``device`` (default ``cuda``).  Shapes and scales follow the
+    reference; norm weights start at zero.  The draws differ from ``jax.random``'s: to hold the
     port against the reference on the same weights, convert them with
     ``repro_torch.convert.params_from_jax``.  ``device="meta"`` gives
     every shape and dtype with nothing allocated (the reference's
@@ -159,6 +176,23 @@ def init_params(cfg: ArchConfig, seed: int = 0,
                                          cfg.dt_rank, cfg.ssm_conv, dtype,
                                          dev)}
             for _ in range(cfg.num_layers)]
+        return params
+    if cfg.family == "hybrid":
+        pattern = cfg.block_pattern
+        n_cycles, rem = divmod(cfg.num_layers, len(pattern))
+
+        def block(kind):
+            if kind == "local":
+                return _decoder_layer(gen, cfg, dtype, dev)
+            return {"ln": _norm(d, dtype, dev),
+                    **rglru_lib.init_rglru_params(gen, d, d, cfg.num_heads,
+                                                  cfg.ssm_conv, dtype, dev)}
+
+        # drawn in layer order, as the reference draws its keys
+        cycles = [[block(kind) for kind in pattern] for _ in range(n_cycles)]
+        params["cycles"] = {f"b{j}": [cyc[j] for cyc in cycles]
+                            for j in range(len(pattern))}
+        params["tail"] = tuple(block(pattern[j]) for j in range(rem))
         return params
     params["layers"] = [_decoder_layer(gen, cfg, dtype, dev)
                         for _ in range(cfg.num_layers)]
@@ -318,15 +352,145 @@ def _ssm_layer(cfg: ArchConfig, h: torch.Tensor, lp: Params,
     return h + y, st
 
 
+# ====================================================================== #
+# the RG-LRU hybrid: blocks, prefill and decode over a ring of the window
+# ====================================================================== #
+def _hybrid_cycles(params: Params, cfg: ArchConfig
+                   ) -> Tuple[list, list]:
+    """(cycles, tail): each whole cycle as [(kind, block params), ...] in
+    pattern order, and the tail's blocks as single (kind, params) pairs."""
+    pattern = cfg.block_pattern
+    cyc = params["cycles"]
+    n_cycles = len(cyc["b0"]) if cyc else 0
+    cycles = [[(kind, cyc[f"b{j}"][c]) for j, kind in enumerate(pattern)]
+              for c in range(n_cycles)]
+    return cycles, [(pattern[j], tp) for j, tp in enumerate(params["tail"])]
+
+
+def _hybrid_layers(params: Params, cfg: ArchConfig) -> list:
+    """Every (kind, block params) pair in layer order."""
+    cycles, tail = _hybrid_cycles(params, cfg)
+    return [pair for cyc in cycles for pair in cyc] + tail
+
+
+def _hybrid_block(cfg: ArchConfig, kind: str, x: torch.Tensor, p: Params,
+                  *, cache: Optional[rglru_lib.RGLRUState] = None,
+                  single_step: bool = False,
+                  use_kernel: Optional[bool] = None) -> Tuple[torch.Tensor,
+                                                              Any]:
+    """kind "local": the dense decoder block with the sliding window
+    (returns its (k, v)); kind "rglru": the RG-LRU block after an RMSNorm,
+    residual added, no FFN (returns its state)."""
+    if kind == "local":
+        y, new_kv, _ = _decoder_block(cfg, x, p, window=cfg.local_window,
+                                      use_kernel=use_kernel)
+        return y, new_kv
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    y, state = rglru_lib.rglru_block(h, p, state=cache,
+                                     single_step=single_step)
+    return x + y, state
+
+
+def _ring(kv: torch.Tensor, w: int) -> torch.Tensor:
+    """A prompt's keys (or values) [B, S, Hkv, hd] as the decode ring
+    [B, w, Hkv, hd]: position p of the trailing window at slot p % w,
+    zeros in the slots no position reached.  Decode writes position
+    ``pos`` at slot ``pos % w`` and keeps slots [0, min(pos + 1, w)), so
+    it attends over the window ``forward_train`` does.  (The reference
+    stores the trailing window from slot 0, or a short prompt
+    left-padded: the two agree only when S is a multiple of w, ROADMAP
+    C25.)"""
+    b, s = kv.shape[:2]
+    ring = kv.new_zeros((b, w) + tuple(kv.shape[2:]))
+    lo = max(s - w, 0)
+    slots = torch.arange(lo, s, device=kv.device) % w
+    ring[:, slots] = kv[:, lo:]
+    return ring
+
+
+def _hybrid_prefill(params: Params, cfg: ArchConfig, x: torch.Tensor,
+                    use_kernel: bool
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    b, s = x.shape[:2]
+    w = cfg.local_window
+    ks, vs, convs, hs = [], [], [], []
+    for kind, p in _hybrid_layers(params, cfg):
+        x, st = _hybrid_block(cfg, kind, x, p, use_kernel=use_kernel)
+        if kind == "local":
+            ks.append(_ring(st[0], w))
+            vs.append(_ring(st[1], w))
+        else:
+            convs.append(st.conv)
+            hs.append(st.h)
+    empty = x.new_zeros((0, b, w, cfg.num_kv_heads, cfg.resolved_head_dim))
+    cache = {"k": torch.stack(ks) if ks else empty,
+             "v": torch.stack(vs) if vs else empty.clone(),
+             "conv": torch.stack(convs), "h": torch.stack(hs),
+             "pos": torch.tensor(s, dtype=torch.int32)}
+    return _unembed(params, cfg, x[:, -1:]), cache
+
+
+def _local_decode(cfg: ArchConfig, x: torch.Tensor, p: Params, pos: int,
+                  ck: torch.Tensor, cv: torch.Tensor) -> torch.Tensor:
+    """One token through a local block over its ring ck / cv [B, w, Hkv,
+    hd]: K and V rotated at the absolute position and written in place at
+    slot ``pos % w``, then direct attention over the min(pos + 1, w) slots
+    written so far (every one within the window)."""
+    b = x.shape[0]
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    w = ck.shape[1]
+    hn = rms_norm(x, p["ln1"], cfg.norm_eps)
+    positions = pos + torch.arange(1, device=x.device)
+    q = apply_rope((hn @ p["wq"]).reshape(b, 1, h, hd), positions,
+                   cfg.rope_theta)
+    k = apply_rope((hn @ p["wk"]).reshape(b, 1, kvh, hd), positions,
+                   cfg.rope_theta)
+    v = (hn @ p["wv"]).reshape(b, 1, kvh, hd)
+    ck[:, pos % w] = k[:, 0].to(ck.dtype)
+    cv[:, pos % w] = v[:, 0].to(cv.dtype)
+    group = h // kvh
+    out = _direct_attention(q.transpose(1, 2),
+                            _repeat_kv(ck.transpose(1, 2), group),
+                            _repeat_kv(cv.transpose(1, 2), group),
+                            causal=False, window=None,
+                            kv_len=min(pos + 1, w))
+    x = x + out.transpose(1, 2).reshape(b, 1, h * hd) @ p["wo"]
+    f, _ = _ffn_sublayer(cfg, rms_norm(x, p["ln2"], cfg.norm_eps), p)
+    return x + f
+
+
+def _hybrid_decode(params: Params, cfg: ArchConfig,
+                   cache: Dict[str, torch.Tensor], x: torch.Tensor
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    pos = int(cache["pos"])
+    ai = 0
+    convs, hs = [], []
+    for kind, p in _hybrid_layers(params, cfg):
+        if kind == "local":
+            x = _local_decode(cfg, x, p, pos, cache["k"][ai], cache["v"][ai])
+            ai += 1
+            continue
+        ri = len(hs)
+        st = rglru_lib.RGLRUState(conv=cache["conv"][ri], h=cache["h"][ri])
+        x, st = _hybrid_block(cfg, kind, x, p, cache=st, single_step=True)
+        convs.append(st.conv)
+        hs.append(st.h)
+    new_cache = dict(cache, conv=torch.stack(convs), h=torch.stack(hs),
+                     pos=cache["pos"] + 1)
+    return _unembed(params, cfg, x), new_cache
+
+
 def forward_train(params: Params, cfg: ArchConfig, batch: Dict[str, Any],
                   remat: bool = True, use_kernel: Optional[bool] = None
                   ) -> Tuple[torch.Tensor, Any]:
     """Returns (logits [B, S, V], aux_loss: the MoE layers' load-balance
     losses summed, 0.0 for the other families).  ``remat`` checkpoints each
     layer (``torch.utils.checkpoint``, non-reentrant: the counterpart of
-    ``jax.checkpoint`` with ``nothing_saveable``); ``use_kernel`` (None:
-    on a CUDA device) routes the dense family's chunked attention through
-    the flash kernel and the SSM's scan through the fused scan kernels."""
+    ``jax.checkpoint`` with ``nothing_saveable``), the hybrid each whole
+    pattern cycle and not its tail, as the reference; ``use_kernel`` (None:
+    on a CUDA device) routes the chunked attention (dense, MoE, the
+    hybrid's local blocks) through the flash kernel and the SSM's scan
+    through the fused scan kernels."""
     _check_family("forward_train", cfg, batch)
     uk = kernel_route(params, use_kernel)
     x = _embed(params, cfg, batch["tokens"])
@@ -343,13 +507,23 @@ def forward_train(params: Params, cfg: ArchConfig, batch: Dict[str, Any],
             "CUDA would run the ring inside the backward pass; pass "
             "remat=False")
 
-    if cfg.family == "ssm":
+    if cfg.family == "hybrid":
+        def layer(h, blocks):
+            for kind, p in blocks:
+                h = _hybrid_block(cfg, kind, h, p, use_kernel=uk)[0]
+            return h, 0.0
+        cycles, tail = _hybrid_cycles(params, cfg)
+        units = [(cyc, True) for cyc in cycles] + [([t], False)
+                                                   for t in tail]
+    elif cfg.family == "ssm":
         def layer(h, lp):
             return _ssm_layer(cfg, h, lp, uk)[0], 0.0
     else:
         def layer(h, lp):
             h, _, aux = _decoder_block(cfg, h, lp, use_kernel=uk)
             return h, aux
+    if cfg.family != "hybrid":
+        units = [(lp, True) for lp in params["layers"]]
 
     def grid_layer(h, lp):
         # a checkpointed layer's recompute runs where the autograd engine
@@ -359,8 +533,8 @@ def forward_train(params: Params, cfg: ArchConfig, batch: Dict[str, Any],
             return layer(h, lp)
 
     aux = 0.0
-    for lp in params["layers"]:
-        if remat and torch.is_grad_enabled():
+    for lp, ckpt in units:
+        if remat and ckpt and torch.is_grad_enabled():
             x, aux_i = checkpoint(grid_layer, x, lp, use_reentrant=False)
         else:
             x, aux_i = layer(x, lp)
@@ -372,13 +546,29 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device: DeviceLike = None) -> Dict[str, torch.Tensor]:
     """Zeroed decode cache on ``device`` (default ``cuda``).  Dense and MoE:
     per-layer K/V {"k", "v": [L, B, max_len, Hkv, hd]}; SSM: {"conv":
-    [L, B, K-1, di], "h": [L, B, di, N] float32}; both with "pos", an
-    int32 scalar on the CPU."""
+    [L, B, K-1, di], "h": [L, B, di, N] float32}; hybrid: the local
+    blocks' rings {"k", "v": [n_local, B, w, Hkv, hd]} with w =
+    min(local_window, max_len), the RG-LRU blocks' {"conv": [n_rglru, B,
+    K-1, D], "h": [n_rglru, B, D] float32}; each with "pos", an int32
+    scalar on the CPU."""
     if cfg.family not in INIT_FAMILIES:
         raise _not_ported("init_cache", cfg)
     dev = resolve_device(device)
     dtype, n = cfg.activation_dtype, cfg.num_layers
     pos = torch.zeros((), dtype=torch.int32)
+    if cfg.family == "hybrid":
+        pattern = cfg.block_pattern
+        n_attn = sum(pattern[i % len(pattern)] == "local" for i in range(n))
+        w = min(cfg.local_window, max_len)
+        kv = (n_attn, batch, w, cfg.num_kv_heads, cfg.resolved_head_dim)
+        rec = (n - n_attn, batch)
+        return {"k": torch.zeros(kv, dtype=dtype, device=dev),
+                "v": torch.zeros(kv, dtype=dtype, device=dev),
+                "conv": torch.zeros(rec + (cfg.ssm_conv - 1, cfg.d_model),
+                                    dtype=dtype, device=dev),
+                "h": torch.zeros(rec + (cfg.d_model,), dtype=torch.float32,
+                                 device=dev),
+                "pos": pos}
     if cfg.family == "ssm":
         return {"conv": torch.zeros((n, batch, cfg.ssm_conv - 1, cfg.d_inner),
                                     dtype=dtype, device=dev),
@@ -395,13 +585,17 @@ def prefill(params: Params, cfg: ArchConfig, batch: Dict[str, Any],
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Forward over a prompt, returning last-position logits [B, 1, V]
     and the decode cache: dense {"k", "v": [L, B, S, Hkv, hd]}, SSM
-    {"conv": [L, B, K-1, di], "h": [L, B, di, N]}, each with "pos" = S (an
-    int32 scalar on the CPU).  The dense cache is exactly the prompt's
-    length; to decode without overwriting its last position, pad it (the
-    reference's own test pads by 8)."""
+    {"conv": [L, B, K-1, di], "h": [L, B, di, N]}, hybrid
+    :func:`init_cache`'s with w = local_window (the rings of
+    :func:`_ring`), each with "pos" = S (an int32 scalar on the CPU).  The
+    dense cache is exactly the prompt's length; to decode without
+    overwriting its last position, pad it (the reference's own test pads
+    by 8)."""
     _check_family("prefill", cfg, batch)
     uk = kernel_route(params, use_kernel)
     x = _embed(params, cfg, batch["tokens"])
+    if cfg.family == "hybrid":
+        return _hybrid_prefill(params, cfg, x, uk)
     s = x.shape[1]
     states = []
     for lp in params["layers"]:
@@ -423,11 +617,14 @@ def decode_step(params: Params, cfg: ArchConfig,
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token decode.  batch: {"tokens": [B, 1]}.  Returns (logits
     [B, 1, V], new cache).  The plain single-step arithmetic, as in the
-    reference: the SSM's recurrence step; the dense direct attention over
-    the cache, whose K/V tensors are updated in place and returned in
-    the new cache."""
+    reference: the SSM's and the RG-LRU's recurrence step; the dense
+    direct attention over the cache, and the hybrid's over its rings,
+    whose K/V tensors are updated in place and returned in the new
+    cache."""
     _check_family("decode_step", cfg, batch)
     x = _embed(params, cfg, batch["tokens"])
+    if cfg.family == "hybrid":
+        return _hybrid_decode(params, cfg, cache, x)
     if cfg.family == "ssm":
         convs, hs = [], []
         for i, lp in enumerate(params["layers"]):

@@ -181,6 +181,40 @@ def test_autogen_tables_bit_identical(p_max):
     assert tt.split.dtype == jt.split.dtype
 
 
+def test_autogen_table_cache_survives_threads_building_it_at_once(
+        tmp_path, monkeypatch):
+    """Eight threads of one process (a local grid's ranks) build the same
+    table into one fresh cache directory at once: none raises (each
+    writes its own temporary file before the rename), and the cached
+    file loads as the table."""
+    import threading
+
+    monkeypatch.setenv("REPRO_TORCH_CACHE_DIR", str(tmp_path))
+    start = threading.Barrier(8)
+    errors, tables = [], []
+
+    def build():
+        try:
+            start.wait()
+            tables.append(t_autogen.compute_tables(64))
+        except Exception as exc:        # noqa: BLE001 -- reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=build) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    assert len(tables) == 8
+    assert [p.name for p in tmp_path.iterdir()] == [
+        "autogen_P64_D63_C63_ds12_cs16.npz"]
+    cached = t_autogen.compute_tables(64)
+    fresh = t_autogen.compute_tables(64, use_cache=False)
+    np.testing.assert_array_equal(cached.energy, fresh.energy)
+    np.testing.assert_array_equal(cached.split, fresh.split)
+
+
 @pytest.mark.parametrize("fab", sorted(FABRICS))
 @pytest.mark.parametrize("p", [2, 3, 5, 8, 13, 16, 64])
 def test_autogen_trees_and_rounds_bit_identical(p, fab):

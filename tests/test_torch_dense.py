@@ -201,8 +201,7 @@ def test_init_params_layout_matches_jax():
             assert lp[name].dtype == torch.bfloat16, name
 
 
-@pytest.mark.parametrize("arch,item", [("recurrentgemma-9b", "A.6"),
-                                       ("whisper-medium", "A.8")])
+@pytest.mark.parametrize("arch,item", [("whisper-medium", "A.8")])
 def test_unported_families_raise_naming_their_slice(arch, item):
     cfg = get_config(arch).reduced()
     for fn in (lambda: init_params(cfg, device="cpu"),

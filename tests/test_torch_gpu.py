@@ -826,6 +826,8 @@ FLASH_SHAPES = [
     (1, 4, 4, 512, 96, True, None),       # phi3-mini-3.8b's head dim, MHA
     (1, 4, 1, 384, 160, True, None),      # mistral-nemo-12b's, GQA 4/1
     (1, 4, 1, 256, 160, False, 100),      # D 160, window, not causal
+    (1, 4, 1, 384, 256, True, 128),       # recurrentgemma-9b's local
+    (2, 2, 2, 256, 256, True, None),      # D 256, MHA, causal
 ]
 
 
@@ -1000,8 +1002,8 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
          ValueError),
         ("head dim 80",
          _flash_inputs(1, 4, 2, 128, 80, torch.bfloat16, dev), ValueError),
-        ("head dim 256",
-         _flash_inputs(1, 2, 1, 128, 256, torch.bfloat16, dev), ValueError),
+        ("head dim 192",
+         _flash_inputs(1, 2, 1, 128, 192, torch.bfloat16, dev), ValueError),
         ("H not a multiple of Hkv",
          _flash_inputs(1, 3, 2, 128, 64, torch.float32, dev), ValueError),
         ("float16", [t.half() for t in ok], TypeError),
@@ -1097,6 +1099,78 @@ def test_reduced_dense_train_step_kernel_route_matches_plain(cuda_device):
         assert float(mk[key]) == pytest.approx(float(mp[key]), rel=1e-4)
     for a_, b_ in zip(pk, pp):
         torch.testing.assert_close(a_, b_, rtol=0, atol=1e-5)
+
+
+def _reduced_hybrid():
+    """Reduced recurrentgemma-9b in float32 with 5 layers (one rglru,
+    rglru, local cycle and a 2-block RG-LRU tail) at the full config's
+    head dim 256, so that its local layer reaches the D 256 kernel."""
+    return dataclasses.replace(get_config("recurrentgemma-9b").reduced(),
+                               dtype="float32", num_layers=5, head_dim=256)
+
+
+@pytest.mark.gpu
+def test_reduced_hybrid_train_step_kernel_route_matches_plain(cuda_device):
+    """One train step of the reduced hybrid at S 4096 (window 32) through
+    the flash kernel and through the plain chunked attention: two
+    launches for the one local layer (forward and the cycle's remat
+    recompute), all simt_f32; loss and gradient norm within 1e-4
+    relative, every parameter within 1e-5."""
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.state import init_train_state
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_leaves
+    cfg = _reduced_hybrid()
+    batch = {k: torch.from_numpy(v).to(cuda_device) for k, v in
+             SyntheticLMDataset(DataConfig(cfg.vocab_size, 4096, 1))
+             .batch(0).items()}
+    out = {}
+    for use_kernel in (True, False):
+        state = init_train_state(init_params(cfg, seed=0,
+                                             device=cuda_device))
+        step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1,
+                                                total_steps=2),
+                               use_kernel=use_kernel)
+        ops.reset_launch_counts()
+        state, metrics = step(state, batch)
+        out[use_kernel] = (metrics, tree_leaves(state.params))
+        want = dict.fromkeys(ops.WRAPPERS, 0)
+        if use_kernel:
+            want["flash_attention"] = 2
+            assert ops.variant_launch_counts()["flash_attention"][
+                "simt_f32"] == 2
+        assert ops.launch_counts() == want
+    (mk, pk), (mp, pp) = out[True], out[False]
+    for key in ("loss", "grad_norm"):
+        assert float(mk[key]) == pytest.approx(float(mp[key]), rel=1e-4)
+    for a_, b_ in zip(pk, pp):
+        torch.testing.assert_close(a_, b_, rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_reduced_hybrid_prefill_and_decode_on_cuda(cuda_device):
+    """Prefill of a 4096-token prompt launches the kernel once for the one
+    local layer; 8 decode steps over the ring launch nothing; each step's
+    logits follow the teacher-forced forward within 2e-4 (float32)."""
+    from repro_torch.models import decode_step, forward_train, prefill
+    cfg = _reduced_hybrid()
+    params = init_params(cfg, seed=0, device=cuda_device)
+    seq = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, size=(2, 5120)).astype(np.int32)).to(cuda_device)
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        last, cache = prefill(params, cfg, {"tokens": seq[:, :4096]})
+        assert ops.launch_counts()["flash_attention"] == 1
+        steps = [last]
+        for t in range(4096, 4104):
+            last, cache = decode_step(params, cfg, cache,
+                                      {"tokens": seq[:, t:t + 1]})
+            steps.append(last)
+        assert ops.launch_counts()["flash_attention"] == 1
+        full, _ = forward_train(params, cfg, {"tokens": seq})
+    torch.testing.assert_close(torch.cat(steps, 1), full[:, 4095:4104],
+                               rtol=2e-4, atol=2e-4)
 
 
 # ------------------ data and tensor parallelism (slice 9) ---------------- #

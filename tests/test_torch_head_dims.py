@@ -1,10 +1,12 @@
 """The head dims the flash kernel takes, against the configs that reach it
 and against the JAX package at the two that are not powers of two.
 
-* every config of the dense, MoE and encoder-decoder families resolves to
-  a head dim in ``flash_attention.HEAD_DIMS`` (their self-attention over
-  more than 2048 positions goes to the kernel on a CUDA tensor, and the
-  kernel raises on any other head dim);
+* every config of the dense, MoE, hybrid and encoder-decoder families
+  resolves to a head dim in ``flash_attention.HEAD_DIMS`` (their
+  self-attention over more than 2048 positions goes to the kernel on a
+  CUDA tensor, and the kernel raises on any other head dim;
+  ``recurrentgemma-9b``'s local attention is at 256, held against the
+  Pallas kernel in ``test_torch_hybrid.py``);
 * the kernel's plain version at D 96 (``phi3-mini-3.8b``) and D 160
   (``mistral-nemo-12b``), GQA and causal, against the Pallas
   ``flash_attention`` in interpret mode, float32 within 2e-5 (the
@@ -30,7 +32,7 @@ from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.kernels.ref import (flash_attention_bwd_ref,
                                      flash_attention_ref)
 
-FLASH_FAMILIES = ("dense", "moe", "encdec")
+FLASH_FAMILIES = ("dense", "moe", "hybrid", "encdec")
 F32 = dict(rtol=2e-5, atol=2e-5)
 
 

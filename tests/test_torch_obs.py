@@ -590,8 +590,11 @@ def test_replay_fills_measured_s_and_tags_it(tracer):
 
 # ------------------------------- CLIs --------------------------------- #
 def _torchrun(args, tmp_path):
+    # one OpenMP thread a process: torchrun's workers beside the other
+    # test workers would oversubscribe the host's cores many times over
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               REPRO_TORCH_CACHE_DIR=str(tmp_path / "cache"))
+               REPRO_TORCH_CACHE_DIR=str(tmp_path / "cache"),
+               OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc-per-node", "2", *args, "--device", "cpu",

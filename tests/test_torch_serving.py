@@ -186,6 +186,17 @@ def test_unsupported_family_raises():
                                  device="cpu")
 
 
+def test_serve_cli_refuses_the_hybrid_as_the_reference_does():
+    """The hybrid trains, prefills and decodes over its dense ring cache,
+    but is not a paged family: the serve CLI refuses it with the
+    reference's reason."""
+    from repro_torch.launch import serve
+    with pytest.raises(SystemExit, match="family 'hybrid'.* not servable: "
+                       "the paged KV cache covers the dense and MoE decoder "
+                       "families"):
+        serve.main(["--arch", "recurrentgemma-9b", "--device", "cpu"])
+
+
 def test_serve_cli_on_cpu(capsys):
     from repro_torch.launch import serve
     serve.main(["--device", "cpu", "--requests", "3", "--batch", "2",

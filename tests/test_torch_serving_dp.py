@@ -132,7 +132,8 @@ def _digest(out: str) -> str:
 
 def test_serve_cli_dp_under_torchrun_equals_one_process(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               REPRO_TORCH_CACHE_DIR=str(tmp_path / "cache"))
+               REPRO_TORCH_CACHE_DIR=str(tmp_path / "cache"),
+               OMP_NUM_THREADS="1")
     one = subprocess.run([sys.executable, *_CLI], env=env, cwd=tmp_path,
                          capture_output=True, text=True, timeout=300)
     assert one.returncode == 0, one.stderr[-3000:]

@@ -184,14 +184,32 @@ def test_train_cli_on_cpu(capsys):
     assert "[train] done: 3 steps of falcon-mamba-7b on cpu" in out
 
 
+def test_train_cli_trains_the_hybrid_on_cpu(capsys):
+    """``--arch recurrentgemma-9b``: the reduced hybrid (RG-LRU blocks and
+    local attention) trains, as the reference's trainer trains it; the
+    loss is finite and the done line names it.  ``--moe-ep`` on it exits
+    with the reference's message for a family without experts."""
+    from repro_torch.launch import train
+    losses = train.main(["--arch", "recurrentgemma-9b", "--reduced",
+                         "--steps", "3", "--batch", "2", "--seq", "64",
+                         "--device", "cpu"])
+    assert len(losses) == 3 and np.isfinite(losses).all()
+    out = capsys.readouterr().out
+    assert "[train] done: 3 steps of recurrentgemma-9b on cpu" in out
+    with pytest.raises(SystemExit, match="--moe-ep needs an MoE "
+                       "architecture; recurrentgemma-9b is "
+                       "family='hybrid'"):
+        train.main(["--arch", "recurrentgemma-9b", "--reduced", "--moe-ep",
+                    "--device", "cpu"])
+
+
 @pytest.mark.parametrize("arch,item", [("whisper-medium",
-                                        "encoder-decoder family"),
-                                       ("recurrentgemma-9b",
-                                        "hybrid family")])
+                                        "encoder-decoder family")])
 def test_train_cli_defaults_to_cuda_and_refuses_other_families(arch, item):
-    """The dense, MoE and SSM families train; a family the port has not
-    reached yet is refused, naming the slice it waits for; ``--moe-ep``
-    on a family without experts exits with the reference's message."""
+    """The dense, MoE, SSM and hybrid families train; a family the port
+    has not reached yet is refused, naming the slice it waits for;
+    ``--moe-ep`` on a family without experts exits with the reference's
+    message."""
     from repro_torch.launch import train
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device would run")
