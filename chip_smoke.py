@@ -144,12 +144,34 @@
    4096 prompt through ``prefill`` at full depth (38 layers, one
    ``mma_sync`` flash launch per local layer), 16 greedy decode steps
    over the ring caches (no launch), the prefill's and the first step's
-   logits held against the teacher-forced forward; 5 AdamW steps at 14
-   layers (4 pattern cycles and the tail), 2 x 4096, remat per cycle
-   (loss, step wall, tok/s, peak memory against the tree's reckoning, 8
+   logits held against the teacher-forced forward; 5 AdamW steps at 8
+   layers (2 pattern cycles and the tail), 2 x 4096, remat per cycle
+   (loss, step wall, tok/s, peak memory against the tree's reckoning, 4
    flash launches a step, one step profiled); a float32 route check of
    5 layers (1 x 4096, kernel vs plain).  The flash kernel at the local
-   layer's shape is among phase 2's cases.
+   layer's shape is among phase 2's cases;
+22. encoder-decoder phase (run after phase 21): ``whisper-medium`` at its
+   published width and depth (24 + 24 layers, 16/16 heads x 64, 1.012 B
+   parameters, bf16, random weights from ``--seed``): 2 x 4096 stub
+   audio frames and a 448-token prompt through ``prefill`` (one wgmma
+   flash launch, non-causal, per encoder layer), the self cache padded by
+   16, 16 greedy decode steps, each step's logits held against the
+   teacher-forced forward; 5 AdamW steps of 2 x 4096 tokens over 2 x 4096
+   frames, remat (loss, step wall, decoder tok/s, peak memory against the
+   reckoning, 144 wgmma flash launches a step: the encoder's, the
+   decoder's and the cross-attention's, forward and recompute; one step
+   profiled); a float32 route check of 2 + 2 layers (1 x 4096, kernel vs
+   plain).  The flash kernel at its layer (non-causal, no window) is
+   among phase 2's cases, with the plain backward timed there;
+23. vision phase: ``llava-next-34b`` at its published width and depth
+   (60 layers, 56/8 heads x 128, 34.389 B parameters, bf16), the memory
+   reckoned first, through the server with the serve phase's 16 requests,
+   each carrying 576 soft tokens from ``vision_patches`` (seeded by the
+   request id), 32 greedy tokens each: tok/s, TTFT, one paged launch a
+   layer a decode step, the mid-run decode step held to the plain path
+   and profiled; no prefix is cached (vision requests never are); then
+   ``dense_route_phase`` at ``llava-next-34b`` (float32, 2 layers, 576
+   soft tokens and 3520 tokens).
 
 Phase 10 (NCCL, two or more cards) also times neighbour shifts over
 NCCL and runs ``calibrate(grid=)`` one process a card (the NVLink
@@ -220,8 +242,12 @@ from repro_torch.kernels.ref import (FLASH_CHUNK,  # noqa: E402
                                      flash_attention_ref, matmul_tiled_ref,
                                      multi_add_ref, paged_attention_ref,
                                      selective_scan_ref)
+from repro_torch.launch.train import (build_batch,  # noqa: E402
+                                      step_generator)
 from repro_torch.models import (decode_step_paged, forward_train,  # noqa
                                 init_params)
+from repro_torch.models.frontend import (audio_frames,  # noqa: E402
+                                         vision_patches)
 from repro_torch.models.layers import ambient_grid, set_fused_tp  # noqa
 from repro_torch.models.transformer import shard_decode_cache  # noqa: E402
 from repro_torch.obs import model_error as obs_model_error  # noqa: E402
@@ -296,16 +322,39 @@ HYBRID_ARCH = "recurrentgemma-9b"
 #: the 2048 window (where the reference's cache agrees with the port's,
 #: ROADMAP C25), then 16 greedy steps over the ring
 HYBRID_DECODE = dict(batch=2, prompt=4096, new_tokens=16)
-#: its training at 4 of its 12 pattern cycles plus the 2-block tail (14
-#: layers, 3.37 B parameters: 40 GB at 12 bytes a parameter before
-#: activations; all 38 layers, 5.70 B, would hold ~68 GB, too much beside
-#: the 256000-word logits and their gradients on one 80 GB card), train_4k's
-#: sequence with the batch cut to 2, the train CLI's learning rate and
-#: its cosine schedule
-HYBRID_TRAIN = dict(units=4, batch=2, seq=4096, steps=5, lr=3e-4)
+#: its training at 2 of its 12 pattern cycles plus the 2-block tail (8
+#: layers, ~2.79 B parameters; all 38 layers, 5.70 B, would hold ~68 GB
+#: at 12 bytes a parameter, too much beside the 256000-word logits and
+#: their gradients on one 80 GB card; 14 layers kept the script past its
+#: time: the profile of a step processes ~117 k eager kernels there),
+#: train_4k's sequence with the batch cut to 2, the train CLI's learning
+#: rate and its cosine schedule
+HYBRID_TRAIN = dict(units=2, batch=2, seq=4096, steps=5, lr=3e-4)
 #: kernel vs plain route: float32, one pattern cycle plus the tail (5
 #: layers, 2.5 B float32 parameters), one 4096 sequence
 HYBRID_ROUTE_UNITS = 1
+ENCDEC_ARCH = "whisper-medium"
+#: whisper-medium at its published width and depth (24 encoder and 24
+#: decoder layers, 1.012 B parameters): 2 x 4096 frames, Whisper's
+#: 448-token decoder prompt (repro/launch/specs.py:26), the self cache
+#: padded by 16, then 16 greedy steps
+ENCDEC_DECODE = dict(batch=2, frames=4096, prompt=448, new_tokens=16,
+                     headroom=16)
+#: its training: 2 x 4096 tokens over 2 x 4096 frames (train_4k's
+#: sequence, the batch cut to 2), remat, 5 steps of the cosine schedule
+#: at the train CLI's learning rate; the route check is dense_route_phase's
+#: (float32, 2 encoder + 2 decoder layers, 1 x 4096)
+ENCDEC_TRAIN = dict(batch=2, seq=4096, steps=5, lr=3e-4)
+#: the FLASH_CASES label of its layer (its plain backward is timed there)
+ENCDEC_FLASH = "whisper-medium layer (non-causal)"
+VISION_ARCH = "llava-next-34b"
+#: llava-next-34b served at its published width and depth: 60 layers,
+#: 34.389 B parameters, 68.78 GB in bf16; with the page pool for 8 slots
+#: of ~1000 positions (245760 bytes a position), the decode check's three
+#: copies of it and the activations, ~78 GB of the card's 85.0 (reckoned
+#: again in serve_phase before the weights are made); 32 greedy tokens a
+#: request after its 576 soft tokens
+VISION_SERVE = dict(layers=60, new_tokens=32)
 #: flash_attention's shapes (b, h, hkv, s, d, causal, window): the train
 #: phase's layer first (its timing shape); a synthetic GQA 32/8 shape at
 #: D 128 (no config has it: yi-34b, 56/8 at D 128, is the nearest); the
@@ -313,8 +362,10 @@ HYBRID_ROUTE_UNITS = 1
 #: mistral-nemo-12b (GQA 32/8, D 160, as the repo's config resolves it);
 #: the local-attention window of recurrentgemma-9b (local_window's
 #: default, 2048) at minicpm-2b's heads; the DP rank's layer;
-#: olmoe-1b-7b's train layer (MHA 16/16, D 128); and recurrentgemma-9b's
-#: local layer itself (MQA 16/1 at D 256, window 2048)
+#: olmoe-1b-7b's train layer (MHA 16/16, D 128); recurrentgemma-9b's
+#: local layer itself (MQA 16/1 at D 256, window 2048); and whisper-
+#: medium's layer (MHA 16/16, D 64, non-causal: its encoder and its
+#: cross-attention)
 FLASH_CASES = (("minicpm-2b train layer", 2, 36, 36, 4096, 64, True, None),
                ("synthetic GQA 32/8 D 128 (nearest config: yi-34b 56/8)",
                 1, 32, 8, 4096, 128, True, None),
@@ -328,7 +379,8 @@ FLASH_CASES = (("minicpm-2b train layer", 2, 36, 36, 4096, 64, True, None),
                ("olmoe-1b-7b train layer", 2, 16, 16, 4096, 128, True,
                 None),
                ("recurrentgemma-9b local layer", 2, 16, 1, 4096, 256, True,
-                2048))
+                2048),
+               (ENCDEC_FLASH, 2, 16, 16, 4096, 64, False, None))
 #: kernel vs plain lse (float32 sums of up to 4096 terms in other
 #: orders, lse of magnitude ~10): 1e-4 absolute
 LSE_TOL = 1e-4
@@ -342,10 +394,12 @@ BF16_GRAD_TOL = 2.0 ** -6
 #: the two sums (~1e-6) where the output is near 0
 O_FLOOR = 1e-5
 #: the FLASH_CASES at which the bf16 check must reject FLASH_FAULTS
-FAULT_CASES = ("minicpm-2b train layer", "recurrentgemma-9b local layer")
+FAULT_CASES = ("minicpm-2b train layer", "recurrentgemma-9b local layer",
+               ENCDEC_FLASH)
 #: deliberate faults the bf16 check must reject
 FLASH_FAULTS = ("P rounded to bf16 before P V",
-                "key i dropped from row i (causal mask off by one)",
+                "key i dropped from row i (the diagonal: a causal mask off "
+                "by one)",
                 "first KV tile dropped for rows >= S/2")
 #: deliberate faults the paged kernel's bf16 check must reject, at the
 #: long-context shapes (``paged_faulty``)
@@ -663,6 +717,9 @@ PAGED_CASES = (
      [1, 0, 37, 100, 157, 211, 290, 383], torch.float32, False),
     ("olmoe-1b-7b decode (serving shape)", 8, 16, 16, 128, 16, 201,
      [1, 0, 37, 100, 157, 211, 290, 383], torch.bfloat16, True),
+    ("llava-next-34b decode (serving shape, 576 soft positions a row)", 8,
+     56, 8, 128, 16, 480, [577, 650, 700, 733, 820, 871, 900, 944],
+     torch.bfloat16, True),
 )
 
 
@@ -994,7 +1051,10 @@ def scan_kernel_phase(seed: int) -> list:
 
 
 # --------------------------- serve phase ----------------------------- #
-def make_requests(cfg, seed: int):
+def make_requests(cfg, seed: int, new_tokens: int = SERVE["new_tokens"]):
+    """The serve phase's requests; a vision config's each carry
+    ``frontend_tokens`` soft tokens from ``vision_patches``, drawn from a
+    generator seeded with the request id (as the serve CLI draws them)."""
     rng = np.random.default_rng(seed)
     system = [rng.integers(0, cfg.vocab_size, SERVE["system_len"])
               for _ in range(SERVE["system_prompts"])]
@@ -1003,8 +1063,13 @@ def make_requests(cfg, seed: int):
         sfx = rng.integers(0, cfg.vocab_size,
                            int(rng.integers(*SERVE["suffix"], endpoint=True)))
         prompt = np.concatenate([system[rid % len(system)], sfx])
+        soft = None
+        if cfg.frontend == "vision":
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(rid)
+            soft = vision_patches(gen, cfg, 1, "cuda")
         reqs.append(Request(rid=rid, prompt=prompt.astype(np.int32),
-                            max_new_tokens=SERVE["new_tokens"]))
+                            max_new_tokens=new_tokens, soft_emb=soft))
     return reqs
 
 
@@ -1064,21 +1129,46 @@ def decode_check(server, snap: dict) -> float:
     return float((logits[True] - logits[False]).abs().max())
 
 
+def serve_reckoning(cfg, max_len: int) -> float:
+    """GB the serve phase holds at its peak: the bf16 weights, the page
+    pool of SERVE['batch'] slots and its three copies (the mid-run
+    snapshot and the decode check's two), and 1 GB of activations."""
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(
+        init_params(cfg, device="meta")))
+    blocks = SERVE["batch"] * -(-max_len // SERVE["block_size"]) + 1
+    pool = (2 * cfg.num_layers * blocks * SERVE["block_size"]
+            * cfg.num_kv_heads * cfg.resolved_head_dim * 2)
+    return (weights + 4 * pool) / 1e9 + 1.0
+
+
 def serve_phase(seed: int, kernel_row, arch: str = SERVE_ARCH) -> None:
-    """``arch`` at its published width and depth through the server.  The
-    launch count goes into ``kernel_row`` when one is given (the kernels
-    line keeps the dense serve phase's)."""
+    """``arch`` at its published width through the server (at
+    VISION_SERVE's depth and tokens for the vision config, whose requests
+    carry their soft tokens), reckoned against the card's memory first.
+    The launch count adds to ``kernel_row`` when one is given (the MoE
+    serve phase passes none)."""
     cfg = get_config(arch)
+    new_tokens = SERVE["new_tokens"]
+    if cfg.frontend == "vision":
+        cfg = with_layer_units(cfg, VISION_SERVE["layers"])
+        new_tokens = VISION_SERVE["new_tokens"]
+    max_len = (SERVE["system_len"] + SERVE["suffix"][1] + new_tokens
+               + cfg.frontend_tokens + SERVE["block_size"])
+    total_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    reckoned = serve_reckoning(cfg, max_len)
+    assert reckoned < total_gb, (reckoned, total_gb)
     t0 = time.perf_counter()
     params = init_params(cfg, seed=seed, device="cuda")
     torch.cuda.synchronize()
     log(f"serve {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.num_heads} heads x {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads x "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, "
         f"vocab {cfg.vocab_size}, {cfg.dtype}; {cfg.param_count() / 1e9:.3f}"
         f"B params, random weights (seed {seed}) in "
-        f"{time.perf_counter() - t0:.1f} s")
-    max_len = (SERVE["system_len"] + SERVE["suffix"][1] + SERVE["new_tokens"]
-               + SERVE["block_size"])
+        f"{time.perf_counter() - t0:.1f} s; {cfg.frontend_tokens} soft "
+        f"tokens a request | reckoned peak {reckoned:.2f} GB (weights, the "
+        f"page pool and its three copies, 1 GB of activations) of the "
+        f"card's {total_gb:.3f} GB")
     kw = dict(block_size=SERVE["block_size"],
               prefill_chunk=SERVE["prefill_chunk"], device="cuda")
     # warm-up on a throwaway server: cuBLAS handles, allocator, kernel
@@ -1094,7 +1184,7 @@ def serve_phase(seed: int, kernel_row, arch: str = SERVE_ARCH) -> None:
                   for p in server.pages.values()) / 1e9
     log(f"KV pool: {server.allocator.num_blocks} blocks of "
         f"{SERVE['block_size']} tokens, {pool_gb:.3f} GB")
-    reqs = make_requests(cfg, seed)
+    reqs = make_requests(cfg, seed, new_tokens)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -1116,17 +1206,24 @@ def serve_phase(seed: int, kernel_row, arch: str = SERVE_ARCH) -> None:
     snap = server.snapshot()
     assert sorted(results) == list(range(SERVE["requests"]))
     for rid, toks in results.items():
-        assert len(toks) == SERVE["new_tokens"], (rid, len(toks))
+        assert len(toks) == new_tokens, (rid, len(toks))
         assert all(0 <= t < cfg.vocab_size for t in toks), rid
     assert err <= TOL[torch.bfloat16], \
         f"mid-run decode logits kernel vs plain differ by {err}"
-    assert snap.cached_prefix_tokens > 0, "prefix cache never hit"
+    if cfg.frontend == "vision":
+        # the reference's rule: a vision request's prefix is not its
+        # tokens, so it is never cached
+        assert snap.cached_prefix_tokens == 0, snap.cached_prefix_tokens
+        log("serve: cached prefix tokens 0, as expected: vision requests "
+            "are never prefix-cached (the reference's rule)")
+    else:
+        assert snap.cached_prefix_tokens > 0, "prefix cache never hit"
     want = snap.decode_steps * cfg.num_layers
     assert counts["paged_attention"] == want, (counts, want)
     if kernel_row is not None:
-        kernel_row["launches"] = counts["paged_attention"]
+        kernel_row["launches"] += counts["paged_attention"]
     tokens = sum(len(v) for v in results.values())
-    log(f"serve: {len(results)} requests x {SERVE['new_tokens']} tokens, "
+    log(f"serve: {len(results)} requests x {new_tokens} tokens, "
         f"{tokens} tokens in {wall:.3f} s = {tokens / (wall - t_probe):.1f} "
         f"tok/s (excluding {t_probe:.3f} s to copy the mid-run state)")
     log(f"serve: ttft p50 {snap.ttft_p50_ms:.1f} ms p99 "
@@ -1140,7 +1237,8 @@ def serve_phase(seed: int, kernel_row, arch: str = SERVE_ARCH) -> None:
         f"{snap.decode_steps} decode steps x {cfg.num_layers} layers | "
         f"mid-run decode logits kernel vs plain max_abs_err {err:.3e} "
         f"(tol 5e-2) | max_memory_allocated "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB (reckoned "
+        f"{reckoned:.2f})")
     if cfg.family == "moe":
         # every decode step's expert products read every expert's weights
         nbytes = (cfg.num_layers * 3 * cfg.num_experts * cfg.d_model
@@ -1155,10 +1253,18 @@ def serve_phase(seed: int, kernel_row, arch: str = SERVE_ARCH) -> None:
 
 
 # --------------------------- train phase ----------------------------- #
-def lm_batch(cfg, batch: int, seq: int, step: int) -> dict:
-    data = SyntheticLMDataset(DataConfig(cfg.vocab_size, seq, batch))
-    return {k: torch.from_numpy(v).cuda()
-            for k, v in data.batch(step).items()}
+def lm_batch(cfg, batch: int, seq: int, step: int, seed: int = 0) -> dict:
+    """``seq`` positions a row on the card through
+    ``launch.train.build_batch``: the pipeline's tokens and labels, with
+    the encoder-decoder's frames [B, seq, D], or a vision config's
+    ``frontend_tokens`` soft tokens in front of seq - frontend_tokens
+    tokens (the chunked attention needs the positions, not the tokens, to
+    fill its 1024-key chunks); the frontend draws seeded from (seed,
+    step)."""
+    n = seq - cfg.frontend_tokens if cfg.frontend == "vision" else seq
+    data = SyntheticLMDataset(DataConfig(cfg.vocab_size, n, batch))
+    return build_batch(cfg, data.batch(step),
+                       step_generator(seed, step, "cuda"), "cuda")
 
 
 def timed_step(step_fn, state, batch):
@@ -1391,10 +1497,11 @@ def bf16_ratio(o: torch.Tensor, o_ref: torch.Tensor) -> float:
                   / (bf16_ulp(o_ref) + O_FLOOR)).max())
 
 
-def flash_faulty(q, k, v, fault: str, window=None) -> torch.Tensor:
-    """Causal attention (with ``window``, if given) of q's heads over k's
-    and v's, which have as many heads or one (MQA, broadcast), as the
-    plain version computes it in float32, with one deliberate fault of
+def flash_faulty(q, k, v, fault: str, causal: bool = True,
+                 window=None) -> torch.Tensor:
+    """Attention (causal or not, with ``window``, if given) of q's heads
+    over k's and v's, which have as many heads or one (MQA, broadcast), as
+    the plain version computes it in float32, with one deliberate fault of
     FLASH_FAULTS; the output rounded to q's dtype."""
     s = q.shape[2]
     qf, kf, vf = q.float() / q.shape[3] ** 0.5, k.float(), v.float()
@@ -1402,9 +1509,10 @@ def flash_faulty(q, k, v, fault: str, window=None) -> torch.Tensor:
     outs = []
     for q0 in range(0, s, FLASH_CHUNK):
         rows = torch.arange(q0, q0 + FLASH_CHUNK, device=q.device)[:, None]
-        keep = keys <= rows
+        keep = keys <= rows if causal else (keys >= 0) & (rows >= 0)
         if fault == FLASH_FAULTS[1]:
-            keep = (keys < rows) | (keys + rows == 0)
+            # row 0 keeps its key: a causal row 0 has no other
+            keep = keep & ((keys != rows) | (keys + rows == 0))
         elif fault == FLASH_FAULTS[2]:
             keep &= (rows < s // 2) | (keys >= 64)
         if window is not None:
@@ -1419,12 +1527,13 @@ def flash_faulty(q, k, v, fault: str, window=None) -> torch.Tensor:
 
 def flash_kernel_phase(seed: int) -> dict:
     """Row 4 of the kernel table: the flash kernel against its plain
-    version on the card (output and lse) at the train, GQA and window
-    shapes in bf16 and float32, timed beside its bound and one PyTorch
-    call; the bf16 check shown to reject deliberate faults; the gradient
-    of FlashAttentionFn against autograd through the plain version in
-    float32, and in bf16 (the wgmma forward) against the plain backward;
-    the plain backward timed at the train shape."""
+    version on the card (output and lse) at FLASH_CASES (the train, GQA,
+    window and non-causal shapes) in bf16 and float32, timed beside its
+    bound and one PyTorch call; the bf16 check shown to reject deliberate
+    faults; the gradient of FlashAttentionFn against autograd through the
+    plain version in float32, and in bf16 (the wgmma forward) against the
+    plain backward; the plain backward timed at the train shape and at
+    whisper-medium's layer."""
     err, main = 0.0, None
     for i, (label, b, h, hkv, s, d, causal, window) in enumerate(
             FLASH_CASES):
@@ -1456,8 +1565,8 @@ def flash_kernel_phase(seed: int) -> dict:
                 assert e_o <= TOL[dtype] and e_l <= LSE_TOL, (label, dtype,
                                                               e_o, e_l)
             if label in FAULT_CASES and dtype == torch.bfloat16:
-                faults = {f: bf16_ratio(flash_faulty(q, k, v, f, window),
-                                        o_ref)
+                faults = {f: bf16_ratio(flash_faulty(q, k, v, f, causal,
+                                                     window), o_ref)
                           for f in FLASH_FAULTS}
                 assert min(faults.values()) > 1.0, faults
                 log(f"kernel flash_attention bf16 check vs deliberate "
@@ -1471,6 +1580,16 @@ def flash_kernel_phase(seed: int) -> dict:
             lib_ms = time_ms(lambda: sdpa(q, k, v, causal, window), reps=20)
             bound_ms, bound_by = flash_bound(q, k, causal, window)
             err = max(err, e_o)
+            if label == ENCDEC_FLASH and dtype == torch.bfloat16:
+                # whisper's train step runs the plain backward 72 times
+                o, lse = flash_attention_cuda(q, k, v, causal, window)
+                do = torch.randn(q.shape, device="cuda").to(q.dtype)
+                bwd_ms = time_ms(lambda: flash_attention_bwd_ref(
+                    q, k, v, o, lse, do, causal, window), reps=3, warmup=1)
+                log(f"kernel flash_attention {label}: plain backward "
+                    f"(flash_attention_bwd_ref, the train step's) "
+                    f"{bwd_ms:.4f} ms")
+                del o, lse, do
             log(f"kernel flash_attention {label}: B={b} H={h} Hkv={hkv} "
                 f"S={s} D={d} causal={causal} window={window} "
                 f"{str(dtype).split('.')[-1]}, variant {variant} "
@@ -1479,7 +1598,9 @@ def flash_kernel_phase(seed: int) -> dict:
                 f"{e_l:.3e} (tol {LSE_TOL:.0e}) | kernel {ms:.4f} ms | "
                 f"bound {bound_ms:.4f} ms ({bound_by}) | "
                 f"{bound_ms / ms:.1%} of bound | sdpa "
-                f"{lib_ms:.4f} ms")
+                f"{lib_ms:.4f} ms"
+                + (" (float32, TF32 off)" if dtype == torch.float32
+                   else ""))
             if main is None:
                 main = (q, k, v, causal, window, ms, lib_ms, bound_ms,
                         bound_by)
@@ -1649,8 +1770,11 @@ def dense_lr_witness(seed: int) -> None:
 
 
 def attention_layers(cfg) -> int:
-    """The layers of ``cfg`` with self-attention (the hybrid's local
-    blocks; every layer of the other families)."""
+    """The attention calls of one forward of ``cfg``: the hybrid's local
+    blocks; the encoder-decoder's encoder layers and each decoder layer's
+    two (self and cross); every layer of the other families."""
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + 2 * cfg.num_layers
     if cfg.family != "hybrid":
         return cfg.num_layers
     pattern = cfg.block_pattern
@@ -1674,7 +1798,7 @@ def dense_route_phase(seed: int, arch: str = DENSE_ARCH) -> None:
                               dtype="float32")
     opt_cfg = AdamWConfig(lr=DENSE_ROUTE["lr"], warmup_steps=1,
                           total_steps=5, schedule="wsd")
-    batch = lm_batch(cfg, DENSE_ROUTE["batch"], DENSE_ROUTE["seq"], 0)
+    batch = lm_batch(cfg, DENSE_ROUTE["batch"], DENSE_ROUTE["seq"], 0, seed)
     out, launches = {}, {}
     for use_kernel in (True, False):
         state = init_train_state(init_params(cfg, seed=seed, device="cuda"))
@@ -1725,10 +1849,15 @@ def dense_route_phase(seed: int, arch: str = DENSE_ARCH) -> None:
     # the scan's route check
     assert d_loss < 1e-4 and d_gnorm < 1e-4 and d_grad < 1e-4 \
         and d_param < 1e-5, (arch, d_loss, d_gnorm, d_grad, d_param)
-    log(f"dense route {arch} kernel vs plain ({cfg.num_layers} layers, "
-        f"{cfg.num_heads}/{cfg.num_kv_heads} heads x "
+    log(f"dense route {arch} kernel vs plain ({cfg.num_layers} layers"
+        + (f" + {cfg.encoder_layers} encoder layers" if cfg.encoder_layers
+           else "")
+        + f", {cfg.num_heads}/{cfg.num_kv_heads} heads x "
         f"{cfg.resolved_head_dim}, float32, {DENSE_ROUTE['batch']} x "
-        f"{DENSE_ROUTE['seq']}): flash_attention launches in the kernel "
+        f"{DENSE_ROUTE['seq']} positions"
+        + (f" ({cfg.frontend_tokens} of them soft tokens)"
+           if cfg.frontend_tokens else "")
+        + f"): flash_attention launches in the kernel "
         f"step {launches} | loss rel diff {d_loss:.3e} (tol 1e-4) | "
         f"grad_norm rel diff {d_gnorm:.3e} (tol 1e-4) | gradients, max over "
         f"leaves of err / max|plain| {d_grad:.3e} (tol 1e-4) | params "
@@ -1962,7 +2091,7 @@ def hybrid_train_phase(seed: int, rows: dict) -> None:
 
 def hybrid_phase(seed: int, rows: dict) -> None:
     """The hybrid family's main path: prefill + decode at full depth,
-    training at 14 layers, and the float32 kernel-vs-plain route check
+    training at 8 layers, and the float32 kernel-vs-plain route check
     (the flash kernel at D 256 is in the kernel phase's FLASH_CASES)."""
     walls = []
     for part in (lambda: hybrid_decode_phase(seed, rows),
@@ -1975,6 +2104,201 @@ def hybrid_phase(seed: int, rows: dict) -> None:
     log(f"hybrid phase: {sum(walls):.1f} s (prefill + decode "
         f"{walls[0]:.1f} s, train {walls[1]:.1f} s, float32 route check "
         f"{walls[2]:.1f} s)")
+
+
+# ------------------------ encoder-decoder phase ------------------------ #
+def encdec_decode_phase(seed: int, rows: dict) -> None:
+    """whisper-medium at full width and depth: 2 x 4096 frames and a
+    448-token prompt through ``prefill`` (one wgmma flash launch,
+    non-causal, for each of the 24 encoder layers; the decoder's
+    attentions over 448 queries take the direct path), the self cache
+    padded by 16, 16 greedy decode steps (no launch), every step's logits
+    held against the teacher-forced forward over the same frames."""
+    cfg = get_config(ENCDEC_ARCH)
+    params = init_params(cfg, seed=seed, device="cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    b, new = ENCDEC_DECODE["batch"], ENCDEC_DECODE["new_tokens"]
+    n_prompt = ENCDEC_DECODE["prompt"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    frames = audio_frames(gen, cfg, b, ENCDEC_DECODE["frames"], "cuda")
+    prompt = lm_batch(cfg, b, n_prompt, 1)["tokens"]
+    prefill_step = make_prefill_step(cfg)
+    decode_step = make_decode_step(cfg)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill_step(params, {"frames": frames,
+                                          "tokens": prompt})
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want = dict.fromkeys(ops.WRAPPERS, 0)
+    want["flash_attention"] = cfg.encoder_layers
+    assert counts == want, (counts, want)
+    variants = ops.variant_launch_counts()["flash_attention"]
+    assert variants == {"simt_f32": 0, "mma_sync": 0,
+                        "wgmma": cfg.encoder_layers}, variants
+    rows["flash_attention"]["launches"] += counts["flash_attention"]
+    assert tuple(cache["enc_k"].shape) == (
+        cfg.num_layers, b, ENCDEC_DECODE["frames"], cfg.num_kv_heads,
+        cfg.resolved_head_dim), cache["enc_k"].shape
+    # C10: the self cache is exactly the prompt's length; the cross cache
+    # is never padded
+    pad = (0, 0, 0, 0, 0, ENCDEC_DECODE["headroom"])
+    cache = dict(cache, k=torch.nn.functional.pad(cache["k"], pad),
+                 v=torch.nn.functional.pad(cache["v"], pad))
+    steps, toks = [logits], []
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(new):
+        nxt = steps[-1][:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        toks.append(nxt)
+        logits, cache = decode_step(params, cache, {"tokens": nxt})
+        steps.append(logits)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    assert not any(ops.launch_counts().values()), ops.launch_counts()
+    assert int(cache["pos"]) == n_prompt + new
+    del cache
+    seq = torch.cat([prompt] + toks, dim=1)
+    with torch.no_grad():
+        full, _ = forward_train(params, cfg, {"frames": frames,
+                                              "tokens": seq})
+    got = torch.cat(steps, dim=1)
+    want_logits = full[:, n_prompt - 1:n_prompt + new]
+    del full
+    errs = (got - want_logits).abs().amax(dim=(0, 2))
+    # bf16 model: both sides round every GEMM output and the logits to
+    # bf16, in GEMMs of other shapes (M = 2 per decode step vs 2 x 464):
+    # the dense decode check's bound, 2 bf16 ulps of the largest logit
+    tol = 2 * float(bf16_ulp(want_logits.abs().max()))
+    assert torch.isfinite(got).all() and float(errs.max()) <= tol, \
+        (errs.tolist(), tol)
+    log(f"encdec prefill + decode ({cfg.encoder_layers} + "
+        f"{cfg.num_layers} layers, {cfg.num_heads}/{cfg.num_kv_heads} x "
+        f"{cfg.resolved_head_dim}, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}; {n_params / 1e9:.3f}B params, param_count() "
+        f"{cfg.param_count() / 1e9:.3f}B, {cfg.dtype}): prefill {b} x "
+        f"{ENCDEC_DECODE['frames']} frames + {b} x {n_prompt} tokens in "
+        f"{t_prefill * 1e3:.1f} ms (flash_attention launches "
+        f"{counts['flash_attention']}, one per encoder layer, all wgmma, "
+        f"non-causal) | self cache padded by {ENCDEC_DECODE['headroom']} | "
+        f"{new} greedy decode steps in {t_decode * 1e3:.1f} ms = "
+        f"{t_decode / new * 1e3:.1f} ms a step (no kernel: direct "
+        f"attention over the self and the cross cache) | logits vs "
+        f"teacher-forced forward max_abs_err: prefill {float(errs[0]):.3e}, "
+        f"steps {float(errs[1:].max()):.3e} (tol {tol:.3e}: 2 bf16 ulps of "
+        f"the largest logit)")
+
+
+def encdec_train_phase(seed: int, rows: dict) -> None:
+    """whisper-medium at full width and depth, bf16, remat: the memory
+    reckoned first, then ENCDEC_TRAIN's AdamW steps (loss, step wall,
+    decoder tok/s, peak memory), every attention in the flash kernel
+    (the encoder's and the cross-attention's non-causal; forward and
+    recompute), one step profiled."""
+    cfg = get_config(ENCDEC_ARCH)
+    p = sum(t.numel() for t in tree_leaves(init_params(cfg, device="meta")))
+    b, seq = ENCDEC_TRAIN["batch"], ENCDEC_TRAIN["seq"]
+    # params + grads (bf16) + AdamW moments (float32), then the float32
+    # logits and their gradient
+    state_gb = 12 * p / 1e9
+    logits_gb = 2 * b * seq * cfg.vocab_size * 4 / 1e9
+    t0 = time.perf_counter()
+    state = init_train_state(init_params(cfg, seed=seed, device="cuda"))
+    torch.cuda.synchronize()
+    log(f"encdec train {cfg.name}: {cfg.encoder_layers} + "
+        f"{cfg.num_layers} layers at full width, {cfg.dtype}; "
+        f"{p / 1e9:.3f}B params; reckoned: params + grads (bf16) + AdamW "
+        f"moments (float32) {state_gb:.2f} GB + float32 logits and their "
+        f"gradient {logits_gb:.2f} GB = {state_gb + logits_gb:.2f} GB "
+        f"before the other activations and the plain backward's tiles; "
+        f"random weights (seed {seed}) and AdamW state in "
+        f"{time.perf_counter() - t0:.1f} s")
+    steps = ENCDEC_TRAIN["steps"]
+    opt_cfg = AdamWConfig(lr=ENCDEC_TRAIN["lr"],
+                          warmup_steps=max(steps // 20, 1),
+                          total_steps=steps, schedule="cosine")
+    step_fn = make_train_step(cfg, opt_cfg)
+    batches = [lm_batch(cfg, b, seq, i, seed) for i in range(steps + 1)]
+    tokens = b * seq
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, walls = [], []
+    for i in range(steps):
+        state, metrics, loss, wall = timed_step(step_fn, state, batches[i])
+        losses.append(loss)
+        walls.append(wall)
+        log(f"encdec train step {i}: loss {loss:.4f} | grad_norm "
+            f"{float(metrics['grad_norm']):.3f} | lr {metrics['lr']:.2e} | "
+            f"wall {wall * 1e3:.1f} ms | {tokens / wall:.1f} decoder tok/s")
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], f"loss did not fall: {losses}"
+    per_step = 2 * attention_layers(cfg)
+    want = dict.fromkeys(ops.WRAPPERS, 0)
+    want["flash_attention"] = per_step * steps
+    assert counts == want, (counts, want)
+    variants = ops.variant_launch_counts()["flash_attention"]
+    assert variants == {"simt_f32": 0, "mma_sync": 0,
+                        "wgmma": want["flash_attention"]}, variants
+    rows["flash_attention"]["launches"] += counts["flash_attention"]
+    steady = float(np.median(walls[1:]))
+    log(f"encdec train: {steps} steps of {b} x {seq} tokens over {b} x "
+        f"{seq} frames, loss {losses[0]:.4f} -> {losses[-1]:.4f} | step "
+        f"wall median of steps 1-{steps - 1} {steady * 1e3:.1f} ms (step 0 "
+        f"{walls[0] * 1e3:.1f} ms) = {tokens / steady:.1f} decoder tok/s | "
+        f"max_memory_allocated {peak_gb:.3f} GB (reckoned "
+        f"{state_gb + logits_gb:.2f} GB before the other activations; "
+        f"max_memory_reserved {torch.cuda.max_memory_reserved() / 1e9:.3f} "
+        f"GB) | flash_attention launches per step "
+        f"{counts['flash_attention'] // steps} = 2 x ({cfg.encoder_layers} "
+        f"encoder + {cfg.num_layers} decoder self + {cfg.num_layers} cross): "
+        f"forward and remat recompute, all wgmma, "
+        f"{2 * (cfg.encoder_layers + cfg.num_layers)} of them non-causal")
+    holder = {"state": state}
+
+    def one_step():
+        holder["state"], _ = step_fn(holder["state"], batches[steps])
+    log(f"profile of one encdec train step (kernel route): "
+        f"{profile_step(one_step)}")
+
+
+def encdec_phase(seed: int, rows: dict) -> None:
+    """The encoder-decoder family's main path: prefill + decode and
+    training at full width and depth, and the float32 kernel-vs-plain
+    route check (the flash kernel at its layer is in the kernel phase's
+    FLASH_CASES)."""
+    walls = []
+    for part in (lambda: encdec_decode_phase(seed, rows),
+                 lambda: encdec_train_phase(seed, rows),
+                 lambda: dense_route_phase(seed, ENCDEC_ARCH)):
+        t0 = time.perf_counter()
+        part()
+        torch.cuda.empty_cache()
+        walls.append(time.perf_counter() - t0)
+    log(f"encdec phase: {sum(walls):.1f} s (prefill + decode "
+        f"{walls[0]:.1f} s, train {walls[1]:.1f} s, float32 route check "
+        f"{walls[2]:.1f} s)")
+
+
+def vision_phase(seed: int, rows: dict) -> None:
+    """The vision config's main path: llava-next-34b served with its soft
+    tokens, then the float32 kernel-vs-plain route check with 576 soft
+    tokens in front of 3520 tokens."""
+    walls = []
+    for part in (lambda: serve_phase(seed, rows["paged_attention"],
+                                     VISION_ARCH),
+                 lambda: dense_route_phase(seed, VISION_ARCH)):
+        t0 = time.perf_counter()
+        part()
+        torch.cuda.empty_cache()
+        walls.append(time.perf_counter() - t0)
+    log(f"vision phase: {sum(walls):.1f} s (serve {walls[0]:.1f} s, float32 "
+        f"route check {walls[1]:.1f} s)")
 
 
 # ---------------------- multi_add and matmul_tiled --------------------- #
@@ -2049,10 +2373,11 @@ def collective_kernel_phase(seed: int) -> list:
             f"{MM_TOL[dtype]:.0e}) | kernel {ms:.4f} ms | bound "
             f"{bound_ms:.4f} ms ({bound_by}) | {bound_ms / ms:.1%} of bound "
             f"| {2 * m * n * k / ms / 1e9:.1f} TFLOP/s")
-        if dtype == torch.float32:
-            log(f"kernel matmul_tiled {label}: library "
-                f"{time_ms(lambda: torch.matmul(x, w), reps=20):.4f} ms "
-                f"(torch.matmul in float32, TF32 off)")
+        log(f"kernel matmul_tiled {label}: library "
+            f"{time_ms(lambda: torch.matmul(x, w), reps=20):.4f} ms "
+            f"(torch.matmul, cuBLAS"
+            + (", float32 with TF32 off)" if dtype == torch.float32
+               else ")"))
         if mm_main is None:
             mm_main = (x, w, ms, bound_ms, bound_by)
     x, w, ms, bound_ms, bound_by = mm_main
@@ -3572,53 +3897,48 @@ def main(argv=None) -> int:
                 entry = line.split("'")[1]
             elif "registers" in line or "spill" in line:
                 log(f"ptxas {res.name} {entry}: {line.strip()}")
-    rows = {r["name"]: r for r in [kernel_phase(args.seed),
-                                   *collective_kernel_phase(args.seed),
-                                   flash_kernel_phase(args.seed),
-                                   *scan_kernel_phase(args.seed)]}
-    torch.cuda.empty_cache()
-    serve_phase(args.seed, rows["paged_attention"])
-    torch.cuda.empty_cache()
-    train_phase(args.seed, rows)
-    torch.cuda.empty_cache()
-    route_phase(args.seed)
-    decode_phase(args.seed, rows)
-    torch.cuda.empty_cache()
-    dense_train_phase(args.seed, rows)
-    torch.cuda.empty_cache()
-    dense_route_phase(args.seed)
-    torch.cuda.empty_cache()
-    for arch in C12_ARCHS:
-        dense_route_phase(args.seed, arch)
+    walls = []
+
+    def run(name, fn, *fn_args):
+        """One phase, then the card's cache emptied; its wall kept for the
+        closing breakdown (the script's time limit is the whole's)."""
+        t = time.perf_counter()
+        out = fn(*fn_args)
         torch.cuda.empty_cache()
-    torch.cuda.empty_cache()
-    dense_decode_phase(args.seed)
-    torch.cuda.empty_cache()
-    hybrid_phase(args.seed, rows)
-    torch.cuda.empty_cache()
-    collective_phase(args.seed)
-    torch.cuda.empty_cache()
-    collective_2d_phase(args.seed)
-    torch.cuda.empty_cache()
-    fused_phase(args.seed, rows)
-    torch.cuda.empty_cache()
-    dp_train_phase(args.seed)
-    torch.cuda.empty_cache()
-    tp_decode_phase(args.seed)
-    torch.cuda.empty_cache()
-    serve_phase(args.seed, None, MOE_ARCH)
-    torch.cuda.empty_cache()
-    moe_train_phase(args.seed)
-    torch.cuda.empty_cache()
-    dense_route_phase(args.seed, MOE_ARCH)
-    torch.cuda.empty_cache()
-    ep_forward_phase(args.seed)
-    torch.cuda.empty_cache()
-    dp_serve_phase(args.seed)
-    torch.cuda.empty_cache()
-    obs_phase(args.seed)
-    torch.cuda.empty_cache()
-    nccl_phase(args.seed)
+        walls.append((name, time.perf_counter() - t))
+        return out
+
+    seed = args.seed
+    rows = {r["name"]: r for r in run(
+        "kernels", lambda: [kernel_phase(seed),
+                            *collective_kernel_phase(seed),
+                            flash_kernel_phase(seed),
+                            *scan_kernel_phase(seed)])}
+    run("serve", serve_phase, seed, rows["paged_attention"])
+    run("ssm train", train_phase, seed, rows)
+    run("ssm route + decode",
+        lambda: (route_phase(seed), decode_phase(seed, rows)))
+    run("dense train", dense_train_phase, seed, rows)
+    for arch in (DENSE_ARCH, *C12_ARCHS):
+        run(f"route {arch}", dense_route_phase, seed, arch)
+    run("dense decode", dense_decode_phase, seed)
+    run("hybrid", hybrid_phase, seed, rows)
+    run("encdec", encdec_phase, seed, rows)
+    run("vision", vision_phase, seed, rows)
+    run("collectives", collective_phase, seed)
+    run("2D collectives", collective_2d_phase, seed)
+    run("fused ring", fused_phase, seed, rows)
+    run("dp train", dp_train_phase, seed)
+    run("tp decode", tp_decode_phase, seed)
+    run("moe serve", serve_phase, seed, None, MOE_ARCH)
+    run("moe train", moe_train_phase, seed)
+    run(f"route {MOE_ARCH}", dense_route_phase, seed, MOE_ARCH)
+    run("ep forward", ep_forward_phase, seed)
+    run("dp serve", dp_serve_phase, seed)
+    run("obs", obs_phase, seed)
+    run("nccl", nccl_phase, seed)
+    log("phase walls: " + " | ".join(f"{name} {wall:.1f} s"
+                                     for name, wall in walls))
     for r in rows.values():
         assert r["launches"] > 0 or r["name"] == "multi_add", \
             f"{r['name']} never ran on its path"

@@ -3,7 +3,8 @@
 The reference stacks every layer's weights into ``[L, ...]`` arrays for
 ``lax.scan``; the port keeps a list of per-layer dictionaries (the
 hybrid's ``cycles["b{j}"]`` ``[n_cycles, ...]`` arrays become lists of
-per-cycle dictionaries, and its unstacked ``tail`` list a tuple).  The
+per-cycle dictionaries, and its unstacked ``tail`` list a tuple; the
+encoder-decoder's ``encoder`` and ``layers`` stacks become lists too).  The
 input is the reference tree with its leaves already converted to numpy
 (``jax.tree.map(np.asarray, params)``), so this module imports nothing
 of JAX.  bfloat16 leaves arrive as ``ml_dtypes.bfloat16`` arrays, which
@@ -36,18 +37,17 @@ def tensor_from_numpy(arr: np.ndarray, device: torch.device
 
 def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig,
                     device: DeviceLike = None) -> Params:
-    """The reference's dense, MoE, SSM or hybrid parameter tree (numpy
-    leaves) as the port's parameters on ``device`` (default ``cuda``),
-    every ``[L, ...]`` leaf unstacked into the per-layer dictionaries (the
-    MoE ``router``, ``eg``, ``eu``, ``ed`` and the nested ``dense_mlp``
-    too; the hybrid's ``[n_cycles, ...]`` leaves into per-cycle ones).
+    """The reference's parameter tree of any family (numpy leaves) as the
+    port's parameters on ``device`` (default ``cuda``), every ``[L, ...]``
+    leaf unstacked into the per-layer dictionaries (the MoE ``router``,
+    ``eg``, ``eu``, ``ed`` and the nested ``dense_mlp`` too; the hybrid's
+    ``[n_cycles, ...]`` leaves into per-cycle ones; the encoder-decoder's
+    ``encoder`` and ``layers``, its ``enc_ln_f`` staying a leaf).
     Each leaf keeps its dtype: the SSM's float32 ``a_log`` and ``d_skip``,
     the MoE's float32 router and the RG-LRU's float32 ``lam`` stay
     float32 in a bfloat16 model."""
     if cfg.family not in INIT_FAMILIES:
-        raise NotImplementedError(
-            f"params_from_jax: the port covers families {INIT_FAMILIES}, "
-            f"not {cfg.family!r}")
+        raise ValueError(f"params_from_jax: unknown family {cfg.family!r}")
     dev = resolve_device(device)
     out: Params = {name: tensor_from_numpy(tree[name], dev)
                    for name in ("embed", "ln_f", "head")}
@@ -66,6 +66,10 @@ def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig,
                              for name, arr in block.items()}
                             for block in tree["tail"])
         return out
+    if cfg.family == "encdec":
+        out["encoder"] = [layer(tree["encoder"], i)
+                          for i in range(cfg.encoder_layers)]
+        out["enc_ln_f"] = tensor_from_numpy(tree["enc_ln_f"], dev)
     out["layers"] = [layer(tree["layers"], i)
                      for i in range(cfg.num_layers)]
     return out

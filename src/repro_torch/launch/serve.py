@@ -6,7 +6,11 @@
 serves the architecture at its published width with random weights;
 without ``--full-width`` it serves the ``.reduced()`` variant, as the
 reference CLI always does.  The flags are those of the reference CLI's
-single-server path, plus ``--device`` and ``--full-width``.
+single-server path, plus ``--device`` and ``--full-width``.  A vision
+config (``--arch llava-next-34b``) gives each request
+``frontend_tokens`` soft tokens from ``models.frontend.vision_patches``,
+drawn from a generator seeded with the request id; they lead its
+context, so ``max_len`` adds them.
 
 ``--dp`` stripes the slot rows over a 1-D ("data",) grid of every rank
 of the ``torch.distributed`` world and assembles the sampled tokens
@@ -24,8 +28,8 @@ are identical with and without ``--dp``.  ``--trace PATH``,
 trace the engine's collectives (the DP token assembly), print the
 model-error table and dump the metrics registry with the serving
 telemetry, as the reference does; under torchrun each process writes its
-own files.  The fleet flags are a later slice of the port (ROADMAP.md)
-and raise ``NotImplementedError``.
+own files.  The fleet flags are a later slice of the port (ROADMAP.md
+A.7 (c)) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,11 +39,13 @@ import hashlib
 import time
 
 import numpy as np
+import torch
 import torch.distributed as dist
 
 from repro_torch.collectives.comm import ProcessGroupGrid, single_rank_grid
 from repro_torch.configs import get_config
-from repro_torch.models import init_params, supports_paged
+from repro_torch.models import init_params
+from repro_torch.models.frontend import vision_patches
 from repro_torch.models.paged import PAGED_FAMILIES
 from repro_torch.obs import cli as obs_cli
 from repro_torch.serving import (ContinuousBatchingServer, Request,
@@ -116,7 +122,7 @@ def main(argv=None):
     if fleet:
         raise NotImplementedError(
             f"fleet flags {fleet}: the serving fleet is a later slice of "
-            f"the port (ROADMAP.md A)")
+            f"the port (ROADMAP.md A.7 (c))")
     obs_cli.begin(args.trace, args.obs_report, args.metrics_out)
     cfg = get_config(args.arch)
     if not args.full_width:
@@ -127,11 +133,6 @@ def main(argv=None):
             f"--arch {args.arch} (family {cfg.family!r}) is not servable: "
             f"the paged KV cache covers the dense and MoE decoder families "
             f"(constant-state families keep the dense training cache)")
-    if not supports_paged(cfg):
-        raise SystemExit(
-            f"--arch {args.arch} (family {cfg.family!r}, frontend "
-            f"{cfg.frontend!r}) is not servable by the port yet: the paged "
-            f"KV cache covers the dense and MoE text decoders")
     grid, batch, owns_world = None, args.batch, False
     if args.dp:
         owns_world = not dist.is_initialized()
@@ -152,13 +153,19 @@ def main(argv=None):
 def _serve(args, cfg, grid, batch, device):
     lead = grid is None or grid.rank == 0
     params = init_params(cfg, seed=0, device=device)
-    max_len = args.prompt_len + args.new_tokens + args.block_size
+    max_len = (args.prompt_len + args.new_tokens + cfg.frontend_tokens
+               + args.block_size)
     rng = np.random.default_rng(0)
     shared = [rng.integers(0, cfg.vocab_size,
                            size=max(args.prompt_len - 4, 1)).astype(np.int32)
               for _ in range(args.shared_prompts)]
 
     def make_request(rid):
+        soft = None
+        if cfg.frontend == "vision":
+            gen = torch.Generator(device=device)
+            gen.manual_seed(rid)
+            soft = vision_patches(gen, cfg, 1, device)
         if shared:
             # shared system prompt + short per-request suffix
             prompt = np.concatenate(
@@ -169,7 +176,8 @@ def _serve(args, cfg, grid, batch, device):
                                   size=args.prompt_len).astype(np.int32)
         return Request(rid=rid, prompt=prompt,
                        max_new_tokens=args.new_tokens,
-                       sampling=SamplingParams(temperature=args.temperature))
+                       sampling=SamplingParams(temperature=args.temperature),
+                       soft_emb=soft)
 
     server = ContinuousBatchingServer(cfg, params, batch,
                                       max_len=max_len, grid=grid,

@@ -29,9 +29,12 @@ through the paper's collectives (``--grad-sync allreduce | fsdp``,
 per-axis link constants).  Outside torchrun the world is this one
 process and the sync has no axis, as the reference on one device.
 
-The dense, MoE, SSM and hybrid families train here
-(``--arch recurrentgemma-9b --reduced --device cpu``: RG-LRU blocks and
-local attention).  ``--experts N`` overrides
+Every family trains here (``--arch recurrentgemma-9b --reduced --device
+cpu``: RG-LRU blocks and local attention; ``--arch whisper-medium``: the
+encoder-decoder).  Each step's batch comes from :func:`build_batch`, as
+the reference's: the encoder-decoder's audio frames and a vision
+config's soft tokens from the stub frontends (``models/frontend.py``),
+drawn from a generator seeded with (seed, step).  ``--experts N`` overrides
 the expert count; ``--moe-ep [ALG]`` routes the MoE dispatch and combine
 through explicit all-to-all exchanges over the DP grid's expert axes
 (``models/moe_ep.py``; ``lax``: the communicator's native exchange,
@@ -49,9 +52,8 @@ reference does.
 (each span measured: the device is synchronised after the call), then
 write the Chrome trace, print the model-error table and dump the
 metrics registry; under torchrun each process writes its own files,
-its rank before the extension.  The encoder-decoder family (ROADMAP.md
-A.8) and checkpoints (``--ckpt-dir``: A.7) are later slices of the
-port, refused by name.
+its rank before the extension.  Checkpoints (``--ckpt-dir``: ROADMAP.md
+A.7 (b)) are a later slice of the port, refused by name.
 """
 
 from __future__ import annotations
@@ -61,8 +63,9 @@ import dataclasses
 import math
 import os
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -72,6 +75,7 @@ from repro_torch.configs import get_config
 from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import init_params
+from repro_torch.models.frontend import audio_frames, vision_patches
 from repro_torch.models.layers import ambient_grid, set_fused_tp
 from repro_torch.obs import cli as obs_cli
 from repro_torch.optim.adamw import AdamWConfig
@@ -111,6 +115,32 @@ def make_dp_grid(device: DeviceLike = None) -> GridComm:
     world = dist.get_world_size()
     pod = 2 if world >= 4 and world % 2 == 0 else 1
     return ProcessGroupGrid((pod, world // pod), DP_AXES, device=dev)
+
+
+def step_generator(seed: int, step: int,
+                   device: DeviceLike = None) -> torch.Generator:
+    """The generator of one step's frontend draws, seeded from (seed,
+    step) (the reference folds the step into its key)."""
+    gen = torch.Generator(device=resolve_device(device))
+    gen.manual_seed((seed << 32) + step)
+    return gen
+
+
+def build_batch(cfg, data_batch: Dict[str, np.ndarray],
+                gen: torch.Generator, device: DeviceLike = None
+                ) -> Dict[str, torch.Tensor]:
+    """One step's model inputs on ``device``: the pipeline's tokens and
+    labels, plus ``frames`` [B, S, D] for the encoder-decoder and
+    ``soft_emb`` [B, frontend_tokens, D] for a vision config, from the stub
+    frontends drawn from ``gen`` (the reference's ``build_batch``)."""
+    dev = resolve_device(device)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data_batch.items()}
+    b, s = batch["tokens"].shape
+    if cfg.family == "encdec":
+        batch["frames"] = audio_frames(gen, cfg, b, s, dev)
+    if cfg.frontend == "vision":
+        batch["soft_emb"] = vision_patches(gen, cfg, b, dev)
+    return batch
 
 
 def install_fabric_topology(spec: str):
@@ -201,8 +231,12 @@ def run(arch: str, steps: int, batch_size: int, seq_len: int,
     try:
         for step in range(steps):
             t0 = time.time()
-            batch = {k: torch.from_numpy(v if rows is None else v[rows])
-                     .to(dev) for k, v in data.batch(step).items()}
+            # the global batch, then this rank's rows of it: every rank's
+            # frontend draws are its rows of the one global draw
+            batch = build_batch(cfg, data.batch(step),
+                                step_generator(0, step, dev), dev)
+            if rows is not None:
+                batch = {k: v[rows] for k, v in batch.items()}
             with ambient_grid(grid):
                 state, metrics = step_fn(state, batch)
             loss = float(metrics["loss"])

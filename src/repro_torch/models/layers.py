@@ -1,6 +1,6 @@
 """Transformer primitives: RMSNorm, rotary embeddings, GQA attention
-(direct and chunked) and the SwiGLU MLP (counterparts of the functions
-with the same names in ``repro/models/layers.py``).
+(direct and chunked), the SwiGLU MLP and the GELU MLP (counterparts of
+the functions with the same names in ``repro/models/layers.py``).
 
 Conventions kept from the reference:
 
@@ -397,6 +397,14 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     return h @ w_down
 
 
+def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, b_up: torch.Tensor,
+             w_down: torch.Tensor, b_down: torch.Tensor) -> torch.Tensor:
+    """The biased MLP with tanh-approximated GELU (the reference exports
+    it; no model path calls it: its encoder-decoder uses ``swiglu``)."""
+    h = F.gelu(x @ w_up + b_up, approximate="tanh")
+    return h @ w_down + b_down
+
+
 __all__ = ["ambient_grid", "apply_rope", "attention", "flash_decode",
-           "fused_tp_enabled", "rms_norm", "rope_frequencies",
+           "fused_tp_enabled", "gelu_mlp", "rms_norm", "rope_frequencies",
            "set_fused_tp", "swiglu", "use_flash_decode"]

@@ -26,8 +26,10 @@ One forward handles both phases:
 Where the reference threads the pool through ``lax.scan`` and donates
 it, the port writes each layer's new K/V **in place** into per-layer
 views of the pool: ``forward_paged`` returns the same ``pages`` dict it
-was given, updated.  The dense and MoE decoder families are covered;
-vision soft tokens are a later slice.  The MoE FFN groups tokens by
+was given, updated.  The dense and MoE decoder families are covered,
+vision configs with their soft tokens on a request's first prefill
+chunk (they occupy cache positions like tokens, so decode needs nothing
+more).  The MoE FFN groups tokens by
 batch row, so a prefill chunk ``[1, chunk]`` and a decode step ``[B,
 1]`` fill their experts' capacity as the reference's do at those shapes
 (ROADMAP C18).
@@ -52,7 +54,7 @@ PAGED_FAMILIES = ("dense", "moe")
 
 
 def supports_paged(cfg: ArchConfig) -> bool:
-    return cfg.family in PAGED_FAMILIES and cfg.frontend is None
+    return cfg.family in PAGED_FAMILIES
 
 
 def init_pages(cfg: ArchConfig, num_blocks: int, block_size: int,
@@ -60,8 +62,8 @@ def init_pages(cfg: ArchConfig, num_blocks: int, block_size: int,
     """Zeroed physical block pool (block 0 is the scratch sink)."""
     if not supports_paged(cfg):
         raise NotImplementedError(
-            f"paged KV cache covers families {PAGED_FAMILIES} without a "
-            f"frontend, not {cfg.family!r} (frontend {cfg.frontend!r})")
+            f"paged KV cache covers families {PAGED_FAMILIES}, not "
+            f"{cfg.family!r}")
     dev = resolve_device(device)
     shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
              cfg.resolved_head_dim)
@@ -172,32 +174,35 @@ def forward_paged(params: Params, cfg: ArchConfig, pages: Pages,
                   use_kernel: bool = False) -> Tuple[torch.Tensor, Pages]:
     """Run T new tokens per row against the paged cache.
 
-    ``batch``: {"tokens": [B, T]}; ``block_tables`` [B, M] and
-    ``ctx_lens`` [B] are int32; ``new_lens`` [B]: valid positions this
-    chunk (<= T; default all).  Returns (logits [B, T, V], pages), the
-    pool updated in place.  Invalid tail positions write to the scratch
-    block and their logits are garbage the caller must ignore.
-    ``use_kernel`` routes T == 1 attention through the CUDA kernel (on
-    CPU tensors the kernel's plain version runs instead).
+    ``batch``: {"tokens": [B, T], optional "soft_emb": [B, n_soft, D]
+    (vision, a request's first chunk only)}; ``block_tables`` [B, M] and
+    ``ctx_lens`` [B] are int32; ``new_lens`` [B]: valid *token* positions
+    this chunk (<= T; default all); soft positions are always valid when
+    present.  Rows read and write positions ctx .. ctx + n_soft + T - 1,
+    RoPE at those absolute positions.  Returns (logits [B, T, V] over the
+    token positions, pages), the pool updated in place.  Invalid tail
+    positions write to the scratch block and their logits are garbage the
+    caller must ignore.  ``use_kernel`` routes T == 1 attention through
+    the CUDA kernel (on CPU tensors the kernel's plain version runs
+    instead).
     """
     if not supports_paged(cfg):
         raise NotImplementedError(
             f"forward_paged: unsupported family {cfg.family!r}")
-    if "soft_emb" in batch:
-        raise NotImplementedError(
-            "forward_paged: vision soft tokens are not ported yet")
     tokens = batch["tokens"]
     b, t = tokens.shape
     if new_lens is None:
         new_lens = torch.full((b,), t, dtype=torch.int32,
                               device=tokens.device)
-    x = _embed(params, cfg, tokens)
-    valid = (torch.arange(t, device=x.device)[None, :]
-             < new_lens[:, None])                          # [B, T]
+    soft = batch.get("soft_emb")
+    n_soft = 0 if soft is None else soft.shape[1]
+    x = _embed(params, cfg, tokens, soft)
+    valid = (torch.arange(t + n_soft, device=x.device)[None, :]
+             < (new_lens + n_soft)[:, None])               # [B, T_eff]
     for i, lp in enumerate(params["layers"]):
         x = _paged_decoder_block(cfg, x, lp, pages["k"][i], pages["v"][i],
                                  block_tables, ctx_lens, valid, use_kernel)
-    return _unembed(params, cfg, x), pages
+    return _unembed(params, cfg, x[:, n_soft:]), pages
 
 
 def decode_step_paged(params: Params, cfg: ArchConfig, pages: Pages,

@@ -1,9 +1,11 @@
 """Model parameters and entry points (counterpart of
 ``repro/models/transformer.py``) for the dense and MoE decoders, the
-Mamba SSM stack and the RG-LRU hybrid: parameters, embedding,
-unembedding and the FFN sublayer (which the paged serving path runs too,
+Mamba SSM stack, the RG-LRU hybrid and the encoder-decoder backbone:
+parameters, embedding (with vision soft tokens prepended), unembedding
+and the FFN sublayer (which the paged serving path runs too,
 ``models/paged.py``), the dense decoder block, the hybrid's two blocks,
-and the three entry points of every family
+the encoder and the cross-attending decoder layer, and the three entry
+points of every family
 
     forward_train(params, cfg, batch)              -> (logits, aux)
     prefill(params, cfg, batch)                    -> (logits, cache)
@@ -28,6 +30,12 @@ of ``[L, ...]`` arrays stacked for ``lax.scan``::
     hybrid: {"embed", "ln_f", "head",
              "cycles": {"b0": [block, ...], "b1": [...], ...},
              "tail": (block, ...)}
+    encdec: {"embed", "ln_f", "head",
+             "encoder": [{"ln1", "ln2", "wq", "wk", "wv", "wo",
+                          "wg", "wu", "wd"}, ...], "enc_ln_f": [D],
+             "layers": [{"ln1", "lnx", "ln2", "wq", "wk", "wv", "wo",
+                         "x_wq", "x_wk", "x_wv", "x_wo",
+                         "wg", "wu", "wd"}, ...]}
 
 The hybrid keeps the reference's layout: ``cycles["b{j}"]`` lists, cycle
 by cycle, the block of kind ``block_pattern[j]`` (a "local" block is the
@@ -41,13 +49,22 @@ the optimizer's weight decay (by stacked rank) and the DP sync's flat
 vectors see the reference's tree.
 
 ``use_kernel`` (``None``: when the parameters live on a CUDA device)
-routes the dense, MoE and hybrid families' long-sequence attention
-through the flash kernel and the SSM's scan through the scan kernels.
+routes the long-sequence attention of the dense, MoE, hybrid and
+encoder-decoder families through the flash kernel (the encoder's and the
+cross-attention's on its non-causal route) and the SSM's scan through
+the scan kernels.
 The MoE FFN (``models/moe.py``, ``moe_ep.py``) and the RG-LRU
 recurrence (``models/rglru.py``) are plain PyTorch, as the reference
 has no kernel for them.  A decode cache's K and V are written in place:
-``decode_step`` returns the K/V tensors it was given, updated.  The
-encoder-decoder family is a later slice of the port.
+``decode_step`` returns the K/V tensors it was given, updated.
+
+Vision configs (``frontend == "vision"``) take ``batch["soft_emb"]``
+[B, n_soft, D] in ``forward_train`` and ``prefill``: the soft tokens
+come first, and ``forward_train`` returns logits over the token
+positions only.  The encoder-decoder family takes ``batch["frames"]``
+[B, S_enc, D] (``models/frontend.py``'s stub embeddings) in
+``forward_train`` and ``prefill``; its decode cache adds the cross K/V
+of every decoder layer over the encoder's output.
 """
 
 from __future__ import annotations
@@ -103,19 +120,22 @@ def _moe_layer(gen: Optional[torch.Generator], cfg: ArchConfig, dtype
     return p
 
 
-def _decoder_layer(gen: Optional[torch.Generator], cfg: ArchConfig, dtype,
-                   device: torch.device) -> Params:
+def _attn_layer(gen: Optional[torch.Generator], cfg: ArchConfig, dtype
+                ) -> Params:
     d, h, kv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                     cfg.resolved_head_dim)
     s = d ** -0.5
-    p = {
-        "ln1": _norm(d, dtype, device),
-        "ln2": _norm(d, dtype, device),
-        "wq": _dense(gen, (d, h * hd), s, dtype),
-        "wk": _dense(gen, (d, kv * hd), s, dtype),
-        "wv": _dense(gen, (d, kv * hd), s, dtype),
-        "wo": _dense(gen, (h * hd, d), (h * hd) ** -0.5, dtype),
-    }
+    return {"wq": _dense(gen, (d, h * hd), s, dtype),
+            "wk": _dense(gen, (d, kv * hd), s, dtype),
+            "wv": _dense(gen, (d, kv * hd), s, dtype),
+            "wo": _dense(gen, (h * hd, d), (h * hd) ** -0.5, dtype)}
+
+
+def _decoder_layer(gen: Optional[torch.Generator], cfg: ArchConfig, dtype,
+                   device: torch.device) -> Params:
+    d = cfg.d_model
+    p = {"ln1": _norm(d, dtype, device), "ln2": _norm(d, dtype, device),
+         **_attn_layer(gen, cfg, dtype)}
     if cfg.family == "moe":
         p.update(_moe_layer(gen, cfg, dtype))
     else:
@@ -123,15 +143,31 @@ def _decoder_layer(gen: Optional[torch.Generator], cfg: ArchConfig, dtype,
     return p
 
 
-#: families whose parameters the port initialises
-INIT_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+def _encdec_layers(gen: Optional[torch.Generator], cfg: ArchConfig, dtype,
+                   device: torch.device) -> Params:
+    """The encoder stack, its final norm and the decoder stack (self-
+    attention, cross-attention ``x_*``, SwiGLU), at the reference's
+    scales."""
+    d = cfg.d_model
+
+    def norms(*names):
+        return {name: _norm(d, dtype, device) for name in names}
+
+    encoder = [{**norms("ln1", "ln2"), **_attn_layer(gen, cfg, dtype),
+                **_mlp_layer(gen, d, cfg.d_ff, dtype)}
+               for _ in range(cfg.encoder_layers)]
+    layers = [{**norms("ln1", "lnx", "ln2"), **_attn_layer(gen, cfg, dtype),
+               **{f"x_{k}": w for k, w in _attn_layer(gen, cfg,
+                                                      dtype).items()},
+               **_mlp_layer(gen, d, cfg.d_ff, dtype)}
+              for _ in range(cfg.num_layers)]
+    return {"encoder": encoder, "enc_ln_f": _norm(d, dtype, device),
+            "layers": layers}
 
 
-def _not_ported(fn: str, cfg: ArchConfig) -> NotImplementedError:
-    later = {"encdec": "the encoder-decoder family (ROADMAP.md A.8)"}
-    return NotImplementedError(
-        f"{fn}: the port covers families {INIT_FAMILIES}; {cfg.family!r} "
-        f"waits for {later.get(cfg.family, 'a later slice (ROADMAP.md A)')}")
+#: the families whose parameters the port initialises: every family of
+#: the configs
+INIT_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
 
 
 def kernel_route(params: Params, use_kernel: Optional[bool]) -> bool:
@@ -145,16 +181,16 @@ def kernel_route(params: Params, use_kernel: Optional[bool]) -> bool:
 
 def init_params(cfg: ArchConfig, seed: int = 0,
                 device: DeviceLike = None) -> Params:
-    """Random weights of a dense or MoE decoder, a Mamba stack or an
-    RG-LRU hybrid, drawn from a ``torch.Generator`` seeded with ``seed``
-    on ``device`` (default ``cuda``).  Shapes and scales follow the
-    reference; norm weights start at zero.  The draws differ from ``jax.random``'s: to hold the
-    port against the reference on the same weights, convert them with
+    """Random weights of a dense or MoE decoder, a Mamba stack, an
+    RG-LRU hybrid or an encoder-decoder, drawn from a ``torch.Generator``
+    seeded with ``seed`` on ``device`` (default ``cuda``).  Shapes and
+    scales follow the reference; norm weights start at zero.  The draws
+    differ from ``jax.random``'s: to hold the port against the reference
+    on the same weights, convert them with
     ``repro_torch.convert.params_from_jax``.  ``device="meta"`` gives
-    every shape and dtype with nothing allocated (the reference's
-    ``param_specs``)."""
+    every shape and dtype with nothing allocated (:func:`param_specs`)."""
     if cfg.family not in INIT_FAMILIES:
-        raise _not_ported("init_params", cfg)
+        raise ValueError(f"init_params: unknown family {cfg.family!r}")
     gen = None
     if device is not None and torch.device(device).type == "meta":
         dev = torch.device("meta")
@@ -194,17 +230,31 @@ def init_params(cfg: ArchConfig, seed: int = 0,
                             for j in range(len(pattern))}
         params["tail"] = tuple(block(pattern[j]) for j in range(rem))
         return params
+    if cfg.family == "encdec":
+        params.update(_encdec_layers(gen, cfg, dtype, dev))
+        return params
     params["layers"] = [_decoder_layer(gen, cfg, dtype, dev)
                         for _ in range(cfg.num_layers)]
     return params
 
 
-def _embed(params: Params, cfg: ArchConfig,
-           tokens: torch.Tensor) -> torch.Tensor:
+def param_specs(cfg: ArchConfig) -> Params:
+    """Shapes and dtypes of every parameter with nothing allocated (meta
+    tensors): the reference's ``param_specs``."""
+    return init_params(cfg, device="meta")
+
+
+def _embed(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
+           soft_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Scaled token embeddings, after the vision soft tokens [B, n_soft,
+    D] when given (cast to the embeddings' dtype)."""
     x = params["embed"][tokens]
     # the sqrt(d_model) scale is rounded to the activation dtype first
     scale = torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
-    return x * scale
+    x = x * scale
+    if soft_emb is not None:
+        x = torch.cat([soft_emb.to(x.dtype), x], dim=1)
+    return x
 
 
 def _unembed(params: Params, cfg: ArchConfig,
@@ -329,12 +379,16 @@ def _decoder_block(cfg: ArchConfig, x: torch.Tensor, p: Params, *,
     return x + f, new_kv, aux
 
 
-def _check_family(fn: str, cfg: ArchConfig, batch: Dict[str, Any]) -> None:
-    if cfg.family not in INIT_FAMILIES:
-        raise _not_ported(fn, cfg)
-    if batch.get("soft_emb") is not None:
-        raise NotImplementedError("vision soft tokens are not ported yet "
-                                  "(ROADMAP.md A.5)")
+def _remat(fn, grid, *args):
+    """``fn(*args)`` checkpointed (non-reentrant ``torch.utils.checkpoint``,
+    the reference's ``jax.checkpoint`` with ``nothing_saveable``).  The
+    recompute runs where the autograd engine runs it: on CUDA its own
+    device thread, where this thread's ambient grid is not bound (ROADMAP
+    C24); it binds the forward's."""
+    def bound(*a):
+        with ambient_grid(grid):
+            return fn(*a)
+    return checkpoint(bound, *args, use_reentrant=False)
 
 
 # ====================================================================== #
@@ -480,20 +534,118 @@ def _hybrid_decode(params: Params, cfg: ArchConfig,
     return _unembed(params, cfg, x), new_cache
 
 
+# ====================================================================== #
+# the encoder-decoder (Whisper backbone)
+# ====================================================================== #
+def _encoder_forward(params: Params, cfg: ArchConfig, frames: torch.Tensor,
+                     use_kernel: bool, grid=None) -> torch.Tensor:
+    """frames [B, S_enc, D] (the stub frontend's embeddings) through the
+    encoder: pre-norm non-causal self-attention with RoPE and SwiGLU, each
+    layer checkpointed under autograd whatever ``remat`` says (as the
+    reference), then the final norm."""
+    def layer(h, lp):
+        a, _ = _attention_sublayer(cfg, rms_norm(h, lp["ln1"], cfg.norm_eps),
+                                   lp, causal=False, use_kernel=use_kernel)
+        h = h + a
+        return h + swiglu(rms_norm(h, lp["ln2"], cfg.norm_eps),
+                          lp["wg"], lp["wu"], lp["wd"])
+
+    x = frames
+    for lp in params["encoder"]:
+        x = (_remat(layer, grid, x, lp) if torch.is_grad_enabled()
+             else layer(x, lp))
+    return rms_norm(x, params["enc_ln_f"], cfg.norm_eps)
+
+
+def _cross_kv(cfg: ArchConfig, enc_out: torch.Tensor, lp: Params) -> KV:
+    """A decoder layer's cross K and V [B, S_enc, Hkv, hd] over the
+    encoder's output (no RoPE)."""
+    b, s, _ = enc_out.shape
+    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    return ((enc_out @ lp["x_wk"]).reshape(b, s, kvh, hd),
+            (enc_out @ lp["x_wv"]).reshape(b, s, kvh, hd))
+
+
+def _cross_attention(cfg: ArchConfig, x: torch.Tensor, p: Params,
+                     enc_k: torch.Tensor, enc_v: torch.Tensor,
+                     use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """x's queries (no RoPE) over the encoder's K and V, non-causal: the
+    flash kernel's non-causal route when S == S_enc > 2048 on the
+    kernel route, else the direct path."""
+    b, s, _ = x.shape
+    h, hd = cfg.num_heads, cfg.resolved_head_dim
+    q = (x @ p["x_wq"]).reshape(b, s, h, hd)
+    out = attention(q, enc_k, enc_v, causal=False, use_kernel=use_kernel)
+    return out.reshape(b, s, h * hd) @ p["x_wo"]
+
+
+def _dec_layer(cfg: ArchConfig, h: torch.Tensor, lp: Params, enc_kv: KV, *,
+               pos: int = 0, cache_kv: Optional[KV] = None,
+               use_kernel: Optional[bool] = None) -> Tuple[torch.Tensor, KV]:
+    """Causal self-attention (over ``cache_kv`` in place when given),
+    cross-attention over ``enc_kv``, SwiGLU; each pre-norm.  Returns (out,
+    new self (k, v))."""
+    a, new_kv = _attention_sublayer(
+        cfg, rms_norm(h, lp["ln1"], cfg.norm_eps), lp, causal=True, pos=pos,
+        cache_kv=cache_kv, use_kernel=use_kernel)
+    h = h + a
+    h = h + _cross_attention(cfg, rms_norm(h, lp["lnx"], cfg.norm_eps), lp,
+                             *enc_kv, use_kernel=use_kernel)
+    return h + swiglu(rms_norm(h, lp["ln2"], cfg.norm_eps),
+                      lp["wg"], lp["wu"], lp["wd"]), new_kv
+
+
+def _encdec_prefill(params: Params, cfg: ArchConfig, batch: Dict[str, Any],
+                    use_kernel: bool
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The encoder over the frames, the cross K/V of every decoder layer,
+    and the decoder over the prompt: last-position logits and the cache
+    {"k", "v": [L, B, S, Hkv, hd], "enc_k", "enc_v": [L, B, S_enc, Hkv,
+    hd], "pos": S}."""
+    enc_out = _encoder_forward(params, cfg, batch["frames"], use_kernel)
+    x = _embed(params, cfg, batch["tokens"])
+    kvs, enc_kvs = [], []
+    for lp in params["layers"]:
+        enc_kv = _cross_kv(cfg, enc_out, lp)
+        x, kv = _dec_layer(cfg, x, lp, enc_kv, use_kernel=use_kernel)
+        kvs.append(kv)
+        enc_kvs.append(enc_kv)
+    cache = {"k": torch.stack([k for k, _ in kvs]),
+             "v": torch.stack([v for _, v in kvs]),
+             "enc_k": torch.stack([k for k, _ in enc_kvs]),
+             "enc_v": torch.stack([v for _, v in enc_kvs]),
+             "pos": torch.tensor(x.shape[1], dtype=torch.int32)}
+    return _unembed(params, cfg, x[:, -1:]), cache
+
+
+def _encdec_decode(params: Params, cfg: ArchConfig,
+                   cache: Dict[str, torch.Tensor], x: torch.Tensor
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    pos = int(cache["pos"])
+    for i, lp in enumerate(params["layers"]):
+        x, _ = _dec_layer(cfg, x, lp, (cache["enc_k"][i], cache["enc_v"][i]),
+                          pos=pos, cache_kv=(cache["k"][i], cache["v"][i]))
+    return _unembed(params, cfg, x), dict(cache, pos=cache["pos"] + 1)
+
+
 def forward_train(params: Params, cfg: ArchConfig, batch: Dict[str, Any],
                   remat: bool = True, use_kernel: Optional[bool] = None
                   ) -> Tuple[torch.Tensor, Any]:
-    """Returns (logits [B, S, V], aux_loss: the MoE layers' load-balance
-    losses summed, 0.0 for the other families).  ``remat`` checkpoints each
-    layer (``torch.utils.checkpoint``, non-reentrant: the counterpart of
-    ``jax.checkpoint`` with ``nothing_saveable``), the hybrid each whole
-    pattern cycle and not its tail, as the reference; ``use_kernel`` (None:
-    on a CUDA device) routes the chunked attention (dense, MoE, the
-    hybrid's local blocks) through the flash kernel and the SSM's scan
-    through the fused scan kernels."""
-    _check_family("forward_train", cfg, batch)
+    """Returns (logits [B, S, V] over the token positions, aux_loss: the
+    MoE layers' load-balance losses summed, 0.0 for the other families).
+    ``remat`` checkpoints each layer (``torch.utils.checkpoint``,
+    non-reentrant: the counterpart of ``jax.checkpoint`` with
+    ``nothing_saveable``), the hybrid each whole pattern cycle and not its
+    tail, as the reference (the encoder's layers are checkpointed
+    whatever ``remat`` says); ``use_kernel`` (None: on a CUDA device)
+    routes the chunked attention (dense, MoE, the hybrid's local blocks,
+    the encoder-decoder's three attentions) through the flash kernel and
+    the SSM's scan through the fused scan kernels.  ``batch`` holds
+    "tokens" [B, S], with "soft_emb" [B, n_soft, D] for a vision config
+    and "frames" [B, S_enc, D] for the encoder-decoder."""
     uk = kernel_route(params, use_kernel)
-    x = _embed(params, cfg, batch["tokens"])
+    soft = batch.get("soft_emb")
+    x = _embed(params, cfg, batch["tokens"], soft)
     grid = _ambient_grid()
     if (remat and torch.is_grad_enabled() and fused_tp_enabled()
             and x.device.type == "cuda" and grid is not None
@@ -518,6 +670,12 @@ def forward_train(params: Params, cfg: ArchConfig, batch: Dict[str, Any],
     elif cfg.family == "ssm":
         def layer(h, lp):
             return _ssm_layer(cfg, h, lp, uk)[0], 0.0
+    elif cfg.family == "encdec":
+        enc_out = _encoder_forward(params, cfg, batch["frames"], uk, grid)
+
+        def layer(h, lp):
+            return _dec_layer(cfg, h, lp, _cross_kv(cfg, enc_out, lp),
+                              use_kernel=uk)[0], 0.0
     else:
         def layer(h, lp):
             h, _, aux = _decoder_block(cfg, h, lp, use_kernel=uk)
@@ -525,34 +683,29 @@ def forward_train(params: Params, cfg: ArchConfig, batch: Dict[str, Any],
     if cfg.family != "hybrid":
         units = [(lp, True) for lp in params["layers"]]
 
-    def grid_layer(h, lp):
-        # a checkpointed layer's recompute runs where the autograd engine
-        # runs it: on CUDA its own device thread, where this thread's
-        # ambient grid is not bound (ROADMAP C24); bind the forward's
-        with ambient_grid(grid):
-            return layer(h, lp)
-
     aux = 0.0
     for lp, ckpt in units:
         if remat and ckpt and torch.is_grad_enabled():
-            x, aux_i = checkpoint(grid_layer, x, lp, use_reentrant=False)
+            x, aux_i = _remat(layer, grid, x, lp)
         else:
             x, aux_i = layer(x, lp)
         aux = aux + aux_i
+    if soft is not None:
+        x = x[:, soft.shape[1]:]
     return _unembed(params, cfg, x), aux
 
 
-def init_cache(cfg: ArchConfig, batch: int, max_len: int,
-               device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
+               enc_len: int = 0, device: DeviceLike = None
+               ) -> Dict[str, torch.Tensor]:
     """Zeroed decode cache on ``device`` (default ``cuda``).  Dense and MoE:
     per-layer K/V {"k", "v": [L, B, max_len, Hkv, hd]}; SSM: {"conv":
     [L, B, K-1, di], "h": [L, B, di, N] float32}; hybrid: the local
     blocks' rings {"k", "v": [n_local, B, w, Hkv, hd]} with w =
     min(local_window, max_len), the RG-LRU blocks' {"conv": [n_rglru, B,
-    K-1, D], "h": [n_rglru, B, D] float32}; each with "pos", an int32
-    scalar on the CPU."""
-    if cfg.family not in INIT_FAMILIES:
-        raise _not_ported("init_cache", cfg)
+    K-1, D], "h": [n_rglru, B, D] float32}; encoder-decoder: the dense
+    K/V and the cross K/V {"enc_k", "enc_v": [L, B, enc_len, Hkv, hd]};
+    each with "pos", an int32 scalar on the CPU."""
     dev = resolve_device(device)
     dtype, n = cfg.activation_dtype, cfg.num_layers
     pos = torch.zeros((), dtype=torch.int32)
@@ -576,8 +729,13 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                                  dtype=torch.float32, device=dev),
                 "pos": pos}
     shape = (n, batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev), "pos": pos}
+    cache = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+             "v": torch.zeros(shape, dtype=dtype, device=dev), "pos": pos}
+    if cfg.family == "encdec":
+        enc = (n, batch, enc_len) + shape[3:]
+        cache["enc_k"] = torch.zeros(enc, dtype=dtype, device=dev)
+        cache["enc_v"] = torch.zeros(enc, dtype=dtype, device=dev)
+    return cache
 
 
 def prefill(params: Params, cfg: ArchConfig, batch: Dict[str, Any],
@@ -587,13 +745,17 @@ def prefill(params: Params, cfg: ArchConfig, batch: Dict[str, Any],
     and the decode cache: dense {"k", "v": [L, B, S, Hkv, hd]}, SSM
     {"conv": [L, B, K-1, di], "h": [L, B, di, N]}, hybrid
     :func:`init_cache`'s with w = local_window (the rings of
-    :func:`_ring`), each with "pos" = S (an int32 scalar on the CPU).  The
-    dense cache is exactly the prompt's length; to decode without
-    overwriting its last position, pad it (the reference's own test pads
-    by 8)."""
-    _check_family("prefill", cfg, batch)
+    :func:`_ring`), encoder-decoder the dense K/V with the cross K/V
+    {"enc_k", "enc_v": [L, B, S_enc, Hkv, hd]} over ``batch["frames"]``;
+    each with "pos" = S (an int32 scalar on the CPU).  With vision soft
+    tokens (``batch["soft_emb"]``) the cache covers n_soft + S positions
+    and "pos" is n_soft + S.  The dense (and the encoder-decoder's self)
+    cache is exactly the prompt's length; to decode without overwriting
+    its last position, pad it (the reference's own test pads by 8)."""
     uk = kernel_route(params, use_kernel)
-    x = _embed(params, cfg, batch["tokens"])
+    if cfg.family == "encdec":
+        return _encdec_prefill(params, cfg, batch, uk)
+    x = _embed(params, cfg, batch["tokens"], batch.get("soft_emb"))
     if cfg.family == "hybrid":
         return _hybrid_prefill(params, cfg, x, uk)
     s = x.shape[1]
@@ -620,11 +782,13 @@ def decode_step(params: Params, cfg: ArchConfig,
     reference: the SSM's and the RG-LRU's recurrence step; the dense
     direct attention over the cache, and the hybrid's over its rings,
     whose K/V tensors are updated in place and returned in the new
-    cache."""
-    _check_family("decode_step", cfg, batch)
+    cache; the encoder-decoder's direct cross-attention over its
+    ``enc_k`` / ``enc_v``."""
     x = _embed(params, cfg, batch["tokens"])
     if cfg.family == "hybrid":
         return _hybrid_decode(params, cfg, cache, x)
+    if cfg.family == "encdec":
+        return _encdec_decode(params, cfg, cache, x)
     if cfg.family == "ssm":
         convs, hs = [], []
         for i, lp in enumerate(params["layers"]):
@@ -672,5 +836,5 @@ def shard_decode_cache(cfg: ArchConfig, cache: Dict[str, Any], grid
 
 
 __all__ = ["INIT_FAMILIES", "Params", "decode_step", "forward_train",
-           "init_cache", "init_params", "kernel_route", "prefill",
-           "shard_decode_cache"]
+           "init_cache", "init_params", "kernel_route", "param_specs",
+           "prefill", "shard_decode_cache"]

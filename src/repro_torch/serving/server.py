@@ -7,7 +7,9 @@ paged model entry points (``repro_torch.models.paged``):
 * **prefill chunks** run one request at a time at the padded
   ``[1, prefill_chunk]`` shape -- the same shape for every chunk, as the
   reference keeps one compiled program, which also keeps the prefix
-  cache on/off streams bitwise equal;
+  cache on/off streams bitwise equal; a vision request's soft tokens
+  lead its first chunk (of every prefill, a replay after preemption
+  included) and its context, and it is never prefix-cached;
 * **decode** runs over the full slot array ``[B, 1]``, idle slots masked
   to the scratch block; on CUDA its attention is the hand-written
   block-indexed kernel, on the CPU the kernel's plain version;
@@ -90,7 +92,7 @@ class ContinuousBatchingServer:
         if not supports_paged(cfg):
             raise NotImplementedError(
                 f"serving covers the dense and MoE decoder families, not "
-                f"{cfg.family!r} (frontend {cfg.frontend!r})")
+                f"{cfg.family!r}")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
@@ -153,9 +155,9 @@ class ContinuousBatchingServer:
 
     # ------------------------------------------------------------------ #
     def submit(self, req: Request) -> None:
-        if req.soft_emb is not None:
-            raise NotImplementedError(
-                "vision soft tokens are not ported yet")
+        """Queue ``req``; a vision request carries its soft tokens as
+        ``soft_emb`` [1, n_soft, D] (a tensor or a numpy array), fed to
+        the model on its first prefill chunk."""
         self.scheduler.submit(req, now=self.telemetry.now())
         self.telemetry.record_submit()
 
@@ -223,10 +225,19 @@ class ContinuousBatchingServer:
         bt[0, :len(req.table.blocks)] = req.table.blocks
         ctx = np.asarray([req.ctx_len], np.int32)
         new_len = np.asarray([n], np.int32)
+        batch = {"tokens": self._tensor(tokens)}
+        if start == 0 and req.soft_emb is not None:
+            # the soft tokens lead the context, on the first chunk of
+            # every (re)prefill, a replay after preemption included
+            soft = req.soft_emb
+            batch["soft_emb"] = (soft if torch.is_tensor(soft)
+                                 else torch.from_numpy(np.asarray(soft))
+                                 ).to(self.device)
         logits, self.pages = forward_paged(
-            self.params, self.cfg, self.pages,
-            {"tokens": self._tensor(tokens)}, self._tensor(bt),
+            self.params, self.cfg, self.pages, batch, self._tensor(bt),
             self._tensor(ctx), self._tensor(new_len), use_kernel=False)
+        if "soft_emb" in batch:
+            req.ctx_len += req.n_soft
         req.prefilled += n
         req.ctx_len += n
         self.telemetry.record_prefill_tokens(n)

@@ -201,18 +201,6 @@ def test_init_params_layout_matches_jax():
             assert lp[name].dtype == torch.bfloat16, name
 
 
-@pytest.mark.parametrize("arch,item", [("whisper-medium", "A.8")])
-def test_unported_families_raise_naming_their_slice(arch, item):
-    cfg = get_config(arch).reduced()
-    for fn in (lambda: init_params(cfg, device="cpu"),
-               lambda: init_cache(cfg, 1, 8, device="cpu"),
-               lambda: forward_train({}, cfg, {"tokens": None}),
-               lambda: prefill({}, cfg, {"tokens": None}),
-               lambda: decode_step({}, cfg, {}, {"tokens": None})):
-        with pytest.raises(NotImplementedError, match=item):
-            fn()
-
-
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b"])
 def test_moe_family_runs_every_entry_point(arch):
     """The MoE family, refused before its slice (ROADMAP A.4), runs

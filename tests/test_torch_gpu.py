@@ -828,6 +828,8 @@ FLASH_SHAPES = [
     (1, 4, 1, 256, 160, False, 100),      # D 160, window, not causal
     (1, 4, 1, 384, 256, True, 128),       # recurrentgemma-9b's local
     (2, 2, 2, 256, 256, True, None),      # D 256, MHA, causal
+    (2, 4, 4, 512, 64, False, None),      # non-causal, no window (wgmma)
+    (1, 16, 16, 1024, 64, False, None),   # whisper-medium's heads
 ]
 
 
@@ -1503,3 +1505,146 @@ def test_calibrate_grid_on_cuda_threads_persists_and_restores(
     monkeypatch.setattr(api, "_ENGINES", {})
     assert find_calibrated_topology() is None
     assert api.get_engine(device="cuda").topology.is_uniform
+
+
+# ------- vision soft tokens and the encoder-decoder (slice 13) ------- #
+def _reduced_encdec(dtype="float32"):
+    """Reduced whisper-medium (2 + 2 layers, 4 heads) at the full
+    config's head dim 64, so that its attentions reach the D 64 kernel
+    (``wgmma`` in bf16)."""
+    return dataclasses.replace(get_config("whisper-medium").reduced(),
+                               dtype=dtype, head_dim=64)
+
+
+def _encdec_batch(cfg, b, s, device, seed=0):
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.launch.train import build_batch, step_generator
+    return build_batch(cfg, SyntheticLMDataset(DataConfig(
+        cfg.vocab_size, s, b)).batch(seed), step_generator(0, seed, device),
+        device)
+
+
+@pytest.mark.gpu
+def test_reduced_encdec_gradients_kernel_route_match_plain(cuda_device):
+    """The loss and every gradient of the reduced encoder-decoder at S =
+    S_enc = 4096 through the flash kernel and through the plain chunked
+    attention: the encoder's and the cross-attention's non-causal calls
+    and the decoder's causal one, each twice (forward and recompute): 12
+    launches, all simt_f32; the loss within 1e-4 relative, each gradient
+    within 1e-4 of its max-abs.  (The gradients, not the parameters after
+    an AdamW step: Adam's first update is g / (|g| + eps), which turns
+    the float32 reordering noise of a gradient element near zero, ~5e-6
+    of the largest, into a difference of up to the learning rate.)"""
+    from repro_torch.train.step import value_and_grad
+    from repro_torch.tree import tree_leaves
+    cfg = _reduced_encdec()
+    batch = _encdec_batch(cfg, 1, 4096, cuda_device)
+    out = {}
+    for use_kernel in (True, False):
+        params = init_params(cfg, seed=0, device=cuda_device)
+        ops.reset_launch_counts()
+        loss, _, grads = value_and_grad(params, cfg, batch,
+                                        use_kernel=use_kernel)
+        out[use_kernel] = (float(loss), tree_leaves(grads))
+        want = dict.fromkeys(ops.WRAPPERS, 0)
+        if use_kernel:
+            want["flash_attention"] = 12
+            assert ops.variant_launch_counts()["flash_attention"][
+                "simt_f32"] == 12
+        assert ops.launch_counts() == want
+    (lk, gk), (lp, gp) = out[True], out[False]
+    assert lk == pytest.approx(lp, rel=1e-4)
+    for a_, b_ in zip(gk, gp):
+        assert float((a_ - b_).abs().max()) <= 1e-4 * float(b_.abs().max())
+
+
+@pytest.mark.gpu
+def test_reduced_encdec_bf16_forward_takes_wgmma_non_causal(cuda_device):
+    """The bf16 forward at S 4096: six launches, all wgmma (four of them
+    non-causal), logits within 5e-2 of the plain route's."""
+    from repro_torch.models import forward_train
+    cfg = _reduced_encdec("bfloat16")
+    params = init_params(cfg, seed=0, device=cuda_device)
+    batch = _encdec_batch(cfg, 1, 4096, cuda_device)
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        got, _ = forward_train(params, cfg, batch, use_kernel=True)
+        assert ops.variant_launch_counts()["flash_attention"] == {
+            "simt_f32": 0, "mma_sync": 0, "wgmma": 6}
+        want, _ = forward_train(params, cfg, batch, use_kernel=False)
+    torch.testing.assert_close(got, want, rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.gpu
+def test_reduced_encdec_prefill_and_decode_on_cuda(cuda_device):
+    """Prefill over 4096 frames launches the kernel once an encoder layer
+    (the 448-token decoder takes the direct path); decode steps after
+    padding launch nothing and follow the teacher-forced forward within
+    2e-4 (float32)."""
+    from repro_torch.models import decode_step, forward_train, prefill
+    cfg = _reduced_encdec()
+    params = init_params(cfg, seed=0, device=cuda_device)
+    batch = _encdec_batch(cfg, 2, 4096, cuda_device)
+    seq = batch["tokens"][:, :456]
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        last, cache = prefill(params, cfg, {"frames": batch["frames"],
+                                            "tokens": seq[:, :448]})
+        assert ops.launch_counts()["flash_attention"] == cfg.encoder_layers
+        cache = dict(cache, **{k: torch.nn.functional.pad(
+            cache[k], (0, 0, 0, 0, 0, 8)) for k in ("k", "v")})
+        steps = [last]
+        for t in range(448, 456):
+            last, cache = decode_step(params, cfg, cache,
+                                      {"tokens": seq[:, t:t + 1]})
+            steps.append(last)
+        assert ops.launch_counts()["flash_attention"] == cfg.encoder_layers
+        full, _ = forward_train(params, cfg, {"frames": batch["frames"],
+                                              "tokens": seq})
+    torch.testing.assert_close(torch.cat(steps, 1), full[:, 447:456],
+                               rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reduced_llava_serves_through_the_paged_kernel(cuda_device, dtype):
+    """Reduced llava-next-34b on the card: vision requests through the
+    server, one paged launch a layer a decode step, every request its
+    tokens; a paged decode after a soft-token prefill within 2e-4
+    (float32) or 5e-2 (bf16) of the plain gathered path."""
+    from repro_torch.models.frontend import vision_patches
+    from repro_torch.serving import ContinuousBatchingServer, Request
+    cfg = dataclasses.replace(get_config("llava-next-34b").reduced(),
+                              dtype=dtype)
+    params = init_params(cfg, seed=0, device=cuda_device)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    srv = ContinuousBatchingServer(cfg, params, 4, max_len=48, block_size=8,
+                                   prefill_chunk=16, device=cuda_device)
+    rng = np.random.default_rng(0)
+    for rid in range(6):
+        srv.submit(Request(rid=rid, prompt=rng.integers(
+            0, cfg.vocab_size, 12).astype(np.int32), max_new_tokens=6,
+            soft_emb=vision_patches(gen, cfg, 1, cuda_device)))
+    ops.reset_launch_counts()
+    results = srv.run()
+    snap = srv.snapshot()
+    assert all(len(results[rid]) == 6 for rid in range(6))
+    assert ops.launch_counts()["paged_attention"] == \
+        snap.decode_steps * cfg.num_layers > 0
+    pages = init_pages(cfg, 8, 8, cuda_device)
+    bt = torch.arange(1, 5, dtype=torch.int32, device=cuda_device)[None]
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 13)).astype(
+        np.int32)).to(cuda_device)
+    ctx = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    soft = vision_patches(gen, cfg, 1, cuda_device)
+    with torch.no_grad():
+        forward_paged(params, cfg, pages, {"tokens": toks[:, :12],
+                                           "soft_emb": soft}, bt, ctx)
+        ctx = ctx + 12 + cfg.frontend_tokens
+        got, want = (decode_step_paged(
+            params, cfg, {k: v.clone() for k, v in pages.items()},
+            {"tokens": toks[:, 12:]}, bt, ctx, use_kernel=uk)[0]
+            for uk in (True, False))
+    tol = 2e-4 if dtype == "float32" else 5e-2
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)

@@ -1,7 +1,8 @@
 """The port's paged model path against the JAX package's: chunked
 prefill and decode logits on the same weights (moved across with
 ``params_from_jax``), float32, the reference's own bound of 2e-4, for
-the dense family and the MoE family (``olmoe-1b-7b``); pool
+the dense family, the MoE family (``olmoe-1b-7b``) and the vision
+config's text path (``llava-next-34b``, no soft tokens); pool
 copy-on-write and scratch-block isolation; the weight conversion and
 initialisation layout."""
 
@@ -69,7 +70,7 @@ def _paged_logits(arch, chunk):
 
 
 @pytest.mark.parametrize("arch", ["minicpm-2b", "mistral-nemo-12b",
-                                  "olmoe-1b-7b"])
+                                  "olmoe-1b-7b", "llava-next-34b"])
 @pytest.mark.parametrize("chunk", [8, 12])
 def test_paged_prefill_and_decode_match_jax(arch, chunk):
     """MHA (minicpm) and GQA (mistral-nemo): every prefill chunk's valid
@@ -155,12 +156,14 @@ def test_init_params_layout_matches_jax():
 
 
 def test_paged_rejects_unported_families():
-    """The SSM keeps its constant-size state and llava's soft tokens wait
-    for A.5; the MoE family serves (``test_paged_prefill_and_decode_
-    match_jax``)."""
-    assert supports_paged(configs("olmoe-1b-7b")[1])
-    for arch in ("falcon-mamba-7b", "llava-next-34b"):
-        _, tcfg = configs(arch)
-        assert not supports_paged(tcfg)
-        with pytest.raises(NotImplementedError):
-            init_pages(tcfg, 8, 16, CPU)
+    """The SSM keeps its constant-size state; the MoE family and the
+    vision config serve, as in the reference (``test_paged_prefill_and_
+    decode_match_jax``; soft tokens: ``test_torch_vlm.py``)."""
+    for arch in ("olmoe-1b-7b", "llava-next-34b"):
+        assert supports_paged(configs(arch)[1])
+    assert init_pages(configs("llava-next-34b")[1], 8, 16, CPU)["k"].shape[1] \
+        == 8
+    _, tcfg = configs("falcon-mamba-7b")
+    assert not supports_paged(tcfg)
+    with pytest.raises(NotImplementedError):
+        init_pages(tcfg, 8, 16, CPU)

@@ -203,23 +203,20 @@ def test_train_cli_trains_the_hybrid_on_cpu(capsys):
                     "--device", "cpu"])
 
 
-@pytest.mark.parametrize("arch,item", [("whisper-medium",
-                                        "encoder-decoder family")])
-def test_train_cli_defaults_to_cuda_and_refuses_other_families(arch, item):
-    """The dense, MoE, SSM and hybrid families train; a family the port
-    has not reached yet is refused, naming the slice it waits for;
-    ``--moe-ep`` on a family without experts exits with the reference's
-    message."""
+@pytest.mark.parametrize("arch", [pytest.param(
+    "whisper-medium", id="whisper-medium-encoder-decoder family")])
+def test_train_cli_defaults_to_cuda_and_refuses_other_families(arch):
+    """Every family trains (the encoder-decoder: test_torch_encdec.py);
+    without ``--device cpu`` and a GPU the CLI raises; ``--moe-ep`` on a
+    family without experts exits with the reference's message."""
     from repro_torch.launch import train
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device would run")
     with pytest.raises(RuntimeError, match="CUDA"):
         train.main(["--arch", "falcon-mamba-7b", "--reduced", "--steps",
                     "1"])
-    with pytest.raises(NotImplementedError, match=item):
-        train.run(arch, 1, 2, 8, device="cpu")
-    with pytest.raises(SystemExit, match="--moe-ep needs an MoE "
-                       "architecture; falcon-mamba-7b is family='ssm'"):
-        train.main(["--arch", "falcon-mamba-7b", "--moe-ep", "--device",
-                    "cpu"])
+    for name, family in (("falcon-mamba-7b", "ssm"), (arch, "encdec")):
+        with pytest.raises(SystemExit, match=f"--moe-ep needs an MoE "
+                           f"architecture; {name} is family='{family}'"):
+            train.main(["--arch", name, "--moe-ep", "--device", "cpu"])
     assert dataclasses.is_dataclass(adamw.AdamWConfig)
