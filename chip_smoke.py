@@ -144,9 +144,9 @@
    4096 prompt through ``prefill`` at full depth (38 layers, one
    ``mma_sync`` flash launch per local layer), 16 greedy decode steps
    over the ring caches (no launch), the prefill's and the first step's
-   logits held against the teacher-forced forward; 5 AdamW steps at 8
-   layers (2 pattern cycles and the tail), 2 x 4096, remat per cycle
-   (loss, step wall, tok/s, peak memory against the tree's reckoning, 4
+   logits held against the teacher-forced forward; 5 AdamW steps at 5
+   layers (1 pattern cycle and the tail), 2 x 4096, remat per cycle
+   (loss, step wall, tok/s, peak memory against the tree's reckoning, 2
    flash launches a step, one step profiled); a float32 route check of
    5 layers (1 x 4096, kernel vs plain).  The flash kernel at the local
    layer's shape is among phase 2's cases;
@@ -171,7 +171,34 @@
    layer a decode step, the mid-run decode step held to the plain path
    and profiled; no prefix is cached (vision requests never are); then
    ``dense_route_phase`` at ``llava-next-34b`` (float32, 2 layers, 576
-   soft tokens and 3520 tokens).
+   soft tokens and 3520 tokens);
+24. checkpoint phase (after every earlier phase): ``minicpm-2b`` at its
+   published width with 4 of its 40 layers (0.81 B parameters, bf16
+   weights and float32 moments: ~8.1 GB a step directory; the free space
+   at ``tempfile.gettempdir()`` printed first), 2 x 4096 tokens a step
+   through ``launch.train.run`` with ``--ckpt-dir``: an uninterrupted
+   run of 5 WSD steps with a checkpoint every 2 commits steps 2, 4 and 5
+   and ``keep`` leaves 4 and 5, its asynchronous save of step 4 (followed
+   at once by the next step, in place) holding the state from before
+   that step; a run that a real SIGTERM reaches during its third step
+   commits step 3 alone and returns (ROADMAP.md C29), the restored step
+   equals the saved state bitwise, and the resume runs steps 3-4 with
+   the uninterrupted run's losses; each save's and restore's wall and
+   GB/s, the time the loop was blocked by each save, the flash launches
+   (8 a step) and the peak memory;
+25. fleet phase: (a) ``minicpm-2b`` at full width and depth through
+   ``serving.fleet.FleetServer``: 2 replicas of 8 slots sharing one set
+   of weights (the same tensors) behind ``prefix_affinity``, the serve
+   phase's 16 requests on bursty arrivals, 32 greedy tokens each: every
+   stream bitwise the first 32 tokens of the serve phase's, peak memory
+   one set of weights and two page pools; tok/s against the serve
+   phase's, waves, routing, the cached prefix fraction, TTFT per
+   replica, 40 paged launches a decode step; (b) at 4 layers, replicas of
+   2 slots: every router policy on 3 replicas gives one replica's
+   streams, ``prefix_affinity`` caches at least as much as
+   ``round_robin``, and a capped bursty trace (queue cap 4, tenant rate
+   64) rejects only at the cap, each rejection with a retry-after hint,
+   every admitted request with all its tokens.
 
 Phase 10 (NCCL, two or more cards) also times neighbour shifts over
 NCCL and runs ``calibrate(grid=)`` one process a card (the NVLink
@@ -242,6 +269,8 @@ from repro_torch.kernels.ref import (FLASH_CHUNK,  # noqa: E402
                                      flash_attention_ref, matmul_tiled_ref,
                                      multi_add_ref, paged_attention_ref,
                                      selective_scan_ref)
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.launch.train import (build_batch,  # noqa: E402
                                       step_generator)
 from repro_torch.models import (decode_step_paged, forward_train,  # noqa
@@ -255,6 +284,9 @@ from repro_torch.obs import registry as obs_registry  # noqa: E402
 from repro_torch.obs import trace as obs_trace  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
 from repro_torch.serving import ContinuousBatchingServer, Request  # noqa
+from repro_torch.serving.fleet import (AdmissionConfig,  # noqa: E402
+                                       FleetServer, ROUTER_POLICIES,
+                                       arrival_waves)
 from repro_torch.serving.telemetry import export_to_registry  # noqa: E402
 from repro_torch.train.state import init_train_state  # noqa: E402
 from repro_torch.train.step import (GradSyncConfig,  # noqa: E402
@@ -322,14 +354,14 @@ HYBRID_ARCH = "recurrentgemma-9b"
 #: the 2048 window (where the reference's cache agrees with the port's,
 #: ROADMAP C25), then 16 greedy steps over the ring
 HYBRID_DECODE = dict(batch=2, prompt=4096, new_tokens=16)
-#: its training at 2 of its 12 pattern cycles plus the 2-block tail (8
-#: layers, ~2.79 B parameters; all 38 layers, 5.70 B, would hold ~68 GB
-#: at 12 bytes a parameter, too much beside the 256000-word logits and
-#: their gradients on one 80 GB card; 14 layers kept the script past its
-#: time: the profile of a step processes ~117 k eager kernels there),
+#: its training at 1 of its 12 pattern cycles plus the 2-block tail (5
+#: layers; all 38 layers, 5.70 B parameters, would hold ~68 GB at 12
+#: bytes a parameter, too much beside the 256000-word logits and their
+#: gradients on one 80 GB card; 14 layers, then 8, kept the script past
+#: its time: the profile of a step processes ~117 k eager kernels at 14),
 #: train_4k's sequence with the batch cut to 2, the train CLI's learning
 #: rate and its cosine schedule
-HYBRID_TRAIN = dict(units=2, batch=2, seq=4096, steps=5, lr=3e-4)
+HYBRID_TRAIN = dict(units=1, batch=2, seq=4096, steps=5, lr=3e-4)
 #: kernel vs plain route: float32, one pattern cycle plus the tail (5
 #: layers, 2.5 B float32 parameters), one 4096 sequence
 HYBRID_ROUTE_UNITS = 1
@@ -410,6 +442,25 @@ PAGED_FAULTS = ("P rounded to bf16 before P V",
 #: collective phase: ranks on the one card, bytes per rank (the latency
 #: regime, 256 KB, the trainer's default bucket_bytes, 64 MB), and every
 #: algorithm the engine knows for each op, then the model's pick
+CKPT_ARCH = "minicpm-2b"
+#: minicpm-2b at full width with 4 of its 40 layers (0.81 B parameters by
+#: ``param_count``: 2 B of bf16 weight and 8 B of float32 moments each, ~8.1
+#: GB a step directory), 2 x 4096 tokens a step through
+#: ``launch.train.run``: an uninterrupted run of 5 WSD steps with a
+#: checkpoint every 2, one preempted by SIGTERM during its third step and
+#: resumed (those two with no periodic checkpoint: five saves, ~41 GB
+#: written in all)
+CKPT = dict(layers=4, batch=2, seq=4096, steps=5, every=2, preempt=3,
+            lr=3e-4)
+#: the fleet: (a) minicpm-2b at full width and depth, 2 replicas of the
+#: serve phase's batch behind prefix_affinity, the serve phase's 16
+#: requests on bursty arrivals, 32 greedy tokens each; (b) at 4 layers,
+#: replicas of 2 slots (so that requests queue and later ones find their
+#: prefix cached): every router policy on 3 replicas (fixed arrivals, 16
+#: tokens) against one replica, and a capped bursty trace on 3 replicas
+FLEET = dict(replicas=2, router="prefix_affinity", new_tokens=32, rate=2.0)
+FLEET_POLICIES = dict(layers=4, replicas=3, batch=2, new_tokens=16,
+                      queue_cap=4, tenant_rate=64.0)
 COLLECTIVE_RANKS = 8
 COLLECTIVE_BYTES = (4 << 10, 256 << 10, 4 << 20, 64 << 20)
 ALGORITHMS = {
@@ -1141,12 +1192,13 @@ def serve_reckoning(cfg, max_len: int) -> float:
     return (weights + 4 * pool) / 1e9 + 1.0
 
 
-def serve_phase(seed: int, kernel_row, arch: str = SERVE_ARCH) -> None:
+def serve_phase(seed: int, kernel_row, arch: str = SERVE_ARCH) -> dict:
     """``arch`` at its published width through the server (at
     VISION_SERVE's depth and tokens for the vision config, whose requests
     carry their soft tokens), reckoned against the card's memory first.
     The launch count adds to ``kernel_row`` when one is given (the MoE
-    serve phase passes none)."""
+    serve phase passes none).  Returns the greedy streams, the tok/s and
+    the cached prefix fraction (the fleet phase holds its own to them)."""
     cfg = get_config(arch)
     new_tokens = SERVE["new_tokens"]
     if cfg.frontend == "vision":
@@ -1250,6 +1302,8 @@ def serve_phase(seed: int, kernel_row, arch: str = SERVE_ARCH) -> None:
             f"(the profiled step above: device busy vs this bound) | "
             f"the MoE FFN launches no kernel of the port: plain einsums, "
             f"as in the reference")
+    return {"streams": results, "tok_s": tokens / (wall - t_probe),
+            "cached_fraction": snap.cached_token_fraction}
 
 
 # --------------------------- train phase ----------------------------- #
@@ -2091,7 +2145,7 @@ def hybrid_train_phase(seed: int, rows: dict) -> None:
 
 def hybrid_phase(seed: int, rows: dict) -> None:
     """The hybrid family's main path: prefill + decode at full depth,
-    training at 8 layers, and the float32 kernel-vs-plain route check
+    training at 5 layers, and the float32 kernel-vs-plain route check
     (the flash kernel at D 256 is in the kernel phase's FLASH_CASES)."""
     walls = []
     for part in (lambda: hybrid_decode_phase(seed, rows),
@@ -2299,6 +2353,320 @@ def vision_phase(seed: int, rows: dict) -> None:
         walls.append(time.perf_counter() - t0)
     log(f"vision phase: {sum(walls):.1f} s (serve {walls[0]:.1f} s, float32 "
         f"route check {walls[1]:.1f} s)")
+
+
+# ------------------------ checkpoint phase ---------------------------- #
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's bits as integers (bitwise comparison: -0.0 and NaN
+    included)."""
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return t.view(ints[t.element_size()])
+
+
+def states_bitwise_equal(a, b) -> bool:
+    """Two trees (or their lists of leaves) hold the same bits."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        torch.equal(_bits(x), _bits(y)) if torch.is_tensor(x) else x == y
+        for x, y in zip(la, lb))
+
+
+def ckpt_phase(seed: int, rows: dict) -> None:
+    """Checkpoints through ``launch.train.run`` at minicpm-2b's full width
+    (CKPT): (1) an uninterrupted run with a checkpoint every 2 steps
+    commits steps 2, 4 and 5, ``keep`` leaves 4 and 5; (2) a run that a
+    real SIGTERM reaches during its third step commits step 3 alone and
+    returns (ROADMAP.md C29), and its resume runs steps 3-4 with the
+    uninterrupted run's losses; (3) the resume's restored step 3 equals
+    the state the preempted run saved, bitwise; (4) the loop's asynchronous save of step 4, followed at
+    once by the next step in place, holds the state from before that
+    step.  Five saves of ~8.1 GB, ~41 GB written in all.  The weights
+    are ``launch.train``'s, from seed 0."""
+    cfg = with_layer_units(get_config(CKPT_ARCH), CKPT["layers"])
+    n_params = cfg.param_count()
+    step_gb = n_params * (2 + 4 + 4) / 1e9
+    tmp = tempfile.gettempdir()
+    free_gb = shutil.disk_usage(tmp).free / 1e9
+    log(f"ckpt {cfg.name}: {cfg.num_layers} of 40 layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}, {cfg.dtype}; "
+        f"{n_params / 1e9:.3f}B params by param_count: {step_gb:.2f} GB a "
+        f"step directory reckoned (bf16 weights, float32 moments), keep 2 "
+        f"| {free_gb:.1f} GB free at {tmp}")
+    # two committed steps and the one being written
+    assert free_gb > 3 * step_gb, (free_gb, 3 * step_gb)
+    steps, preempt, every = CKPT["steps"], CKPT["preempt"], CKPT["every"]
+    managers, captured = [], {}
+    plain_make = train_launch.make_train_step
+
+    class Recorded(CheckpointManager):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            managers.append(self)
+
+    def recording(sigterm_at=None, clone_at=None, first=None):
+        """The train step, which sends this process a SIGTERM as its
+        ``sigterm_at``-th call starts, keeps the state each call returns
+        and a copy of the one its ``clone_at``-th call returns; with
+        ``first``, it holds the state its first call is given (a resumed
+        run's restored state) to those leaves, bitwise."""
+        def make(*args, **kwargs):
+            step_fn, calls = plain_make(*args, **kwargs), [0]
+
+            def step(state, batch):
+                calls[0] += 1
+                if calls[0] == 1 and first is not None:
+                    captured["restored_equal"] = states_bitwise_equal(
+                        state, first)
+                if calls[0] == sigterm_at:
+                    os.kill(os.getpid(), signal.SIGTERM)
+                state, metrics = step_fn(state, batch)
+                captured["state"] = state
+                if calls[0] == clone_at:
+                    captured["copy"] = [t.clone() if torch.is_tensor(t)
+                                        else t for t in tree_leaves(state)]
+                return state, metrics
+            return step
+        return make
+
+    def train(d, make, ckpt_every):
+        train_launch.make_train_step = make
+        train_launch.CheckpointManager = Recorded
+        try:
+            t0 = time.perf_counter()
+            losses = train_launch.run(
+                cfg, steps, CKPT["batch"], CKPT["seq"], ckpt_dir=d,
+                ckpt_every=ckpt_every, lr=CKPT["lr"], log_every=1,
+                device="cuda")
+            torch.cuda.synchronize()
+            return losses, managers[-1], time.perf_counter() - t0
+        finally:
+            train_launch.make_train_step = plain_make
+            train_launch.CheckpointManager = CheckpointManager
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        whole_dir = os.path.join(root, "whole")
+        whole, mgr_w, wall_w = train(whole_dir, recording(clone_at=4), every)
+        saved_w = [h["step"] for h in mgr_w.history if h["op"] == "save"]
+        assert saved_w == [2, 4, 5], saved_w
+        assert mgr_w.committed_steps() == [4, 5], mgr_w.committed_steps()
+        log(f"ckpt (1): {steps} steps in {wall_w:.2f} s, losses "
+            + " ".join(f"{x:.6f}" for x in whole) + f" | saved {saved_w}, "
+            f"committed after keep 2: {mgr_w.committed_steps()}")
+        final, at_4 = captured.pop("state"), captured.pop("copy")
+        _, written, _ = CheckpointManager(whole_dir).restore(final, step=4)
+        assert states_bitwise_equal(written, at_4), \
+            "the asynchronous save of step 4 wrote state from a later step"
+        assert not states_bitwise_equal(final, at_4), \
+            "the step after the save left the state as it was"
+        log("ckpt (4): the loop's asynchronous save of step 4, followed at "
+            "once by the next step in place, holds the state from before "
+            "that step, bitwise")
+        del final, at_4, written
+        shutil.rmtree(whole_dir)
+
+        cut_dir = os.path.join(root, "cut")
+        cut, mgr_c, wall_c = train(cut_dir, recording(sigterm_at=preempt),
+                                   steps + 1)
+        committed_c = mgr_c.committed_steps()
+        assert len(cut) == preempt, cut
+        assert committed_c == [preempt], committed_c   # not steps: C29
+        saved = captured.pop("state")
+        rest, mgr_r, wall_r = train(cut_dir, recording(first=saved),
+                                    steps + 1)
+        assert captured.pop("restored_equal"), \
+            "the restored state differs from the saved one"
+        log(f"ckpt (3): the resume's restored step {preempt} is bitwise the "
+            f"state the preempted run saved ({len(tree_leaves(saved))} "
+            f"leaves)")
+        del saved
+        assert len(rest) == steps - preempt, rest
+        resumed = cut + rest
+        rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, whole))
+        bitwise = resumed == whole
+        log(f"ckpt (2): SIGTERM during step {preempt}: {len(cut)} steps in "
+            f"{wall_c:.2f} s, committed {committed_c} (not step {steps}: "
+            f"C29); the resume ran steps {preempt}-{steps - 1} in "
+            f"{wall_r:.2f} s and committed {mgr_r.committed_steps()}: "
+            f"losses " + " ".join(f"{x:.6f}" for x in resumed)
+            + f" | {'bitwise equal to' if bitwise else 'differ from'} the "
+            f"uninterrupted run's (max relative {rel:.3e}): the step is "
+            f"{'' if bitwise else 'not '}deterministic on the card")
+        assert rel <= 1e-6, (resumed, whole)
+        counts = ops.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    n_steps = steps + preempt + (steps - preempt)
+    want = dict.fromkeys(ops.WRAPPERS, 0)
+    want["flash_attention"] = 2 * cfg.num_layers * n_steps
+    assert counts == want, (counts, want)
+    rows["flash_attention"]["launches"] += counts["flash_attention"]
+    for mgr, what in ((mgr_w, "uninterrupted"), (mgr_c, "preempted"),
+                      (mgr_r, "resumed")):
+        for h in mgr.history:
+            gb = h["bytes"] / 1e9
+            if h["op"] == "restore":
+                log(f"ckpt {what}: restore step {h['step']}: {gb:.3f} GB "
+                    f"in {h['read_s']:.3f} s = {gb / h['read_s']:.2f} GB/s "
+                    f"(file to the card)")
+            else:
+                log(f"ckpt {what}: save step {h['step']}: {gb:.3f} GB, the "
+                    f"loop blocked {h['blocked_s']:.3f} s (the copy to the "
+                    f"host, then the end of the write in flight), written "
+                    f"in {h['write_s']:.3f} s = {gb / h['write_s']:.2f} "
+                    f"GB/s")
+    log(f"ckpt: flash_attention launches {counts['flash_attention']} = "
+        f"{n_steps} steps x 2 x {cfg.num_layers} layers | "
+        f"max_memory_allocated {peak_gb:.3f} GB | directory removed, "
+        f"{shutil.disk_usage(tmp).free / 1e9:.1f} GB free at {tmp}")
+
+
+# ---------------------------- fleet phase ----------------------------- #
+def fleet_phase(seed: int, rows: dict, serve_out: dict) -> None:
+    """The serving fleet (FLEET, FLEET_POLICIES).  (a) minicpm-2b at full
+    width and depth: 2 replicas sharing one set of weights behind
+    ``prefix_affinity``, the serve phase's requests on bursty arrivals;
+    every stream bitwise the first tokens of the serve phase's, peak
+    memory one set of weights and two page pools.  (b) at 4 layers:
+    every policy on 3 replicas gives one replica's streams; a capped
+    bursty trace sheds only at the cap, with retry-after hints."""
+    cfg = get_config(SERVE_ARCH)
+    n_new = FLEET["new_tokens"]
+    # the serve phase's page-table width: the paged kernel's split plan
+    # reads it, so each row is computed as the serve phase computed it
+    max_len = (SERVE["system_len"] + SERVE["suffix"][1] + SERVE["new_tokens"]
+               + SERVE["block_size"])
+    kw = dict(block_size=SERVE["block_size"],
+              prefill_chunk=SERVE["prefill_chunk"], device="cuda")
+    tenant = lambda r: f"tenant-{r.rid % SERVE['system_prompts']}"
+    params = init_params(cfg, seed=seed, device="cuda")
+    weights_gb = sum(t.numel() * t.element_size()
+                     for t in tree_leaves(params)) / 1e9
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    fleet = FleetServer(cfg, params, FLEET["replicas"], SERVE["batch"],
+                        max_len, router=FLEET["router"], seed=seed, **kw)
+    servers = [rep.server for rep in fleet.replicas]
+    ptrs = [t.data_ptr() for t in tree_leaves(params)]
+    assert all(srv.params is params and [t.data_ptr() for t in tree_leaves(
+        srv.params)] == ptrs for srv in servers), "a replica copied weights"
+    pools_gb = sum(p.numel() * p.element_size() for srv in servers
+                   for p in srv.pages.values()) / 1e9
+    reckoned = weights_gb + pools_gb + 1.0
+    reqs = make_requests(cfg, seed, n_new)
+    waves = arrival_waves(len(reqs), "bursty", rng=np.random.default_rng(1),
+                          rate=FLEET["rate"])
+    t0 = time.perf_counter()
+    results, rejections = fleet.run_trace(
+        [(w, tenant(r), r) for w, r in zip(waves, reqs)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    snap = fleet.snapshot()
+    decode_a = sum(r.decode_steps for r in snap.replicas)
+    want_streams = {rid: toks[:n_new]
+                    for rid, toks in serve_out["streams"].items()}
+    # each differing request's first differing position
+    differ = {rid: next((i for i, (a, b) in enumerate(zip(
+        results.get(rid, []), want)) if a != b), len(results.get(rid, [])))
+        for rid, want in want_streams.items() if results.get(rid) != want}
+    tokens = sum(len(v) for v in results.values())
+    log(f"fleet (a) {cfg.name}, {cfg.num_layers} layers: {FLEET['replicas']}"
+        f" replicas x batch {SERVE['batch']} behind {FLEET['router']}, "
+        f"bursty arrivals over waves {waves[0]}-{waves[-1]}: "
+        f"{len(results)} requests, {tokens} tokens in {wall:.3f} s = "
+        f"{tokens / wall:.1f} tok/s (one server, serve phase: "
+        f"{serve_out['tok_s']:.1f}) | waves {snap.waves} | routed "
+        f"{list(snap.routed)} | rejected {snap.rejected}")
+    log(f"fleet (a): cached prefix tokens {snap.cached_prefix_tokens} of "
+        f"{snap.cached_prefix_tokens + snap.prefill_tokens_computed} "
+        f"({snap.cached_token_fraction:.3f}; one server "
+        f"{serve_out['cached_fraction']:.3f}) | "
+        + " | ".join(f"replica {i}: ttft p50 {r.ttft_p50_ms:.1f} p99 "
+                     f"{r.ttft_p99_ms:.1f} ms, {r.decode_steps} decode steps"
+                     for i, r in enumerate(snap.replicas)))
+    log(f"fleet (a): streams bitwise the serve phase's first {n_new} tokens: "
+        f"{len(want_streams) - len(differ)} of {len(want_streams)}"
+        + (f"; first differing position by request {differ}"
+           if differ else ""))
+    log(f"fleet (a): one weight set ({weights_gb:.3f} GB, every replica's "
+        f"leaves at the same data_ptr) + {FLEET['replicas']} page pools "
+        f"({pools_gb:.3f} GB) | max_memory_allocated {peak_gb:.3f} GB "
+        f"(reckoned {reckoned:.3f}: the weights, the pools, 1 GB of "
+        f"activations)")
+    assert rejections == [] and sorted(results) == sorted(want_streams)
+    assert not differ, differ
+    assert weights_gb + pools_gb <= peak_gb <= reckoned, (peak_gb, reckoned)
+    del fleet, servers, params
+    torch.cuda.empty_cache()
+
+    cfg4 = with_layer_units(cfg, FLEET_POLICIES["layers"])
+    params4 = init_params(cfg4, seed=seed, device="cuda")
+    n4 = FLEET_POLICIES["new_tokens"]
+
+    def serve(n, policy, arrive, admission=None):
+        fl = FleetServer(cfg4, params4, n, FLEET_POLICIES["batch"], max_len,
+                         router=policy, admission=admission, seed=seed, **kw)
+        t = time.perf_counter()
+        out, rej = fl.run_trace([(arrive(i), tenant(r), r) for i, r in
+                                 enumerate(make_requests(cfg4, seed, n4))])
+        torch.cuda.synchronize()
+        return fl.snapshot(), out, rej, time.perf_counter() - t
+
+    snaps = []
+    one, want4, _, wall1 = serve(1, "round_robin", lambda i: 0)
+    snaps.append(one)
+    cached = {}
+    for policy in ROUTER_POLICIES:
+        snap4, got, _, wall4 = serve(FLEET_POLICIES["replicas"], policy,
+                                     lambda i: 0)
+        snaps.append(snap4)
+        cached[policy] = snap4.cached_token_fraction
+        same = got == want4
+        log(f"fleet (b) {cfg4.num_layers} layers, {policy}: "
+            f"{FLEET_POLICIES['replicas']} replicas x "
+            f"{FLEET_POLICIES['batch']} slots in {wall4:.3f} s (one "
+            f"replica {wall1:.3f} s), routed {list(snap4.routed)}, waves "
+            f"{snap4.waves}, cached fraction {cached[policy]:.3f} | streams "
+            f"{'bitwise' if same else 'NOT'} equal to one replica's")
+        assert same, policy
+    assert cached["prefix_affinity"] >= cached["round_robin"], cached
+    waves4 = arrival_waves(SERVE["requests"], "bursty",
+                           rng=np.random.default_rng(1), rate=FLEET["rate"])
+    admission = AdmissionConfig(queue_cap=FLEET_POLICIES["queue_cap"],
+                                tenant_rate=FLEET_POLICIES["tenant_rate"])
+    capped, got, rej, wall_c = serve(
+        FLEET_POLICIES["replicas"], "prefix_affinity", waves4.__getitem__,
+        admission=admission)
+    snaps.append(capped)
+    admitted = set(want4) - {r.rid for r in rej}
+    log(f"fleet (b) capped bursty trace: {FLEET_POLICIES['replicas']} "
+        f"replicas x {FLEET_POLICIES['batch']} slots, queue cap "
+        f"{admission.queue_cap}, tenant rate {admission.tenant_rate:g} "
+        f"(burst {admission.burst():g}): admitted {capped.admitted}, "
+        f"rejected {capped.rejected} {dict(capped.rejected_by_reason)}, "
+        f"below the cap {capped.rejected_below_cap}, retry-after "
+        f"{sorted({r.retry_after_waves for r in rej})} waves, in "
+        f"{wall_c:.3f} s")
+    assert rej and capped.rejected_below_cap == 0, capped
+    assert all(r.retry_after_waves >= 1 for r in rej), rej
+    assert set(got) == admitted and all(
+        got[rid] == want4[rid] for rid in admitted)
+    counts = ops.launch_counts()
+    decode_b = sum(r.decode_steps for s in snaps for r in s.replicas)
+    want = dict.fromkeys(ops.WRAPPERS, 0)
+    want["paged_attention"] = (cfg.num_layers * decode_a
+                               + cfg4.num_layers * decode_b)
+    assert counts == want, (counts, want)
+    rows["paged_attention"]["launches"] += counts["paged_attention"]
+    log(f"fleet: paged_attention launches {counts['paged_attention']} = "
+        f"{cfg.num_layers} x {decode_a} decode steps (a) + "
+        f"{cfg4.num_layers} x {decode_b} (b)")
 
 
 # ---------------------- multi_add and matmul_tiled --------------------- #
@@ -3914,7 +4282,7 @@ def main(argv=None) -> int:
                             *collective_kernel_phase(seed),
                             flash_kernel_phase(seed),
                             *scan_kernel_phase(seed)])}
-    run("serve", serve_phase, seed, rows["paged_attention"])
+    serve_out = run("serve", serve_phase, seed, rows["paged_attention"])
     run("ssm train", train_phase, seed, rows)
     run("ssm route + decode",
         lambda: (route_phase(seed), decode_phase(seed, rows)))
@@ -3937,6 +4305,8 @@ def main(argv=None) -> int:
     run("dp serve", dp_serve_phase, seed)
     run("obs", obs_phase, seed)
     run("nccl", nccl_phase, seed)
+    run("ckpt", ckpt_phase, seed, rows)
+    run("fleet", fleet_phase, seed, rows, serve_out)
     log("phase walls: " + " | ".join(f"{name} {wall:.1f} s"
                                      for name, wall in walls))
     for r in rows.values():

@@ -28,8 +28,22 @@ are identical with and without ``--dp``.  ``--trace PATH``,
 trace the engine's collectives (the DP token assembly), print the
 model-error table and dump the metrics registry with the serving
 telemetry, as the reference does; under torchrun each process writes its
-own files.  The fleet flags are a later slice of the port (ROADMAP.md
-A.7 (c)) and raise ``NotImplementedError``.
+own files.
+
+With ``--replicas N`` (or any other fleet flag) the CLI stands up
+``serving.fleet.FleetServer``: N replicas sharing one set of weights,
+behind admission control (``--queue-cap``, ``--tenant-rate``,
+``--tenant-burst``; each request's tenant is its shared prompt's index)
+and a router (``--router``), stepped in lockstep waves, the arrivals
+wave-stamped by ``--arrival`` / ``--arrival-rate``.  Greedy streams are
+bitwise those of one server at any fleet size:
+
+    python -m repro_torch.launch.serve --device cpu --shared-prompts 2 \
+        --replicas 2 --router prefix_affinity --arrival bursty
+
+With ``--dp`` every replica is striped over the grid, as the reference's
+mesh stripes it.  The metrics registry then holds the fleet's gauges
+(``serving.fleet.export_fleet_stats``) and no single-server snapshot.
 """
 
 from __future__ import annotations
@@ -50,13 +64,8 @@ from repro_torch.models.paged import PAGED_FAMILIES
 from repro_torch.obs import cli as obs_cli
 from repro_torch.serving import (ContinuousBatchingServer, Request,
                                  SamplingParams)
+from repro_torch.serving.fleet import ARRIVAL_MODES, ROUTER_POLICIES
 from repro_torch.serving.telemetry import ttft_low_confidence
-
-#: fleet flags of the reference CLI and their defaults (single server)
-_FLEET_DEFAULTS = {"replicas": 1, "router": "round_robin",
-                   "queue_cap": None, "tenant_rate": None,
-                   "tenant_burst": None, "arrival": "fixed",
-                   "arrival_rate": 2.0}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -86,13 +95,28 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="stripe the slot rows over every rank of the "
                          "torch.distributed world (torchrun) and route "
                          "token sync through the CollectiveEngine")
-    ap.add_argument("--replicas", type=int, default=1)
-    ap.add_argument("--router", default="round_robin")
-    ap.add_argument("--queue-cap", type=int, default=None)
-    ap.add_argument("--tenant-rate", type=float, default=None)
-    ap.add_argument("--tenant-burst", type=float, default=None)
-    ap.add_argument("--arrival", default="fixed")
-    ap.add_argument("--arrival-rate", type=float, default=2.0)
+    ap.add_argument("--replicas", type=int, default=1, metavar="N",
+                    help="serve behind a fleet of N replicas in "
+                         "lockstep waves (1 = single server)")
+    ap.add_argument("--router", default="round_robin",
+                    choices=ROUTER_POLICIES,
+                    help="fleet routing policy (used when --replicas "
+                         "> 1 or other fleet flags are set)")
+    ap.add_argument("--queue-cap", type=int, default=None, metavar="Q",
+                    help="fleet-wide queued-request cap; arrivals above "
+                         "the cap are rejected with a retry-after hint")
+    ap.add_argument("--tenant-rate", type=float, default=None,
+                    metavar="TOK",
+                    help="per-tenant token-bucket refill "
+                         "(prompt+output tokens per wave)")
+    ap.add_argument("--tenant-burst", type=float, default=None,
+                    metavar="TOK",
+                    help="per-tenant bucket capacity (default 8x rate)")
+    ap.add_argument("--arrival", default="fixed", choices=ARRIVAL_MODES,
+                    help="arrival process for the request trace "
+                         "(bursty = Markov-modulated Poisson)")
+    ap.add_argument("--arrival-rate", type=float, default=2.0,
+                    help="mean arrivals per wave in the calm state")
     obs_cli.add_obs_args(ap)
     return ap.parse_args(argv)
 
@@ -118,11 +142,6 @@ def streams_digest(results) -> str:
 def main(argv=None):
     """Serve the requests; returns {rid: generated tokens}."""
     args = parse_args(argv)
-    fleet = [k for k, v in _FLEET_DEFAULTS.items() if getattr(args, k) != v]
-    if fleet:
-        raise NotImplementedError(
-            f"fleet flags {fleet}: the serving fleet is a later slice of "
-            f"the port (ROADMAP.md A.7 (c))")
     obs_cli.begin(args.trace, args.obs_report, args.metrics_out)
     cfg = get_config(args.arch)
     if not args.full_width:
@@ -155,6 +174,9 @@ def _serve(args, cfg, grid, batch, device):
     params = init_params(cfg, seed=0, device=device)
     max_len = (args.prompt_len + args.new_tokens + cfg.frontend_tokens
                + args.block_size)
+    fleet_mode = (args.replicas > 1 or args.arrival != "fixed"
+                  or args.queue_cap is not None
+                  or args.tenant_rate is not None)
     rng = np.random.default_rng(0)
     shared = [rng.integers(0, cfg.vocab_size,
                            size=max(args.prompt_len - 4, 1)).astype(np.int32)
@@ -166,45 +188,63 @@ def _serve(args, cfg, grid, batch, device):
             gen = torch.Generator(device=device)
             gen.manual_seed(rid)
             soft = vision_patches(gen, cfg, 1, device)
+        tenant = "solo"
         if shared:
             # shared system prompt + short per-request suffix
+            tenant = f"tenant-{rid % len(shared)}"
             prompt = np.concatenate(
                 [shared[rid % len(shared)],
                  rng.integers(0, cfg.vocab_size, size=4).astype(np.int32)])
         else:
             prompt = rng.integers(0, cfg.vocab_size,
                                   size=args.prompt_len).astype(np.int32)
-        return Request(rid=rid, prompt=prompt,
-                       max_new_tokens=args.new_tokens,
-                       sampling=SamplingParams(temperature=args.temperature),
-                       soft_emb=soft)
+        return tenant, Request(
+            rid=rid, prompt=prompt, max_new_tokens=args.new_tokens,
+            sampling=SamplingParams(temperature=args.temperature),
+            soft_emb=soft)
 
-    server = ContinuousBatchingServer(cfg, params, batch,
-                                      max_len=max_len, grid=grid,
-                                      device=device,
-                                      block_size=args.block_size,
-                                      prefill_chunk=args.prefill_chunk,
-                                      top_k=args.top_k,
-                                      prefix_cache=args.prefix_cache)
-    t0 = time.time()
-    for rid in range(args.requests):
-        server.submit(make_request(rid))
-    results = server.run()
-    dt = time.time() - t0
-    snap = server.snapshot()
-    total = sum(len(v) for v in results.values())
+    kw = dict(grid=grid, device=device, block_size=args.block_size,
+              prefill_chunk=args.prefill_chunk, top_k=args.top_k,
+              prefix_cache=args.prefix_cache)
+    if fleet_mode:
+        results = _run_fleet(args, cfg, params, batch, max_len, kw,
+                             make_request, lead)
+        snap = None
+    else:
+        results, snap = _run_server(args, cfg, params, batch, max_len, kw,
+                                    make_request, lead)
     # every rank, while the world is up: a process grid replays in
-    # lockstep
+    # lockstep; in fleet mode the registry holds the fleet's gauges
     obs_cli.finish(args.trace, args.obs_report, args.metrics_out,
                    grid=grid, device=device, telemetry_snapshot=snap,
                    label="serve")
     if not lead:
         return results
-    if grid is not None:
+    for rid in sorted(results)[:3]:
+        print(f"  req {rid}: {results[rid][:8]}...")
+    print(f"[serve] streams digest {streams_digest(results)}")
+    return results
+
+
+def _run_server(args, cfg, params, batch, max_len, kw, make_request, lead):
+    """One server: submit every request, serve them, report.  Returns
+    (results, its telemetry snapshot)."""
+    server = ContinuousBatchingServer(cfg, params, batch, max_len=max_len,
+                                      **kw)
+    t0 = time.time()
+    for rid in range(args.requests):
+        server.submit(make_request(rid)[1])
+    results = server.run()
+    dt = time.time() - t0
+    snap = server.snapshot()
+    if not lead:
+        return results, snap
+    if kw["grid"] is not None:
         dec = server.assembly_decision
-        print(f"[serve] dp axis 'data' = {grid.axis_size('data')} ranks; "
-              f"token assembly: allgather[{dec.algorithm}] "
+        print(f"[serve] dp axis 'data' = {kw['grid'].axis_size('data')} "
+              f"ranks; token assembly: allgather[{dec.algorithm}] "
               f"({server.assembly_regime} regime, {batch * 4} bytes)")
+    total = sum(len(v) for v in results.values())
     print(f"[serve] {cfg.name} on {server.device}: {len(results)} requests, "
           f"{total} tokens in {dt:.1f}s ({total / dt:.1f} tok/s)")
     lc = (f" (low confidence, n={snap.ttft_samples})"
@@ -222,9 +262,59 @@ def _serve(args, cfg, grid, batch, device):
           f"{snap.prefix_evictions} | kv blocks live "
           f"{snap.kv_blocks_live} / evictable "
           f"{snap.kv_blocks_evictable}")
-    for rid in sorted(results)[:3]:
-        print(f"  req {rid}: {results[rid][:8]}...")
-    print(f"[serve] streams digest {streams_digest(results)}")
+    return results, snap
+
+
+def _run_fleet(args, cfg, params, batch, max_len, kw, make_request, lead):
+    """Fleet path: wave-stamped arrivals -> admission -> router ->
+    lockstep replicas (the reference's ``_run_fleet``).  Returns the
+    results; the fleet's gauges go to the process registry."""
+    from repro_torch.serving.fleet import (AdmissionConfig, FleetServer,
+                                           arrival_waves,
+                                           export_fleet_stats)
+    admission = AdmissionConfig(queue_cap=args.queue_cap,
+                                tenant_rate=args.tenant_rate,
+                                tenant_burst=args.tenant_burst)
+    fleet = FleetServer(cfg, params, args.replicas, batch, max_len,
+                        router=args.router, admission=admission, **kw)
+    waves = arrival_waves(args.requests, args.arrival,
+                          rng=np.random.default_rng(1),
+                          rate=args.arrival_rate)
+    arrivals = []
+    for rid in range(args.requests):
+        tenant, req = make_request(rid)
+        arrivals.append((waves[rid], tenant, req))
+    t0 = time.time()
+    results, rejections = fleet.run_trace(arrivals)
+    dt = time.time() - t0
+    export_fleet_stats(fleet)
+    if not lead:
+        return results
+    snap = fleet.snapshot()
+    total = sum(len(v) for v in results.values())
+    print(f"[fleet] {cfg.name} on {fleet.replicas[0].server.device}: "
+          f"{args.replicas} replicas | router {args.router} | arrival "
+          f"{args.arrival} | {len(results)} requests, {total} tokens in "
+          f"{dt:.1f}s ({total / dt:.1f} tok/s)")
+    print(f"[fleet] waves {snap.waves} | routed {list(snap.routed)} | "
+          f"admitted {snap.admitted} | rejected {snap.rejected} "
+          f"({dict(snap.rejected_by_reason)}) | below-cap rejects "
+          f"{snap.rejected_below_cap}")
+    print(f"[fleet] fleet prefill computed "
+          f"{snap.prefill_tokens_computed} | cached "
+          f"{snap.cached_prefix_tokens} "
+          f"({snap.cached_token_fraction:.0%}) | per-replica queue "
+          f"depth max {list(snap.queue_depth_max)}")
+    for i, rs in enumerate(snap.replicas):
+        qw = (f"{rs.queue_wait_p50_ms:.0f}ms"
+              if rs.queue_wait_p50_ms is not None else "n/a")
+        print(f"[fleet]   replica {i}: decode steps {rs.decode_steps} | "
+              f"prefill computed {rs.prefill_tokens_computed} | cached "
+              f"{rs.cached_prefix_tokens} | queue wait p50 {qw}")
+    if rejections:
+        r = rejections[0]
+        print(f"[fleet]   first rejection: rid {r.rid} ({r.reason}) "
+              f"retry after {r.retry_after_waves} waves")
     return results
 
 

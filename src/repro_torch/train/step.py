@@ -145,6 +145,17 @@ def _decay_shard(params: Any, lo: int, hi: int,
 
 
 @torch.no_grad()
+def fsdp_layout(params: Any, gs: GradSyncConfig
+                ) -> Tuple[int, int, int, int]:
+    """(P, n, pad, shard) of the FSDP flat layout over ``gs.axes``: the
+    folded DP size P, the params' element count n, the zero padding that
+    makes it a multiple of P, and the length of one rank's shard."""
+    n_world = math.prod(gs.grid.axis_size(a) for a in gs.axes)
+    n = sum(leaf.numel() for leaf in tree_leaves(params))
+    pad = (-n) % n_world
+    return n_world, n, pad, (n + pad) // n_world
+
+
 def fsdp_sync_apply(opt_cfg: AdamWConfig, params: Any, grads: Any,
                     opt: AdamWState, gs: GradSyncConfig
                     ) -> Tuple[Any, AdamWState, Dict[str, Any]]:
@@ -172,12 +183,9 @@ def fsdp_sync_apply(opt_cfg: AdamWConfig, params: Any, grads: Any,
         return apply_updates(opt_cfg, params, grads, opt)
     grid = gs.grid
     engine = get_engine(device=grid.device)
-    n_world = math.prod(grid.axis_size(a) for a in axes)
+    n_world, n, pad, shard = fsdp_layout(params, gs)
     use_master = opt.master is not None
     leaves = tree_leaves(params)
-    n = sum(leaf.numel() for leaf in leaves)
-    pad = (-n) % n_world
-    shard = (n + pad) // n_world
     lo = grid.axes_index(axes) * shard
     hi = lo + shard
 
@@ -335,5 +343,5 @@ def make_decode_step(cfg: ArchConfig):
 
 
 __all__ = ["AUX_WEIGHT", "GradSyncConfig", "cross_entropy",
-           "fsdp_sync_apply", "loss_fn", "make_decode_step",
+           "fsdp_layout", "fsdp_sync_apply", "loss_fn", "make_decode_step",
            "make_prefill_step", "make_train_step", "value_and_grad"]

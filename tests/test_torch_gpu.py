@@ -1648,3 +1648,97 @@ def test_reduced_llava_serves_through_the_paged_kernel(cuda_device, dtype):
             for uk in (True, False))
     tol = 2e-4 if dtype == "float32" else 5e-2
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_async_save_of_cuda_state_writes_the_pre_step_state(cuda_device,
+                                                            tmp_path):
+    """An asynchronous checkpoint of a train state on the card, followed
+    at once by an in-place AdamW step on the same tensors, holds the
+    state from before the step, bit for bit."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.optim import adamw
+    from repro_torch.train.state import init_train_state
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_config("minicpm-2b").reduced()
+    state = init_train_state(init_params(cfg, seed=0, device=cuda_device))
+    before = [t.clone() for t in tree_leaves(state) if torch.is_tensor(t)]
+    mgr = CheckpointManager(str(tmp_path), async_save=True)
+    mgr.save(1, state, block=False)
+    grads = tree_map(lambda p: torch.full_like(p, 0.25), state.params)
+    adamw.apply_updates(adamw.AdamWConfig(lr=1e-2), state.params, grads,
+                        state.opt)
+    mgr.wait()
+    _, got, _ = mgr.restore(state)
+    got = [t for t in tree_leaves(got) if torch.is_tensor(t)]
+    now = [t for t in tree_leaves(state) if torch.is_tensor(t)]
+    assert any(not torch.equal(a, b) for a, b in zip(now, before))
+    for g, b in zip(got, before):
+        assert torch.equal(g, b)
+
+
+@pytest.mark.gpu
+def test_restore_onto_cuda_keeps_dtype_and_device(cuda_device, tmp_path):
+    """A checkpoint written from the CPU restores onto the card from a
+    template of meta tensors: every leaf on CUDA in its dtype (the bf16
+    weights, the float32 moments, the float32 MoE router), bitwise."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.train.state import init_train_state
+    from repro_torch.tree import tree_leaves
+    cfg = get_config("olmoe-1b-7b").reduced()
+    state = init_train_state(init_params(cfg, seed=1, device="cpu"))
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(3, state)
+    template = init_train_state(init_params(cfg, device="meta"))
+    step, got, _ = mgr.restore(template, device=cuda_device)
+    assert step == 3
+    for g, w in zip(tree_leaves(got), tree_leaves(state)):
+        if not torch.is_tensor(w):
+            assert g == w
+            continue
+        assert g.device.type == "cuda" and g.dtype == w.dtype
+        assert torch.equal(g.cpu(), w)
+    assert {t.dtype for t in tree_leaves(got) if torch.is_tensor(t)} == \
+        {torch.bfloat16, torch.float32}
+
+
+@pytest.mark.gpu
+def test_two_replica_fleet_shares_weights_and_gives_one_replicas_streams(
+        cuda_device):
+    """Two replicas on the card hold one set of weights (the same
+    tensors) and each its own page pool; every greedy stream equals a
+    one-replica fleet's, one paged launch a layer a decode step."""
+    from repro_torch.serving import Request
+    from repro_torch.serving.fleet import FleetServer
+    from repro_torch.tree import tree_leaves
+    cfg = get_config("minicpm-2b").reduced()
+    params = init_params(cfg, seed=0, device=cuda_device)
+    rng = np.random.default_rng(0)
+    shared = [rng.integers(0, cfg.vocab_size, 16) for _ in range(2)]
+    prompts = [np.concatenate([shared[i % 2], rng.integers(
+        0, cfg.vocab_size, 3 + i)]).astype(np.int32) for i in range(8)]
+
+    def serve(n):
+        fleet = FleetServer(cfg, params, n, 4, 64, router="prefix_affinity",
+                            device=cuda_device, block_size=8,
+                            prefill_chunk=16)
+        for rid, p in enumerate(prompts):
+            assert fleet.submit(Request(rid=rid, prompt=p.copy(),
+                                        max_new_tokens=6),
+                                tenant=f"t{rid % 2}") is None
+        ops.reset_launch_counts()
+        out = fleet.run()
+        steps = sum(r.decode_steps for r in fleet.snapshot().replicas)
+        assert ops.launch_counts()["paged_attention"] == \
+            steps * cfg.num_layers > 0
+        return fleet, out
+
+    one, want = serve(1)
+    two, got = serve(2)
+    assert got == want and all(len(v) == 6 for v in got.values())
+    ptrs = [t.data_ptr() for t in tree_leaves(params)]
+    for rep in two.replicas:
+        assert rep.server.params is params
+        assert [t.data_ptr() for t in tree_leaves(rep.server.params)] == ptrs
+    pools = [rep.server.pages["k"].data_ptr() for rep in two.replicas]
+    assert len(set(pools)) == 2

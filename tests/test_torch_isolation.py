@@ -1,7 +1,7 @@
 """The port stands alone: every ``repro_torch`` module and
-``chip_smoke.py`` import with ``jax``, ``jaxlib`` and ``repro`` refused
-(a fresh interpreter with a meta-path hook; names match exactly, so
-``repro_torch`` itself passes)."""
+``chip_smoke.py`` import with ``jax``, ``jaxlib``, ``ml_dtypes`` and
+``repro`` refused (a fresh interpreter with a meta-path hook; names match
+exactly, so ``repro_torch`` itself passes)."""
 
 import os
 import subprocess
@@ -13,7 +13,7 @@ ROOT = Path(__file__).resolve().parents[1]
 _PROBE = r"""
 import importlib, importlib.abc, importlib.util, pkgutil, sys
 
-BANNED = {"jax", "jaxlib", "repro"}
+BANNED = {"jax", "jaxlib", "ml_dtypes", "repro"}
 refused = []
 
 
@@ -39,6 +39,7 @@ leaked = sorted(n for n in sys.modules if n.split(".")[0] in BANNED)
 assert not leaked, leaked
 assert not refused, refused
 print(len(names), "modules")
+print(" ".join(names))
 """
 
 
@@ -49,7 +50,14 @@ def test_port_imports_neither_jax_nor_repro():
         capture_output=True, text=True, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 59, proc.stdout
+    assert n_modules >= 71, proc.stdout
+    names = set(proc.stdout.splitlines()[1].split())
+    for name in ("checkpoint", "checkpoint.manager", "runtime",
+                 "runtime.fault_tolerance", "launch.roofline",
+                 "serving.fleet", "serving.fleet.admission",
+                 "serving.fleet.fleet", "serving.fleet.replica",
+                 "serving.fleet.router", "serving.fleet.trace"):
+        assert f"repro_torch.{name}" in names, name
 
 
 def test_kernels_layer_imports_no_collectives():

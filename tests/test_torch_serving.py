@@ -199,14 +199,18 @@ def test_serve_cli_refuses_the_hybrid_as_the_reference_does():
 
 def test_serve_cli_on_cpu(capsys):
     from repro_torch.launch import serve
-    serve.main(["--device", "cpu", "--requests", "3", "--batch", "2",
-                "--prompt-len", "8", "--new-tokens", "3",
-                "--shared-prompts", "2"])
+    shared = ["--device", "cpu", "--requests", "3", "--batch", "2",
+              "--prompt-len", "8", "--new-tokens", "3",
+              "--shared-prompts", "2"]
+    single = serve.main(shared)
     out = capsys.readouterr().out
     assert "3 requests, 9 tokens" in out and "on cpu" in out
-    for flags in (["--replicas", "2"], ["--router", "cost"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            serve.main(["--device", "cpu", *flags])
+    # the fleet flags serve (tests/test_torch_fleet.py), with the single
+    # server's streams: two replicas behind the default router and
+    # behind the cost router
+    for flags in (["--replicas", "2"],
+                  ["--replicas", "2", "--router", "cost"]):
+        assert serve.main([*shared, *flags]) == single
     # --dp serves (test_torch_serving_dp.py); in one process the DP axis
     # is that process alone, and the streams are the same
     plain = serve.main(["--device", "cpu", "--requests", "3", "--batch",
