@@ -198,11 +198,36 @@
    streams, ``prefix_affinity`` caches at least as much as
    ``round_robin``, and a capped bursty trace (queue cap 4, tenant rate
    64) rejects only at the cap, each rejection with a retry-after hint,
-   every admitted request with all its tokens.
+   every admitted request with all its tokens;
+26. tp block phase (after phase 23): the block sharded over "model"
+   (``sharding.rules.shard_params``): ``yi-34b`` at its published width
+   and depth (60 layers, 56/8 heads x 128, 34.389 B parameters, bf16,
+   random weights from ``--seed``) once on the card, each of 4 model-rank
+   threads holding views of its shards (14/2 heads, d_ff 5120, 16000
+   words of the vocabulary): 2 x 4096 prompts through
+   ``make_prefill_step`` (4 wgmma flash launches a layer) and 16 greedy
+   ``make_decode_step`` steps over head-sharded caches against the
+   single rank's on the same weights (tokens identical but at logged
+   near-ties, logits within 16 bf16 ulps of the largest); the paged
+   route (a 2 x 512 chunk, 8 ``decode_step_paged`` steps through the
+   paged kernel, 4 launches a layer a step, per-rank pools); a no-grad
+   ``forward_train`` at 2 x 4096 (loss and each rank's block of the
+   logits); each rank's bytes of weights, cache and pool against 1/4 of
+   the single rank's; float32 route checks of the sharded block through
+   the kernels against the single rank's plain route (1 x 4096, 1e-4):
+   ``yi-34b`` at 2 layers, ``olmoe-1b-7b`` (16 experts a rank),
+   ``falcon-mamba-7b`` (di 2048 a rank, the scan kernel), the hybrid's
+   first cycle and tail, ``whisper-medium`` at 2 + 2 layers.  The flash
+   and paged kernels at the per-rank shapes are among phase 2's cases.
 
 Phase 10 (NCCL, two or more cards) also times neighbour shifts over
 NCCL and runs ``calibrate(grid=)`` one process a card (the NVLink
-constants, persisted in a cache directory of the phase's own), and ends
+constants, persisted in a cache directory of the phase's own), trains
+the sharded block one process a card (``--tp-train-worker``: ``yi-34b``
+at full width, 4 layers, TP over 2 or 4 cards, 2 steps; the loss and the
+leaves whole on every rank bitwise equal across the ranks, the loss
+within 2e-2 of the single rank's step, peak memory against the
+reckoning), and ends
 with the trainer under torchrun with ``--arch olmoe-1b-7b --reduced
 --dp --moe-ep`` (EP with a backward), the loss equal on both ranks.
 
@@ -273,8 +298,8 @@ from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.launch.train import (build_batch,  # noqa: E402
                                       step_generator)
-from repro_torch.models import (decode_step_paged, forward_train,  # noqa
-                                init_params)
+from repro_torch.models import (decode_step_paged, forward_paged,  # noqa
+                                forward_train, init_pages, init_params)
 from repro_torch.models.frontend import (audio_frames,  # noqa: E402
                                          vision_patches)
 from repro_torch.models.layers import ambient_grid, set_fused_tp  # noqa
@@ -288,11 +313,15 @@ from repro_torch.serving.fleet import (AdmissionConfig,  # noqa: E402
                                        FleetServer, ROUTER_POLICIES,
                                        arrival_waves)
 from repro_torch.serving.telemetry import export_to_registry  # noqa: E402
-from repro_torch.train.state import init_train_state  # noqa: E402
+from repro_torch.sharding.rules import (model_sharded_leaves,  # noqa
+                                        shard_for_rank, shard_params)
+from repro_torch.train.state import (init_train_state,  # noqa: E402
+                                     rank_state_bytes)
 from repro_torch.train.step import (GradSyncConfig,  # noqa: E402
-                                    make_decode_step, make_prefill_step,
-                                    make_train_step, value_and_grad)
-from repro_torch.tree import tree_leaves  # noqa: E402
+                                    loss_fn, make_decode_step,
+                                    make_prefill_step, make_train_step,
+                                    value_and_grad)
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 #: NVIDIA H100 SXM data sheet: device memory rate, dense peak rates by the
 #: inputs' type (bf16 on the tensor cores, float32 outside them)
@@ -412,7 +441,11 @@ FLASH_CASES = (("minicpm-2b train layer", 2, 36, 36, 4096, 64, True, None),
                 None),
                ("recurrentgemma-9b local layer", 2, 16, 1, 4096, 256, True,
                 2048),
-               (ENCDEC_FLASH, 2, 16, 16, 4096, 64, False, None))
+               (ENCDEC_FLASH, 2, 16, 16, 4096, 64, False, None),
+               ("yi-34b TP-4 rank layer (14/2 heads)", 2, 14, 2, 4096, 128,
+                True, None),
+               ("olmoe-1b-7b TP-4 rank layer (4/4 heads)", 2, 4, 4, 4096,
+                128, True, None))
 #: kernel vs plain lse (float32 sums of up to 4096 terms in other
 #: orders, lse of magnitude ~10): 1e-4 absolute
 LSE_TOL = 1e-4
@@ -537,6 +570,36 @@ TP_DECODE = dict(tp=8, layers=2, batch=2, prompt=4096, new_tokens=8,
 #: max-abs: float32 adds in another order over K = 2560; bf16 rounds the
 #: float32 sum once, at most one bf16 ulp (2^-7 of the value) apart
 MM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+#: the block sharded over "model" (``sharding.rules.shard_params``): yi-34b
+#: at full width and depth on 4 model-rank threads sharing one weight set;
+#: prompts past 2048 positions, where the reference's dispatch (and the
+#: port's) takes the chunked branch, the flash kernel's route: 2 x 4096,
+#: 16 greedy steps; the paged route's prefill chunk is 2 x 512 (its
+#: gathered attention materialises a chunk's logits), then 8 decode steps
+#: through the paged kernel
+TP_ARCH = "yi-34b"
+TP_BLOCK = dict(tp=4, batch=2, prompt=4096, new_tokens=16, headroom=16,
+                paged_prompt=512, paged_steps=8, block_size=16)
+#: the sharded route's bf16 logits against the single rank's: 2 bf16 ulps
+#: of the largest logit at one layer (the tp decode phase's bound), the
+#: sharded route adding 2 roundings of a 4-way sum a layer; as independent
+#: roundings over 2 x 60 reductions the spread grows as their square root
+#: (~11x), held to 16 ulps of the largest logit; the cross entropy moves by
+#: at most twice the largest logit's error (|d lse| and |d gold| each at
+#: most max |d logit|)
+TP_BF16_ULPS = 16
+#: float32 route checks of the sharded block (kernel route, 4 threads)
+#: against the single rank's plain route, 1 x 4096 positions (frames too
+#: for the encoder-decoder), max |err| / max |plain|: the dense block at
+#: 2 layers and every other family at its reduced depth (the hybrid's 3
+#: layers: one pattern cycle, whose third block is the local attention)
+TP_ROUTE = (("yi-34b", 2), ("olmoe-1b-7b", 2), ("falcon-mamba-7b", 2),
+            ("recurrentgemma-9b", 1), ("whisper-medium", 2))
+TP_ROUTE_TOL = 1e-4
+#: the sharded train step one process a card over NCCL: yi-34b at full
+#: width with 4 layers, TP over every card (2 or 4), 2 steps of 2 x 2048
+TP_TRAIN = dict(layers=4, batch=2, seq=2048, steps=2, lr=3e-4)
 
 MOE_ARCH = "olmoe-1b-7b"
 #: olmoe-1b-7b at full width, 8 of its 16 layers (AdamW for all 16 needs
@@ -770,6 +833,9 @@ PAGED_CASES = (
      [1, 0, 37, 100, 157, 211, 290, 383], torch.bfloat16, True),
     ("llava-next-34b decode (serving shape, 576 soft positions a row)", 8,
      56, 8, 128, 16, 480, [577, 650, 700, 733, 820, 871, 900, 944],
+     torch.bfloat16, True),
+    ("yi-34b TP-4 rank decode (14/2 heads a rank, llava's rows)", 8, 14, 2,
+     128, 16, 480, [577, 650, 700, 733, 820, 871, 900, 944],
      torch.bfloat16, True),
 )
 
@@ -3398,6 +3464,290 @@ def tp_decode_phase(seed: int) -> None:
         f"the largest logit)")
 
 
+# --------------------------- tp block phase --------------------------- #
+def _tp_threads(fn, tp: int) -> list:
+    """``fn(grid)`` on ``tp`` model-rank threads of the card."""
+    return run_local_grid(fn, (tp,), ("model",), "cuda")
+
+
+def _tree_bytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+def tp_block_greedy(params, cfg, prompt, grid):
+    """Prefill, the cache padded (a rank's tree: its kv heads), greedy
+    decode steps; (tokens, the logits of every step, the padded cache's
+    bytes, prefill wall, decode wall)."""
+    with ambient_grid(grid):
+        if grid is not None:
+            params = shard_params(params, cfg, grid)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = make_prefill_step(cfg)(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        pad = (0, 0, 0, 0, 0, TP_BLOCK["headroom"])
+        cache = dict(cache, k=torch.nn.functional.pad(cache["k"], pad),
+                     v=torch.nn.functional.pad(cache["v"], pad))
+        decode = make_decode_step(cfg)
+        steps, toks = [logits[:, -1]], []
+        t0 = time.perf_counter()
+        for _ in range(TP_BLOCK["new_tokens"]):
+            nxt = steps[-1].argmax(-1, keepdim=True).to(torch.int32)
+            toks.append(nxt)
+            logits, cache = decode(params, cache, {"tokens": nxt})
+            steps.append(logits[:, -1])
+        torch.cuda.synchronize()
+        t_decode = time.perf_counter() - t0
+    nbytes = cache["k"].numel() * cache["k"].element_size() * 2
+    return (torch.cat(toks, 1), torch.stack(steps, 1), nbytes, t_prefill,
+            t_decode)
+
+
+def tp_paged_greedy(params, cfg, prompt, grid, tp: int):
+    """The paged route: the prompt as one prefill chunk (gathered
+    attention), then greedy steps of ``decode_step_paged`` through the
+    paged kernel, each rank on its pool of its kv heads; (tokens, logits
+    of every step, the pool's bytes)."""
+    b, s = prompt.shape
+    bs, n_steps = TP_BLOCK["block_size"], TP_BLOCK["paged_steps"]
+    m = -(-(s + n_steps) // bs)
+    pages = init_pages(cfg, 1 + b * m, bs, device="cuda", tp=tp)
+    bt = (1 + torch.arange(b * m, dtype=torch.int32,
+                           device="cuda")).reshape(b, m)
+    ctx = torch.zeros(b, dtype=torch.int32, device="cuda")
+    with torch.no_grad(), ambient_grid(grid):
+        if grid is not None:
+            params = shard_params(params, cfg, grid)
+        logits, pages = forward_paged(params, cfg, pages, {"tokens": prompt},
+                                      bt, ctx)
+        steps, toks = [logits[:, -1]], []
+        for i in range(n_steps):
+            nxt = steps[-1].argmax(-1, keepdim=True).to(torch.int32)
+            toks.append(nxt)
+            logits, pages = decode_step_paged(params, cfg, pages,
+                                              {"tokens": nxt}, bt,
+                                              ctx + s + i, use_kernel=True)
+            steps.append(logits[:, -1])
+    torch.cuda.synchronize()
+    return torch.cat(toks, 1), torch.stack(steps, 1), _tree_bytes(pages)
+
+
+def compare_streams(label, want_toks, want_logits, toks, logits, tol):
+    """Greedy streams of the sharded route against the single rank's: the
+    logits of every step within ``tol`` while the streams agree; where
+    they part, the single route's top-two margin at that step must lie
+    within ``tol`` (a near-tie), and the comparison stops there.  Returns
+    (max error, the step they parted at or None, its margin)."""
+    n = want_toks.shape[1]
+    parted = next((i for i in range(n)
+                   if not torch.equal(toks[:, i], want_toks[:, i])), None)
+    upto = n + 1 if parted is None else parted + 1
+    err = float((logits[:, :upto].float()
+                 - want_logits[:, :upto].float()).abs().max())
+    assert torch.isfinite(logits[:, :upto]).all() and err <= tol, \
+        (label, err, tol)
+    margin = None
+    if parted is not None:
+        top = want_logits[:, parted].float().topk(2, dim=-1).values
+        margin = float((top[:, 0] - top[:, 1]).min())
+        assert margin <= tol, (label, parted, margin, tol)
+    return err, parted, margin
+
+
+def tp_route_check(seed: int, arch: str, units: int, tp: int) -> str:
+    """A float32 ``arch`` at full width and ``units`` layer units: the
+    sharded block on ``tp`` threads through the kernels against the single
+    rank's plain route, forward only (no grad), 1 x 4096 positions; each
+    rank's block of the logits against the single rank's."""
+    cfg = dataclasses.replace(with_layer_units(get_config(arch), units),
+                              dtype="float32")
+    params = init_params(cfg, seed=seed, device="cuda")
+    batch = lm_batch(cfg, 1, 4096, 0, seed)
+    inputs = {k: v for k, v in batch.items() if k != "labels"}
+    with torch.no_grad():
+        want, _ = forward_train(params, cfg, inputs, use_kernel=False)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+
+    def rank(grid):
+        with torch.no_grad(), ambient_grid(grid):
+            logits, _ = forward_train(shard_params(params, cfg, grid), cfg,
+                                      inputs)
+        v = logits.shape[-1]
+        block = want if v == cfg.vocab_size else want[
+            ..., grid.rank * v:(grid.rank + 1) * v]
+        return _rel_err(logits, block)
+
+    errs = _tp_threads(rank, tp)
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in ops.launch_counts().items() if n}
+    kernel = "selective_scan" if cfg.family == "ssm" else "flash_attention"
+    per_rank = (cfg.num_layers if cfg.family == "ssm"
+                else attention_layers(cfg))
+    assert counts == {kernel: tp * per_rank}, (arch, counts)
+    assert max(errs) <= TP_ROUTE_TOL, (arch, errs)
+    del params, want
+    torch.cuda.empty_cache()
+    return (f"{arch} ({cfg.num_layers} layers"
+            + (f" + {cfg.encoder_layers} encoder" if cfg.encoder_layers
+               else "")
+            + f") {counts} err {max(errs):.3e}")
+
+
+def tp_block_phase(seed: int, rows: dict) -> None:
+    """The block sharded over "model" on ``TP_BLOCK["tp"]`` rank threads
+    of one card: yi-34b at full width and depth, one weight set on the
+    card (each rank's tree views of it), prefill + greedy decode, the
+    paged route and a no-grad ``forward_train`` against the single rank on
+    the same weights; then float32 route checks of every family."""
+    tp = TP_BLOCK["tp"]
+    cfg = get_config(TP_ARCH)
+    b, s = TP_BLOCK["batch"], TP_BLOCK["prompt"]
+    weights_gb = cfg.param_count() * 2 / 1e9
+    free, total = torch.cuda.mem_get_info()
+    want_rank = rank_state_bytes(cfg, tp)["params"]
+    log(f"tp block {TP_ARCH}: {cfg.num_layers} layers at full width, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads x "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.param_count() / 1e9:.3f}B params, {weights_gb:.2f} GB bf16 "
+        f"once on the card ({free / 1e9:.1f} of {total / 1e9:.1f} GB free) "
+        f"shared by {tp} model-rank threads; reckoned a rank's tree "
+        f"{want_rank / 1e9:.3f} GB (1/{tp} of each leaf the layout cuts, "
+        f"norms whole)")
+    params = init_params(cfg, seed=seed, device="cuda")
+    prompt = lm_batch(cfg, b, s, 3, seed)["tokens"]
+
+    # prefill + greedy decode: the single rank, then the sharded block
+    ops.reset_launch_counts()
+    want_toks, want_logits, single_cache, ts_pre, ts_dec = tp_block_greedy(
+        params, cfg, prompt, None)
+    assert ops.launch_counts()["flash_attention"] == cfg.num_layers
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = _tp_threads(lambda g: tp_block_greedy(params, cfg, prompt, g), tp)
+    t_tp = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want = dict.fromkeys(ops.WRAPPERS, 0)
+    want["flash_attention"] = tp * cfg.num_layers
+    assert counts == want, (counts, want)
+    assert ops.variant_launch_counts()["flash_attention"]["wgmma"] == \
+        tp * cfg.num_layers
+    rows["flash_attention"]["launches"] += counts["flash_attention"]
+    tol = TP_BF16_ULPS * float(bf16_ulp(want_logits.float().abs().max()))
+    res = [compare_streams("tp block", want_toks, want_logits, toks, logits,
+                           tol) for toks, logits, *_ in out]
+    rank_cache = out[0][2]
+    assert rank_cache * tp == single_cache, (rank_cache, single_cache)
+    local = shard_for_rank(params, cfg, tp, 1)
+    assert _tree_bytes(local) == want_rank, (_tree_bytes(local), want_rank)
+    del local
+    parted = [(p, m) for _, p, m in res if p is not None]
+    log(f"tp block prefill + decode ({b} x {s} prompt, flash launches "
+        f"{counts['flash_attention']} = {tp} ranks x {cfg.num_layers} "
+        f"layers, all wgmma at {cfg.num_heads // tp}/"
+        f"{cfg.num_kv_heads // tp} heads a rank; {TP_BLOCK['new_tokens']} "
+        f"greedy steps over head-sharded caches): tokens "
+        + ("identical to the single rank's on every rank" if not parted else
+           f"part from the single rank's at near-ties {parted} (step, "
+           f"top-two margin)")
+        + f" | logits max_abs_err {max(r[0] for r in res):.3e} (tol "
+        f"{tol:.3e}: {TP_BF16_ULPS} bf16 ulps of the largest logit) | a "
+        f"rank's tree {want_rank / 1e9:.3f} GB of views and its padded "
+        f"cache {rank_cache / 1e9:.4f} GB = 1/{tp} of the single rank's "
+        f"{single_cache / 1e9:.4f} GB | host walls: single rank prefill "
+        f"{ts_pre * 1e3:.1f} ms, decode {ts_dec * 1e3:.1f} ms; {tp} rank "
+        f"threads prefill {max(o[3] for o in out) * 1e3:.1f} ms, decode "
+        f"{max(o[4] for o in out) * 1e3:.1f} ms, whole "
+        f"{t_tp * 1e3:.1f} ms ({THREADS_NOTE})")
+    del out, want_logits
+    torch.cuda.empty_cache()
+
+    # the paged route, each rank's pool of its kv heads
+    pp = prompt[:, :TP_BLOCK["paged_prompt"]].contiguous()
+    want_toks, want_logits, single_pool = tp_paged_greedy(params, cfg, pp,
+                                                          None, 1)
+    ops.reset_launch_counts()
+    out = _tp_threads(lambda g: tp_paged_greedy(params, cfg, pp, g, tp), tp)
+    counts = ops.launch_counts()
+    n_paged = tp * cfg.num_layers * TP_BLOCK["paged_steps"]
+    assert counts["paged_attention"] == n_paged, counts
+    rows["paged_attention"]["launches"] += counts["paged_attention"]
+    info = pa.describe(torch.empty(b, cfg.num_heads // tp,
+                                   cfg.resolved_head_dim,
+                                   dtype=torch.bfloat16, device="cuda"),
+                       torch.empty(2, TP_BLOCK["block_size"],
+                                   cfg.num_kv_heads // tp,
+                                   cfg.resolved_head_dim,
+                                   dtype=torch.bfloat16, device="cuda"),
+                       torch.zeros(b, 1, dtype=torch.int32, device="cuda"))
+    tol = TP_BF16_ULPS * float(bf16_ulp(want_logits.float().abs().max()))
+    res = [compare_streams("tp paged", want_toks, want_logits, toks, logits,
+                           tol) for toks, logits, _ in out]
+    assert out[0][2] * tp == single_pool, (out[0][2], single_pool)
+    parted = [(p, m) for _, p, m in res if p is not None]
+    log(f"tp block paged route ({b} x {TP_BLOCK['paged_prompt']} prefill "
+        f"chunk, {TP_BLOCK['paged_steps']} decode steps): paged_attention "
+        f"launches {counts['paged_attention']} = {tp} ranks x "
+        f"{cfg.num_layers} layers x {TP_BLOCK['paged_steps']} steps "
+        f"({info['kernel']} at {cfg.num_heads // tp}/"
+        f"{cfg.num_kv_heads // tp} heads a rank) | tokens "
+        + ("identical to the single rank's" if not parted else
+           f"part at near-ties {parted}")
+        + f" | logits max_abs_err {max(r[0] for r in res):.3e} (tol "
+        f"{tol:.3e}) | a rank's pool {out[0][2] / 1e9:.4f} GB = 1/{tp} of "
+        f"{single_pool / 1e9:.4f} GB")
+    del out, want_logits
+    torch.cuda.empty_cache()
+
+    # forward_train without grad: the loss and each rank's logits block
+    batch = lm_batch(cfg, b, s, 4, seed)
+    inputs = {"tokens": batch["tokens"]}
+    with torch.no_grad():
+        want_loss = float(loss_fn(params, cfg, batch)[0])
+        want_logits, _ = forward_train(params, cfg, inputs)
+    ops.reset_launch_counts()
+
+    def rank(grid):
+        local = shard_params(params, cfg, grid)
+        with torch.no_grad(), ambient_grid(grid):
+            loss = float(loss_fn(local, cfg, batch)[0])
+            logits, _ = forward_train(local, cfg, inputs)
+        v = logits.shape[-1]
+        err = float((logits.float() - want_logits[
+            ..., grid.rank * v:(grid.rank + 1) * v].float()).abs().max())
+        return loss, err
+
+    out = _tp_threads(rank, tp)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 2 * tp * cfg.num_layers, counts
+    rows["flash_attention"]["launches"] += counts["flash_attention"]
+    tol = TP_BF16_ULPS * float(bf16_ulp(want_logits.float().abs().max()))
+    losses = [o[0] for o in out]
+    assert len(set(losses)) == 1, losses
+    d_loss = abs(losses[0] - want_loss)
+    assert max(o[1] for o in out) <= tol and d_loss <= 2 * tol, (out, tol)
+    log(f"tp block forward_train (no grad, {b} x {s}): loss "
+        f"{losses[0]:.6f} on every rank vs the single rank's {want_loss:.6f}"
+        f" (|diff| {d_loss:.3e}, tol {2 * tol:.3e}: twice the logits' "
+        f"tol) | each rank's block of the vocabulary's logits max_abs_err "
+        f"{max(o[1] for o in out):.3e} (tol {tol:.3e}) | flash launches "
+        f"{counts['flash_attention']} (loss and logits: 2 forwards x {tp} "
+        f"ranks x {cfg.num_layers} layers)")
+    del params, want_logits, out
+    torch.cuda.empty_cache()
+
+    # float32 route checks, every family
+    ops.reset_launch_counts()
+    notes = [tp_route_check(seed, arch, units, tp)
+             for arch, units in TP_ROUTE]
+    log(f"tp block float32 route checks (the sharded block on {tp} threads "
+        f"through the kernels vs the single rank's plain route, 1 x 4096, "
+        f"max |err| / max |plain|, tol {TP_ROUTE_TOL:.0e}): "
+        + " | ".join(notes))
+
+
 # ------------------------------ MoE phases ------------------------------ #
 def moe_train_phase(seed: int) -> None:
     """olmoe-1b-7b at full width, MOE_TRAIN['layers'] layers, bf16, remat:
@@ -4085,6 +4435,78 @@ def nccl_worker(rank: int, world: int, init: str, seed: int) -> int:
     return 0
 
 
+def tp_train_worker(rank: int, world: int, init: str, seed: int) -> int:
+    """One rank of the sharded train step over NCCL, on card ``rank``:
+    rank 0 first runs the single-rank step on the whole tree; then every
+    rank runs the step on its shards of the same weights (a (world,)
+    "model" grid, ``ProcessGroupGrid``): the loss and every leaf whole on
+    each rank bitwise equal across the ranks, the loss within the bf16
+    tolerance of the single rank's, the peak memory against the
+    reckoning."""
+    torch.distributed.init_process_group("nccl", init_method=init,
+                                         rank=rank, world_size=world)
+    dev = torch.device(f"cuda:{rank}")
+    torch.cuda.set_device(dev)
+    grid = ProcessGroupGrid((world,), ("model",), device=dev)
+    comm = grid.sub("model")
+    cfg = with_layer_units(get_config(TP_ARCH), TP_TRAIN["layers"])
+    opt_cfg = AdamWConfig(lr=TP_TRAIN["lr"], warmup_steps=1, total_steps=10)
+    batches = [lm_batch(cfg, TP_TRAIN["batch"], TP_TRAIN["seq"], i, seed)
+               for i in range(TP_TRAIN["steps"])]
+    step = make_train_step(cfg, opt_cfg)
+    single = torch.zeros(TP_TRAIN["steps"], device=dev)
+    if rank == 0:
+        state = init_train_state(init_params(cfg, seed=seed, device=dev))
+        for i, batch in enumerate(batches):
+            state, metrics = step(state, batch)
+            single[i] = metrics["loss"]
+        del state, metrics
+        torch.cuda.empty_cache()
+    single = comm.psum(single)          # rank 0's, on every rank
+    torch.cuda.reset_peak_memory_stats(dev)
+    whole = init_params(cfg, seed=seed, device=dev)
+    local = tree_map(lambda t: t.clone(), shard_params(whole, cfg, grid))
+    del whole
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = init_train_state(local)
+    losses, walls = [], []
+    with ambient_grid(grid):
+        for batch in batches:
+            state, metrics, loss, wall = timed_step(step, state, batch)
+            losses.append(loss)
+            walls.append(wall)
+    peak = torch.cuda.max_memory_allocated(dev)
+    flags = model_sharded_leaves(state.params, cfg)
+    mine = torch.tensor(losses, device=dev)
+    assert torch.equal(comm.all_gather(mine[None]),
+                       mine[None].expand(world, -1)), "losses differ"
+    n_whole = 0
+    for leaf, cut in zip(tree_leaves(state.params), flags):
+        if not cut:
+            got = comm.all_gather(leaf[None].contiguous())
+            assert all(torch.equal(g, leaf) for g in got), "a leaf drifted"
+            n_whole += 1
+    tol = 2e-2 * float(single.abs().max())
+    d_loss = float((mine - single).abs().max())
+    assert d_loss <= tol, (losses, single.tolist(), tol)
+    want = rank_state_bytes(cfg, world)
+    reckoned = want["params"] * 2 + want["opt"]       # params, grads, moments
+    torch.distributed.destroy_process_group()
+    print(f"tp train rank {rank}/{world}: {TP_ARCH} at full width, "
+          f"{cfg.num_layers} layers, TP-{world} one process a card over "
+          f"NCCL, {TP_TRAIN['steps']} steps of {TP_TRAIN['batch']} x "
+          f"{TP_TRAIN['seq']}: losses {losses} (single rank "
+          f"{[round(x, 6) for x in single.tolist()]}, max |diff| "
+          f"{d_loss:.3e}, tol {tol:.3e}: 2e-2 of the loss, ~5 bf16 ulps) | "
+          f"loss and {n_whole} leaves whole on every rank bitwise equal "
+          f"across the {world} ranks | step walls "
+          f"{[round(w * 1e3, 1) for w in walls]} ms | peak memory "
+          f"{peak / 1e9:.2f} GB vs reckoned {reckoned / 1e9:.2f} GB of "
+          f"params, grads and moments a rank (+ activations)", flush=True)
+    return 0
+
+
 def nccl_calibrate(rank: int, world: int, comm, grid) -> None:
     """The NVLink half of the calibration: neighbour shifts over the
     whole NCCL world (``measure_ppermute``), then ``calibrate(grid=)``
@@ -4122,7 +4544,8 @@ def nccl_phase(seed: int) -> None:
             f"over a 2x2 ProcessGroupGrid (needs 4 cards), nor the DP "
             f"and MoE EP trainers under torchrun (need 2); the NVLink half "
             f"of the calibration (measure_ppermute and calibrate(grid=) "
-            f"over NCCL, one process a card) was not run")
+            f"over NCCL, one process a card) was not run; nor the sharded "
+            f"train step of {TP_ARCH} one process a card (needs 2)")
         return
     world = 1 << (cards.bit_length() - 1)   # a power of two (tree, doubling)
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -4164,6 +4587,30 @@ def nccl_phase(seed: int) -> None:
         f"cache and restores: {persisted.describe()}")
     log(f"nccl phase: {world} ProcessGroupComm ranks, one per card, passed "
         f"in {time.perf_counter() - t0:.1f} s of host wall")
+    # the block sharded over "model" with a backward: one process a card
+    tp_world = min(world, 4)
+    init.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, "--seed", str(seed), "--tp-train-worker",
+         str(r), str(tp_world), f"file://{init}"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(tp_world)]
+    try:
+        outs = [p.communicate(timeout=900)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        init.unlink(missing_ok=True)
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"tp train rank {r} failed:\n{out[-4000:]}"
+        for line in out.splitlines():
+            if line.startswith("tp train rank"):
+                log(line)
+    log(f"nccl phase: the sharded train step on {tp_world} cards passed in "
+        f"{time.perf_counter() - t0:.1f} s of host wall")
     # the DP trainer as users start it: one process a card under torchrun
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(root / "src"))
@@ -4228,6 +4675,9 @@ def main(argv=None) -> int:
     ap.add_argument("--nccl-worker", nargs=3, metavar=("RANK", "WORLD",
                                                        "INIT"),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--tp-train-worker", nargs=3, metavar=("RANK", "WORLD",
+                                                           "INIT"),
+                    help=argparse.SUPPRESS)
     ap.add_argument("--lr-witness", action="store_true",
                     help="run only the dense train steps at lr 1e-3 "
                     "through the kernel and the plain attention route")
@@ -4243,6 +4693,9 @@ def main(argv=None) -> int:
     if args.nccl_worker:
         rank, world, init = args.nccl_worker
         return nccl_worker(int(rank), int(world), init, args.seed)
+    if args.tp_train_worker:
+        rank, world, init = args.tp_train_worker
+        return tp_train_worker(int(rank), int(world), init, args.seed)
     card = nvidia_smi()
     log(f"gpu: {card} | torch {torch.__version__} | CUDA "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} x "
@@ -4293,6 +4746,7 @@ def main(argv=None) -> int:
     run("hybrid", hybrid_phase, seed, rows)
     run("encdec", encdec_phase, seed, rows)
     run("vision", vision_phase, seed, rows)
+    run("tp block", tp_block_phase, seed, rows)
     run("collectives", collective_phase, seed)
     run("2D collectives", collective_2d_phase, seed)
     run("fused ring", fused_phase, seed, rows)

@@ -36,7 +36,8 @@ def tensor_from_numpy(arr: np.ndarray, device: torch.device
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig,
-                    device: DeviceLike = None) -> Params:
+                    device: DeviceLike = None, grid=None,
+                    policy=None) -> Params:
     """The reference's parameter tree of any family (numpy leaves) as the
     port's parameters on ``device`` (default ``cuda``), every ``[L, ...]``
     leaf unstacked into the per-layer dictionaries (the MoE ``router``,
@@ -45,7 +46,21 @@ def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig,
     ``encoder`` and ``layers``, its ``enc_ln_f`` staying a leaf).
     Each leaf keeps its dtype: the SSM's float32 ``a_log`` and ``d_skip``,
     the MoE's float32 router and the RG-LRU's float32 ``lam`` stay
-    float32 in a bfloat16 model."""
+    float32 in a bfloat16 model.  With ``grid`` (this rank's ``GridComm``,
+    and a ``ShardingPolicy`` or None) the tree comes across as the rank's
+    shards over the grid's model axis (``sharding.rules.shard_params``),
+    each a tensor of its own; ``sharding.rules.unshard_params`` of every
+    rank's gives the whole tree back exactly."""
+    if grid is not None:
+        from repro_torch.sharding.rules import shard_params
+        from repro_torch.tree import tree_map
+
+        whole = params_from_jax(tree, cfg, device="cpu")
+        dev = resolve_device(device)
+        return tree_map(
+            lambda x: x.to(dev, memory_format=torch.contiguous_format,
+                           copy=True),
+            shard_params(whole, cfg, grid, policy))
     if cfg.family not in INIT_FAMILIES:
         raise ValueError(f"params_from_jax: unknown family {cfg.family!r}")
     dev = resolve_device(device)

@@ -24,10 +24,25 @@ manager binding the rank's ``GridComm``; per thread, since the ranks of
 ``run_local_grid`` are threads of one process).  Under a grid with a
 ``"model"`` axis, ``swiglu`` runs the fused tensor-parallel
 down-projection (``set_fused_tp``) and a dense decode over a
-sequence-sharded KV cache runs ``flash_decode``.  Weights stay
-replicated over ``"model"``: each rank computes everything but the
-down-projection's ring.  The reference's sharding hints
-(``shard_hint``) steer GSPMD and have no counterpart.
+sequence-sharded KV cache runs ``flash_decode``.  Two trees run there:
+
+* a whole tree (every weight replicated over "model"): each rank
+  computes everything but the fused down-projection's ring;
+* one rank's shards (``sharding.rules.shard_params``): the tensor-
+  parallel block.  The entry points bind the model axis
+  (:func:`model_parallel`, the one rule :func:`tp_comm` reads off the
+  tree), and each column-parallel input passes :func:`copy_to_model`
+  (identity forward, all-reduce of the cotangent backward), each
+  row-parallel output :func:`reduce_from_model` (the engine's
+  ``allreduce``, the cotangent passed through).  Attention runs on the
+  heads its weights hold, SwiGLU on its block of the hidden dim.
+
+The reduction of a backward runs inside an autograd node: fine on the
+CPU and one process a rank; on CUDA rank threads the autograd engine
+runs every thread's nodes on one device thread, so such a backward is
+refused (:func:`refuse_cuda_thread_backward`, ROADMAP C15).  The
+reference's sharding hints (``shard_hint``) steer GSPMD and have no
+counterpart.
 """
 
 from __future__ import annotations
@@ -249,6 +264,149 @@ def _ambient_grid():
 
 
 # ---------------------------------------------------------------------- #
+# tensor parallelism over "model" on a tree of one rank's shards
+# ---------------------------------------------------------------------- #
+def tp_comm(params, cfg, grid=None):
+    """The model axis's ``Comm`` when ``params`` is one rank's shards
+    (``sharding.rules.tp_degree``, read off the embedding), else None.
+    The grid is ``grid`` or the thread's ambient one, and its model axis
+    must be the one the tree was cut for."""
+    from repro_torch.sharding.rules import tp_degree
+
+    m = tp_degree(params, cfg)
+    if m == 1:
+        return None
+    grid = _ambient_grid() if grid is None else grid
+    if (grid is None or "model" not in grid.axis_names
+            or grid.axis_size("model") != m):
+        have = None if grid is None else dict(zip(grid.axis_names,
+                                                  grid.shape))
+        raise ValueError(
+            f"{cfg.name}: a tree cut over a model axis of {m} runs under a "
+            f"grid with that axis (ambient_grid), not {have}")
+    return grid.sub("model")
+
+
+def _tp():
+    """The model axis this thread's entry point bound, or None."""
+    return getattr(_AMBIENT, "tp", None)
+
+
+@contextlib.contextmanager
+def bind_tp(comm) -> Iterator:
+    """Bind ``comm`` as the thread's tensor-parallel model axis (None:
+    a whole tree) for the duration of the block."""
+    prev = getattr(_AMBIENT, "tp", None)
+    _AMBIENT.tp = comm
+    try:
+        yield comm
+    finally:
+        _AMBIENT.tp = prev
+
+
+@contextlib.contextmanager
+def model_parallel(params, cfg) -> Iterator:
+    """What an entry point runs under: the model axis of ``params``
+    (:func:`tp_comm`) bound for the block; yields it (or None)."""
+    with bind_tp(tp_comm(params, cfg)) as comm:
+        yield comm
+
+
+def refuse_cuda_thread_backward(x: torch.Tensor, grid, what: str) -> None:
+    """A backward through a collective on CUDA rank threads would run it
+    on the autograd engine's one device thread and deadlock (ROADMAP
+    C15): refuse it.  One process a rank (``ProcessGroupGrid``) has its
+    own device thread, and the CPU runs each caller's backward."""
+    from repro_torch.collectives.comm import LocalGridComm, LocalComm
+
+    local = isinstance(grid, (LocalGridComm, LocalComm))
+    if (torch.is_grad_enabled() and x.device.type == "cuda" and local
+            and grid.size > 1):
+        raise NotImplementedError(
+            f"{what}: a backward through its collectives on CUDA rank "
+            f"threads would run them on the autograd engine's one device "
+            f"thread (ROADMAP.md C15); run forward-only (torch.no_grad) "
+            f"or one process a rank")
+
+
+def _engine(comm):
+    from repro_torch.collectives.api import get_engine
+    return get_engine(device=comm.device)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the cotangent all-reduced over the model axis:
+    the input of a column-parallel product, whole on every rank, each
+    using it for its own block."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _engine(ctx.comm).allreduce(ct.contiguous(), ctx.comm), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The partial sums of a row-parallel product all-reduced over the
+    model axis (the engine's ``allreduce``); the result is whole on every
+    rank and so is its cotangent, which passes through."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        return _engine(comm).allreduce(x.contiguous(), comm)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """Every rank's block of the last dim, gathered; the backward takes
+    this rank's block of the (whole) cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm, ctx.n = comm, x.shape[-1]
+        parts = _engine(comm).allgather(x.contiguous()[None], comm)
+        return torch.cat(list(parts), dim=-1)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct.narrow(-1, ctx.comm.rank * ctx.n, ctx.n), None
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """:class:`_CopyToModel` over the bound model axis (identity without
+    one)."""
+    comm = _tp()
+    if comm is None or comm.size == 1:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        refuse_cuda_thread_backward(x, comm, "the tensor-parallel block")
+        return _CopyToModel.apply(x, comm)
+    return x
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """:class:`_ReduceFromModel` over the bound model axis."""
+    comm = _tp()
+    if comm is None or comm.size == 1:
+        return x
+    return _ReduceFromModel.apply(x, comm)
+
+
+def gather_from_model(x: torch.Tensor) -> torch.Tensor:
+    """:class:`_GatherFromModel` over the bound model axis."""
+    comm = _tp()
+    if comm is None or comm.size == 1:
+        return x
+    return _GatherFromModel.apply(x, comm)
+
+
+# ---------------------------------------------------------------------- #
 # sequence-parallel flash decode
 #
 # GQA archs whose kv-head count doesn't divide the model axis keep their
@@ -354,19 +512,25 @@ class _FusedDownProj(torch.autograd.Function):
     nothing here reads the thread's ambient grid in the backward."""
 
     @staticmethod
-    def forward(ctx, h: torch.Tensor, w_down: torch.Tensor, grid
-                ) -> torch.Tensor:
+    def forward(ctx, h: torch.Tensor, w_down: torch.Tensor, grid,
+                local: bool) -> torch.Tensor:
         from repro_torch.collectives.api import get_engine
 
         eng = get_engine(device=grid.device)
         comm = grid.sub("model")
         b, s, f = h.shape
-        fl = f // comm.size
-        cols = slice(comm.rank * fl, (comm.rank + 1) * fl)
-        # a contiguous block: matmul_tiled's TMA variant wants 16-byte
-        # aligned rows, which a strided column view does not have
-        x2 = h[..., cols].reshape(b * s, fl).contiguous()
-        y_s = eng.fused_matmul_reduce_scatter(x2, w_down[cols], comm)
+        if local:
+            # a rank's shards: h and w_down are already its blocks
+            x2, w = h.reshape(b * s, f).contiguous(), w_down
+        else:
+            fl = f // comm.size
+            cols = slice(comm.rank * fl, (comm.rank + 1) * fl)
+            # a contiguous block: matmul_tiled's TMA variant wants
+            # 16-byte aligned rows, which a strided column view does not
+            # have
+            x2 = h[..., cols].reshape(b * s, fl).contiguous()
+            w = w_down[cols]
+        y_s = eng.fused_matmul_reduce_scatter(x2, w, comm)
         y = eng.allgather_inside(y_s, comm)
         ctx.save_for_backward(h, w_down)
         return y.reshape(b, s, w_down.shape[-1])
@@ -377,18 +541,31 @@ class _FusedDownProj(torch.autograd.Function):
         d = w_down.shape[-1]
         dh = dy @ w_down.t()
         dw = h.reshape(-1, h.shape[-1]).t() @ dy.reshape(-1, d)
-        return dh, dw, None
+        return dh, dw, None, None
 
 
-def _fused_down_proj(h: torch.Tensor, w_down: torch.Tensor, grid
-                     ) -> torch.Tensor:
+def _fused_down_proj(h: torch.Tensor, w_down: torch.Tensor, grid,
+                     local: bool = False) -> torch.Tensor:
     """``h @ w_down`` as ``psum`` over "model" of the ranks' blocks, the
-    reduce-scatter fused with the GEMM ring (:class:`_FusedDownProj`)."""
-    return _FusedDownProj.apply(h, w_down, grid)
+    reduce-scatter fused with the GEMM ring (:class:`_FusedDownProj`).
+    ``local``: ``h`` and ``w_down`` are this rank's blocks (a tree of
+    shards), taken as they stand."""
+    return _FusedDownProj.apply(h, w_down, grid, local)
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU MLP; on a tree of shards (a bound model axis) the
+    column-parallel gate and up projections and the row-parallel down
+    projection on this rank's block of the hidden dim, reduced over
+    "model" (through the fused ring under ``set_fused_tp``)."""
+    if _tp() is not None:
+        h = F.silu(copy_to_model(x) @ w_gate) * (copy_to_model(x) @ w_up)
+        grid = _ambient_grid()
+        b, s, _ = h.shape
+        if _FUSED_TP and (b * s) % _tp().size == 0:
+            return _fused_down_proj(h, w_down, grid, local=True)
+        return reduce_from_model(h @ w_down)
     h = F.silu(x @ w_gate) * (x @ w_up)
     if _FUSED_TP:
         grid = _ambient_grid()
@@ -405,6 +582,9 @@ def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, b_up: torch.Tensor,
     return h @ w_down + b_down
 
 
-__all__ = ["ambient_grid", "apply_rope", "attention", "flash_decode",
-           "fused_tp_enabled", "gelu_mlp", "rms_norm", "rope_frequencies",
-           "set_fused_tp", "swiglu", "use_flash_decode"]
+__all__ = ["ambient_grid", "apply_rope", "attention", "bind_tp",
+           "copy_to_model", "flash_decode", "fused_tp_enabled",
+           "gather_from_model", "gelu_mlp", "model_parallel",
+           "reduce_from_model", "refuse_cuda_thread_backward", "rms_norm",
+           "rope_frequencies", "set_fused_tp", "swiglu", "tp_comm",
+           "use_flash_decode"]

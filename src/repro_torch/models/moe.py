@@ -22,10 +22,12 @@ ambient mesh, the port reads the thread's ambient grid
 (``models.layers.ambient_grid``).  Under a grid with a ``"model"`` axis
 the tokens stay replicated over it, each model rank computes its own
 block of experts, and one psum over ``"model"`` combines them.  The
-expert weights arrive whole (the port replicates weights, ROADMAP C16):
-each rank cuts its block with ``sharding.rules.local_shard``, and with a
-``"data"`` axis the block is FSDP-cut over it and all-gathered just in
-time, as in the reference.
+expert weights arrive as a rank's tree holds them (``sharding.rules.
+shard_params``: its E / m experts, taken as they stand), or whole (a
+whole tree under a model grid: each rank cuts its block with
+``sharding.rules.local_shard``, their gradients reduced over "model"),
+and with a ``"data"`` axis the block is FSDP-cut over it and all-gathered
+just in time, as in the reference.
 
 Gradients follow the reference's ``shard_map`` transpose with the port's
 data-parallel step in mind (each rank differentiates its own loss; the
@@ -41,13 +43,13 @@ them there is refused (ROADMAP C15).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.collectives.comm import LocalGridComm
-from repro_torch.models.layers import _ambient_grid
+from repro_torch.models.layers import (_ambient_grid,
+                                      refuse_cuda_thread_backward)
 from repro_torch.sharding.rules import for_grid, local_shard
 
 
@@ -264,34 +266,27 @@ def gather_in_time(w, comm, dim: int):
     return w if comm.size == 1 else _GatherInTime.apply(w, comm, dim)
 
 
-def refuse_cuda_thread_backward(x: torch.Tensor, grid, what: str) -> None:
-    """A backward through a collective on CUDA rank threads would run it
-    on the autograd engine's one device thread and deadlock (ROADMAP
-    C15): refuse it.  One process a rank (``ProcessGroupGrid``) has its
-    own device thread, and the CPU runs each caller's backward."""
-    if (torch.is_grad_enabled() and x.device.type == "cuda"
-            and isinstance(grid, LocalGridComm) and grid.size > 1):
-        raise NotImplementedError(
-            f"{what}: a backward through its collectives on CUDA rank "
-            f"threads would run them on the autograd engine's one device "
-            f"thread (ROADMAP.md C15); run forward-only (torch.no_grad) "
-            f"or one process a rank")
-
-
-def expert_weights(grid, w_gate, w_up, w_down, ep_spec, fsdp_axis
+def expert_weights(grid, w_gate, w_up, w_down, ep_spec, fsdp_axis,
+                   e_total: Optional[int] = None
                    ) -> Tuple[torch.Tensor, ...]:
-    """This rank's experts of whole ``[E, ...]`` weights: cut over the
-    expert axes (``ep_spec``) with ``local_shard``, FSDP-cut over
-    ``fsdp_axis`` and gathered back just in time.  Under a ``"model"``
-    axis among the expert axes the whole weights first pass
+    """This rank's experts: of whole ``[E, ...]`` weights (``e_total``
+    of them; None: the weights are whole) cut over the expert axes
+    (``ep_spec``) with ``local_shard``, or a rank's tree's ``[E / m,
+    ...]`` as they stand; FSDP-cut over ``fsdp_axis`` and gathered back
+    just in time.  Whole
+    weights under a ``"model"`` axis among the expert axes first pass
     ``psum_grad`` over it, so that every model rank ends up with every
     expert's gradient, as the DP step does not sync over "model"."""
     axes = (ep_spec,) if isinstance(ep_spec, str) else tuple(ep_spec)
     out = []
     for w, dim in ((w_gate, 1), (w_up, 1), (w_down, 2)):
-        if "model" in axes:
-            w = psum_grad(w, grid.sub("model"))
-        w = local_shard(w, (ep_spec,), grid)
+        if e_total is None or w.shape[0] == e_total:
+            if "model" in axes:
+                w = psum_grad(w, grid.sub("model"))
+            w = local_shard(w, (ep_spec,), grid)
+        elif axes != ("model",):
+            raise ValueError(f"a rank's {w.shape[0]} of {e_total} experts "
+                             f"run over the model axis, not {axes}")
         if fsdp_axis is not None:
             w = gather_in_time(w, grid.sub(fsdp_axis), dim)
         out.append(w)
@@ -335,17 +330,22 @@ def moe_ffn_sharded(x, router_w, w_gate, w_up, w_down, *, top_k: int,
     for a in dp:
         n_dp *= grid.axis_size(a)
     e_total = router_w.shape[1]
-    if (e_total % m != 0
+    local = w_gate.shape[0] != e_total
+    if not local and (
+            e_total % m != 0
             or (dp and (x.shape[0] * n_dp) % grid.axis_size(dp[0]) != 0)):
         return moe_ffn(x, router_w, w_gate, w_up, w_down, top_k=top_k,
                        capacity_factor=capacity_factor)
+    if local and w_gate.shape[0] * m != e_total:
+        raise ValueError(f"{w_gate.shape[0]} experts a rank of {e_total} "
+                         f"over a model axis of {m}")
     refuse_cuda_thread_backward(x, grid, "moe_ffn_sharded")
     fsdp_axis = "data" if "data" in grid.axis_names else None
     model = grid.sub("model")
     x = psum_grad(x, model)
     router_w = psum_grad(router_w, model)
     wg, wu, wd = expert_weights(grid, w_gate, w_up, w_down, "model",
-                                fsdp_axis)
+                                fsdp_axis, e_total)
     out, aux = _moe_local(x, router_w, wg, wu, wd, top_k=top_k,
                           capacity_factor=capacity_factor,
                           rank=model.rank)

@@ -15,10 +15,11 @@ Layout, on each rank of the ambient grid (``models.layers.ambient_grid``):
   as every model call under a grid receives them; when the EP axis is
   ``"model"`` (the rows are replicated over it) each model rank takes
   its block of them, and the result is all-gathered back over "model";
-* experts ``w_* [E, ...]`` arrive whole (the port replicates weights,
-  ROADMAP C16): rank r of the folded EP axes cuts experts ``[r E_l,
-  (r + 1) E_l)`` with ``sharding.rules.local_shard``, FSDP-cut over a
-  spare "data" axis and gathered just in time;
+* experts ``w_* [E, ...]`` arrive whole (a whole tree): rank r of the
+  folded EP axes cuts experts ``[r E_l, (r + 1) E_l)`` with
+  ``sharding.rules.local_shard``; or as a rank's tree holds them (its
+  ``E / m`` over "model", ``sharding.rules.shard_params``); either is
+  FSDP-cut over a spare "data" axis and gathered just in time;
 * dispatch: ``moe_ffn``'s group-local sort builds the ``[G_l, E, Cap,
   D]`` buffer, reordered destination-rank-major and exchanged (chunk r
   -> rank r); the reverse exchange brings the expert outputs home for
@@ -200,7 +201,7 @@ def moe_ffn_ep(x, router_w, w_gate, w_up, w_down, *, top_k: int,
         x = x.narrow(0, model.rank * rows, rows)
     ep_spec = ep_axes if len(ep_axes) > 1 else ep_axes[0]
     wg, wu, wd = expert_weights(grid, w_gate, w_up, w_down, ep_spec,
-                                fsdp_axis)
+                                fsdp_axis, e_total)
     out, aux = _moe_ep_local(x, router_w, wg, wu, wd, top_k=top_k,
                              capacity_factor=capacity_factor, grid=grid,
                              ep_axes=ep_axes, token_axes=token_axes,

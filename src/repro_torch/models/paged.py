@@ -33,6 +33,13 @@ more).  The MoE FFN groups tokens by
 batch row, so a prefill chunk ``[1, chunk]`` and a decode step ``[B,
 1]`` fill their experts' capacity as the reference's do at those shapes
 (ROADMAP C18).
+
+A tree of one rank's shards (``sharding.rules.shard_params``) runs under
+an ambient grid with its "model" axis, as ``transformer``'s entry points:
+its pool holds the rank's kv heads (``init_pages(..., tp=m)``), the
+block attends on its heads (the paged kernel at the per-rank shape) and
+reduces its two row-parallel outputs over "model"; the logits come back
+whole.
 """
 
 from __future__ import annotations
@@ -44,9 +51,12 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.ops import paged_attention
-from repro_torch.models.layers import apply_rope, rms_norm
+from repro_torch.models.layers import (apply_rope, copy_to_model,
+                                      model_parallel, reduce_from_model,
+                                      rms_norm)
 from repro_torch.models.transformer import (Params, _embed, _ffn_sublayer,
-                                           _unembed)
+                                           _kv_proj, _q_proj, _unembed,
+                                           _whole_logits, local_kv_heads)
 
 Pages = Dict[str, torch.Tensor]
 
@@ -58,15 +68,16 @@ def supports_paged(cfg: ArchConfig) -> bool:
 
 
 def init_pages(cfg: ArchConfig, num_blocks: int, block_size: int,
-               device: DeviceLike = None) -> Pages:
-    """Zeroed physical block pool (block 0 is the scratch sink)."""
+               device: DeviceLike = None, tp: int = 1) -> Pages:
+    """Zeroed physical block pool (block 0 is the scratch sink); ``tp``:
+    one rank's pool of a model axis of that size (its kv heads)."""
     if not supports_paged(cfg):
         raise NotImplementedError(
             f"paged KV cache covers families {PAGED_FAMILIES}, not "
             f"{cfg.family!r}")
     dev = resolve_device(device)
-    shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
+    shape = (cfg.num_layers, num_blocks, block_size,
+             local_kv_heads(cfg, tp), cfg.resolved_head_dim)
     dtype = cfg.activation_dtype
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
@@ -146,11 +157,14 @@ def _paged_decoder_block(cfg: ArchConfig, x: torch.Tensor, lp: Params,
                          valid: torch.Tensor, use_kernel: bool
                          ) -> torch.Tensor:
     b, t, _ = x.shape
-    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    hn = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    q = (hn @ lp["wq"]).reshape(b, t, h, hd)
-    k = (hn @ lp["wk"]).reshape(b, t, kvh, hd)
-    v = (hn @ lp["wv"]).reshape(b, t, kvh, hd)
+    hn = copy_to_model(rms_norm(x, lp["ln1"], cfg.norm_eps))
+    q = _q_proj(cfg, hn, lp["wq"])
+    k = _kv_proj(cfg, hn, lp["wk"])
+    v = _kv_proj(cfg, hn, lp["wv"])
+    h, hd = q.shape[2], q.shape[3]
+    if k.shape[2] != kp.shape[2]:
+        raise ValueError(f"a pool of {kp.shape[2]} kv heads for a block "
+                         f"of {k.shape[2]} (init_pages(..., tp=))")
     pos = ctx_lens.long()[:, None] + torch.arange(t, device=x.device)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
@@ -162,7 +176,7 @@ def _paged_decoder_block(cfg: ArchConfig, x: torch.Tensor, lp: Params,
                               ctx_lens + 1)[:, None]
     else:
         out = _gathered_attention(q, kp, vp, block_tables, ctx_lens)
-    x = x + out.reshape(b, t, h * hd) @ lp["wo"]
+    x = x + reduce_from_model(out.reshape(b, t, h * hd) @ lp["wo"])
     f, _ = _ffn_sublayer(cfg, rms_norm(x, lp["ln2"], cfg.norm_eps), lp)
     return x + f
 
@@ -189,6 +203,17 @@ def forward_paged(params: Params, cfg: ArchConfig, pages: Pages,
     if not supports_paged(cfg):
         raise NotImplementedError(
             f"forward_paged: unsupported family {cfg.family!r}")
+    with model_parallel(params, cfg):
+        logits, pages = _forward_paged(params, cfg, pages, batch,
+                                       block_tables, ctx_lens, new_lens,
+                                       use_kernel)
+        return _whole_logits(cfg, logits), pages
+
+
+def _forward_paged(params: Params, cfg: ArchConfig, pages: Pages,
+                   batch: Dict[str, torch.Tensor], block_tables: torch.Tensor,
+                   ctx_lens: torch.Tensor, new_lens: Optional[torch.Tensor],
+                   use_kernel: bool) -> Tuple[torch.Tensor, Pages]:
     tokens = batch["tokens"]
     b, t = tokens.shape
     if new_lens is None:

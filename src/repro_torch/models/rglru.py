@@ -16,6 +16,11 @@ in the activation dtype; the gates, ``log_a``, ``beta`` and the state
 are float32 (``lam`` is a float32 leaf in a bf16 model); the output is
 cast back to x's dtype before the output projection.  ``jax.nn.gelu``
 is the tanh approximation by default, and so is the port's.
+
+On a rank's tree (a bound model axis) the block runs on the rank's lru /
+m channels: ``w_x`` and ``w_y`` column-parallel, ``w_a`` / ``w_i`` its
+diagonal blocks, ``lam`` and ``conv_w`` its channels, ``out``
+row-parallel and reduced over "model".
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.layers import copy_to_model, reduce_from_model
 from repro_torch.models.scan_utils import chunked_linear_scan
 from repro_torch.models.ssm import _causal_conv
 
@@ -55,6 +61,7 @@ def rglru_block(x: torch.Tensor, p: dict, *, chunk: int = 128,
     b = x.shape[0]
     lru = p["lam"].shape[0]
 
+    x = copy_to_model(x)
     xb = x @ p["w_x"]                                   # [B, S, lru]
     yb = x @ p["w_y"]
     conv_prefix = state.conv if state is not None else None
@@ -78,7 +85,8 @@ def rglru_block(x: torch.Tensor, p: dict, *, chunk: int = 128,
         h_all, h_new = chunked_linear_scan(a, bb, h0, chunk=chunk)
 
     out = (h_all * F.gelu(yb.float(), approximate="tanh")).to(x.dtype)
-    return out @ p["out"], RGLRUState(conv=new_conv, h=h_new)
+    return reduce_from_model(out @ p["out"]), RGLRUState(conv=new_conv,
+                                                         h=h_new)
 
 
 def init_rglru_params(gen: Optional[torch.Generator], d_model: int,

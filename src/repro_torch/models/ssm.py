@@ -12,6 +12,14 @@ Rounding follows the reference: projections, the causal conv and SiLU
 run in the activation dtype; ``delta`` is computed in the activation
 dtype and then cast to float32; the scan, the skip term and the gate run
 in float32 and the result is cast back before the output projection.
+
+On a rank's tree (a bound model axis, ``layers.model_parallel``) the
+block runs on the rank's di / m channels: ``in_proj`` holds its channels
+of x and of z, ``conv_w``, ``dt_w``, ``dt_b``, ``a_log`` and ``d_skip``
+its channels; ``x_proj`` is row-parallel, its partial ``[B, S, R + 2N]``
+reduced over "model" before the split (and its cotangent, a partial sum
+on each rank, reduced in the backward); ``out_proj`` is row-parallel.
+The scan runs at the local width.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.models.layers import copy_to_model, reduce_from_model
 from repro_torch.models.scan_utils import chunked_linear_scan
 
 
@@ -66,12 +75,13 @@ def mamba_block(x: torch.Tensor, p: dict, *, ssm_state: int,
     n = ssm_state
     r = p["dt_w"].shape[0]
 
-    xs, z = (x @ p["in_proj"]).chunk(2, dim=-1)          # [B, S, di] each
+    xs, z = (copy_to_model(x) @ p["in_proj"]).chunk(2, dim=-1)  # [B,S,di]
     conv_prefix = state.conv if state is not None else None
     xs, new_conv = _causal_conv(xs, p["conv_w"], conv_prefix)
     xs = F.silu(xs)
 
-    dbc = xs @ p["x_proj"]                                # [B, S, R+2N]
+    # [B, S, R+2N], whole on every rank of a model axis
+    dbc = copy_to_model(reduce_from_model(xs @ p["x_proj"]))
     dt, b_ssm, c_ssm = torch.split(dbc, [r, n, n], dim=-1)
     delta = F.softplus(dt @ p["dt_w"] + p["dt_b"])        # [B, S, di]
     a = -torch.exp(p["a_log"].float())                    # [di, N]
@@ -105,7 +115,8 @@ def mamba_block(x: torch.Tensor, p: dict, *, ssm_state: int,
         y = torch.einsum("bsdn,bsn->bsd", h_all, c32)          # [B, S, di]
     y = y + xs32 * p["d_skip"]
     y = (y * F.silu(z.float())).to(x.dtype)
-    return y @ p["out_proj"], SSMState(conv=new_conv, h=h_new)
+    return (reduce_from_model(y @ p["out_proj"]),
+            SSMState(conv=new_conv, h=h_new))
 
 
 def init_mamba_params(gen: Optional[torch.Generator], d_model: int,

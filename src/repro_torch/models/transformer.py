@@ -58,6 +58,20 @@ recurrence (``models/rglru.py``) are plain PyTorch, as the reference
 has no kernel for them.  A decode cache's K and V are written in place:
 ``decode_step`` returns the K/V tensors it was given, updated.
 
+A tree of one rank's shards (``sharding.rules.shard_params``) runs the
+tensor-parallel block under an ambient grid with its "model" axis: each
+entry point binds that axis (``layers.model_parallel``), attention runs
+on the rank's heads, the FFN on its hidden block, the MoE on its
+experts, the SSM on its channels, the RG-LRU on its blocks, each block's
+two row-parallel outputs reduced over "model" through the engine.  The
+embedding is vocab-parallel (or cut over d_model for an odd vocabulary,
+its lookup gathered); ``forward_train`` then returns this rank's block
+of the vocabulary's logits (whole logits for an odd vocabulary), which
+``train.step.cross_entropy`` reduces over "model", while ``prefill`` and
+``decode_step`` return whole logits.  Their caches hold the rank's kv
+heads (``init_cache(..., tp=m)``, ``shard_decode_cache``), channels and
+blocks.
+
 Vision configs (``frontend == "vision"``) take ``batch["soft_emb"]``
 [B, n_soft, D] in ``forward_train`` and ``prefill``: the soft tokens
 come first, and ``forward_train`` returns logits over the token
@@ -80,10 +94,14 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (_ambient_grid, _direct_attention,
-                                      _repeat_kv, ambient_grid, apply_rope,
-                                      attention, flash_decode,
-                                      fused_tp_enabled, rms_norm, swiglu,
+                                      _repeat_kv, _tp, ambient_grid,
+                                      apply_rope, attention, bind_tp,
+                                      copy_to_model, flash_decode,
+                                      fused_tp_enabled, gather_from_model,
+                                      model_parallel,
+                                      reduce_from_model, rms_norm, swiglu,
                                       use_flash_decode)
+from repro_torch.sharding.rules import _kv_replicated
 
 Params = Dict[str, Any]
 
@@ -244,11 +262,29 @@ def param_specs(cfg: ArchConfig) -> Params:
     return init_params(cfg, device="meta")
 
 
+def _lookup(emb: torch.Tensor, cfg: ArchConfig, tokens: torch.Tensor
+            ) -> torch.Tensor:
+    """The embedding rows of ``tokens``; on a rank's tree the
+    vocab-parallel lookup (its rows, zeros elsewhere, reduced over
+    "model") or, cut over d_model, its columns gathered."""
+    comm = _tp()
+    if comm is None:
+        return emb[tokens]
+    if emb.shape[1] != cfg.d_model:
+        return gather_from_model(emb[tokens])
+    n = emb.shape[0]
+    local = tokens.long() - comm.rank * n
+    mine = (local >= 0) & (local < n)
+    rows = emb[local.clamp(0, n - 1)]
+    return reduce_from_model(torch.where(mine[..., None], rows,
+                                         torch.zeros_like(rows)))
+
+
 def _embed(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
            soft_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Scaled token embeddings, after the vision soft tokens [B, n_soft,
     D] when given (cast to the embeddings' dtype)."""
-    x = params["embed"][tokens]
+    x = _lookup(params["embed"], cfg, tokens)
     # the sqrt(d_model) scale is rounded to the activation dtype first
     scale = torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
     x = x * scale
@@ -259,11 +295,31 @@ def _embed(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
 
 def _unembed(params: Params, cfg: ArchConfig,
              x: torch.Tensor) -> torch.Tensor:
+    """Logits in the output dtype; on a rank's tree its block of the
+    vocabulary's (a head cut over d_model: the partial logits reduced,
+    whole)."""
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    head = params["head"]
     # head matmul in the activation dtype, then the cast (inputs are not
     # upcast first)
     out_dtype = torch.bfloat16 if cfg.logits_bf16 else torch.float32
-    return (x @ params["head"]).to(out_dtype)
+    x = copy_to_model(x)
+    comm = _tp()
+    if comm is not None and head.shape[0] != cfg.d_model:
+        # the head cut over d_model: this rank's columns of x, a partial
+        # product reduced over "model"
+        n = head.shape[0]
+        x = x.narrow(-1, comm.rank * n, n)
+        return reduce_from_model(x @ head).to(out_dtype)
+    return (x @ head).to(out_dtype)
+
+
+def _whole_logits(cfg: ArchConfig, logits: torch.Tensor) -> torch.Tensor:
+    """A rank's block of the vocabulary's logits gathered over "model"
+    (whole logits pass)."""
+    if _tp() is not None and logits.shape[-1] != cfg.vocab_size:
+        return gather_from_model(logits)
+    return logits
 
 
 def _ffn_sublayer(cfg: ArchConfig, x: torch.Tensor, p: Params
@@ -273,7 +329,10 @@ def _ffn_sublayer(cfg: ArchConfig, x: torch.Tensor, p: Params
     all-to-all; ``moe_shardmap_ep``: the model-axis path; else the
     one-device one), plus Arctic's dense residual."""
     if cfg.family == "moe":
-        if cfg.moe_ep:
+        if _tp() is not None and not cfg.moe_ep:
+            # a rank's experts: the model-axis path, never the one-device
+            moe_fn = moe_lib.moe_ffn_sharded
+        elif cfg.moe_ep:
             from repro_torch.models.moe_ep import moe_ffn_ep
 
             def moe_fn(*a, **kw):
@@ -297,6 +356,39 @@ def _ffn_sublayer(cfg: ArchConfig, x: torch.Tensor, p: Params
 KV = Tuple[torch.Tensor, torch.Tensor]
 
 
+def local_kv_heads(cfg: ArchConfig, tp: int = 1) -> int:
+    """The kv heads a rank of a model axis of ``tp`` attends with (and
+    caches): its block of them, or the one its q heads use where they
+    are fewer than the ranks."""
+    kv = cfg.num_kv_heads
+    return 1 if _kv_replicated(cfg, tp) else kv // tp
+
+
+def _q_proj(cfg: ArchConfig, x: torch.Tensor, w: torch.Tensor
+            ) -> torch.Tensor:
+    """[B, S, H_l, hd]: the q heads ``w``'s columns hold."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    return (x @ w).reshape(b, s, w.shape[1] // hd, hd)
+
+
+def _kv_proj(cfg: ArchConfig, x: torch.Tensor, w: torch.Tensor
+             ) -> torch.Tensor:
+    """[B, S, kv_l, hd]: the kv heads this rank attends with.  On a
+    rank's tree with fewer kv heads than ranks ``w`` is whole (its
+    gradient a partial sum on each rank, so it passes ``copy_to_model``)
+    and the rank keeps the head its q heads use."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    comm = _tp()
+    if comm is None or not _kv_replicated(cfg, comm.size):
+        return (x @ w).reshape(b, s, w.shape[1] // hd, hd)
+    y = (x @ copy_to_model(w)).reshape(b, s, cfg.num_kv_heads, hd)
+    group = cfg.num_heads // cfg.num_kv_heads
+    j = comm.rank * (cfg.num_heads // comm.size) // group
+    return y[:, :, j:j + 1]
+
+
 def _attention_sublayer(cfg: ArchConfig, x: torch.Tensor, p: Params, *,
                         causal: bool = True, window: Optional[int] = None,
                         pos: int = 0, cache_kv: Optional[KV] = None,
@@ -317,10 +409,11 @@ def _attention_sublayer(cfg: ArchConfig, x: torch.Tensor, p: Params, *,
     ``flash_decode`` across the ambient grid's model axis, where the
     reference's ``use_flash_decode`` applies."""
     b, s, _ = x.shape
-    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q = (x @ p["wq"]).reshape(b, s, h, hd)
-    k = (x @ p["wk"]).reshape(b, s, kv, hd)
-    v = (x @ p["wv"]).reshape(b, s, kv, hd)
+    x = copy_to_model(x)
+    q = _q_proj(cfg, x, p["wq"])
+    k = _kv_proj(cfg, x, p["wk"])
+    v = _kv_proj(cfg, x, p["wv"])
+    h, hd = q.shape[2], q.shape[3]
     positions = pos + torch.arange(s, device=x.device)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
@@ -334,8 +427,11 @@ def _attention_sublayer(cfg: ArchConfig, x: torch.Tensor, p: Params, *,
         s_local = ck.shape[1]
         smax = s_local if smax is None else smax
         write = min(pos, smax - s)
-        grid = (use_flash_decode(b, s, smax, kv)
-                if causal and not window else None)
+        if _tp() is None and ck.shape[2] != cfg.num_kv_heads:
+            raise ValueError("a head-sharded KV cache needs a tree of "
+                             "shards (sharding.rules.shard_params)")
+        grid = (use_flash_decode(b, s, smax, cfg.num_kv_heads)
+                if causal and not window and _tp() is None else None)
         if grid is not None:
             offset = grid.axis_index("model") * s_local
             if smax != s_local * grid.axis_size("model"):
@@ -347,7 +443,8 @@ def _attention_sublayer(cfg: ArchConfig, x: torch.Tensor, p: Params, *,
             out = flash_decode(q, ck, cv, pos + s, grid)
         elif s_local != smax:
             raise ValueError("a sequence-sharded cache needs the "
-                             "sequence-parallel decode (use_flash_decode)")
+                             "sequence-parallel decode (use_flash_decode) "
+                             "over a whole tree")
         else:
             ck[:, write:write + s] = k.to(ck.dtype)
             cv[:, write:write + s] = v.to(cv.dtype)
@@ -356,7 +453,7 @@ def _attention_sublayer(cfg: ArchConfig, x: torch.Tensor, p: Params, *,
                             probs_bf16=cfg.attn_probs_bf16,
                             use_kernel=use_kernel)
         new_kv = (ck, cv)
-    return out.reshape(b, s, h * hd) @ p["wo"], new_kv
+    return reduce_from_model(out.reshape(b, s, h * hd) @ p["wo"]), new_kv
 
 
 def _decoder_block(cfg: ArchConfig, x: torch.Tensor, p: Params, *,
@@ -385,8 +482,10 @@ def _remat(fn, grid, *args):
     recompute runs where the autograd engine runs it: on CUDA its own
     device thread, where this thread's ambient grid is not bound (ROADMAP
     C24); it binds the forward's."""
+    tp = _tp()
+
     def bound(*a):
-        with ambient_grid(grid):
+        with ambient_grid(grid), bind_tp(tp):
             return fn(*a)
     return checkpoint(bound, *args, use_reentrant=False)
 
@@ -476,7 +575,9 @@ def _hybrid_prefill(params: Params, cfg: ArchConfig, x: torch.Tensor,
         else:
             convs.append(st.conv)
             hs.append(st.h)
-    empty = x.new_zeros((0, b, w, cfg.num_kv_heads, cfg.resolved_head_dim))
+    tp = _tp()
+    empty = x.new_zeros((0, b, w, local_kv_heads(cfg, tp.size if tp else 1),
+                         cfg.resolved_head_dim))
     cache = {"k": torch.stack(ks) if ks else empty,
              "v": torch.stack(vs) if vs else empty.clone(),
              "conv": torch.stack(convs), "h": torch.stack(hs),
@@ -491,15 +592,13 @@ def _local_decode(cfg: ArchConfig, x: torch.Tensor, p: Params, pos: int,
     slot ``pos % w``, then direct attention over the min(pos + 1, w) slots
     written so far (every one within the window)."""
     b = x.shape[0]
-    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     w = ck.shape[1]
-    hn = rms_norm(x, p["ln1"], cfg.norm_eps)
+    hn = copy_to_model(rms_norm(x, p["ln1"], cfg.norm_eps))
     positions = pos + torch.arange(1, device=x.device)
-    q = apply_rope((hn @ p["wq"]).reshape(b, 1, h, hd), positions,
-                   cfg.rope_theta)
-    k = apply_rope((hn @ p["wk"]).reshape(b, 1, kvh, hd), positions,
-                   cfg.rope_theta)
-    v = (hn @ p["wv"]).reshape(b, 1, kvh, hd)
+    q = apply_rope(_q_proj(cfg, hn, p["wq"]), positions, cfg.rope_theta)
+    k = apply_rope(_kv_proj(cfg, hn, p["wk"]), positions, cfg.rope_theta)
+    v = _kv_proj(cfg, hn, p["wv"])
+    h, kvh, hd = q.shape[2], k.shape[2], q.shape[3]
     ck[:, pos % w] = k[:, 0].to(ck.dtype)
     cv[:, pos % w] = v[:, 0].to(cv.dtype)
     group = h // kvh
@@ -508,7 +607,8 @@ def _local_decode(cfg: ArchConfig, x: torch.Tensor, p: Params, pos: int,
                             _repeat_kv(cv.transpose(1, 2), group),
                             causal=False, window=None,
                             kv_len=min(pos + 1, w))
-    x = x + out.transpose(1, 2).reshape(b, 1, h * hd) @ p["wo"]
+    x = x + reduce_from_model(out.transpose(1, 2).reshape(b, 1, h * hd)
+                              @ p["wo"])
     f, _ = _ffn_sublayer(cfg, rms_norm(x, p["ln2"], cfg.norm_eps), p)
     return x + f
 
@@ -560,10 +660,9 @@ def _encoder_forward(params: Params, cfg: ArchConfig, frames: torch.Tensor,
 def _cross_kv(cfg: ArchConfig, enc_out: torch.Tensor, lp: Params) -> KV:
     """A decoder layer's cross K and V [B, S_enc, Hkv, hd] over the
     encoder's output (no RoPE)."""
-    b, s, _ = enc_out.shape
-    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    return ((enc_out @ lp["x_wk"]).reshape(b, s, kvh, hd),
-            (enc_out @ lp["x_wv"]).reshape(b, s, kvh, hd))
+    enc_out = copy_to_model(enc_out)
+    return (_kv_proj(cfg, enc_out, lp["x_wk"]),
+            _kv_proj(cfg, enc_out, lp["x_wv"]))
 
 
 def _cross_attention(cfg: ArchConfig, x: torch.Tensor, p: Params,
@@ -573,10 +672,9 @@ def _cross_attention(cfg: ArchConfig, x: torch.Tensor, p: Params,
     flash kernel's non-causal route when S == S_enc > 2048 on the
     kernel route, else the direct path."""
     b, s, _ = x.shape
-    h, hd = cfg.num_heads, cfg.resolved_head_dim
-    q = (x @ p["x_wq"]).reshape(b, s, h, hd)
+    q = _q_proj(cfg, copy_to_model(x), p["x_wq"])
     out = attention(q, enc_k, enc_v, causal=False, use_kernel=use_kernel)
-    return out.reshape(b, s, h * hd) @ p["x_wo"]
+    return reduce_from_model(out.reshape(b, s, -1) @ p["x_wo"])
 
 
 def _dec_layer(cfg: ArchConfig, h: torch.Tensor, lp: Params, enc_kv: KV, *,
@@ -632,8 +730,18 @@ def forward_train(params: Params, cfg: ArchConfig, batch: Dict[str, Any],
                   remat: bool = True, use_kernel: Optional[bool] = None
                   ) -> Tuple[torch.Tensor, Any]:
     """Returns (logits [B, S, V] over the token positions, aux_loss: the
-    MoE layers' load-balance losses summed, 0.0 for the other families).
-    ``remat`` checkpoints each layer (``torch.utils.checkpoint``,
+    MoE layers' load-balance losses summed, 0.0 for the other families);
+    on a rank's tree its block [B, S, V / m] of the logits where the
+    vocabulary is cut (the module docstring).  See :func:`_forward_train`
+    for the rest."""
+    with model_parallel(params, cfg):
+        return _forward_train(params, cfg, batch, remat, use_kernel)
+
+
+def _forward_train(params: Params, cfg: ArchConfig, batch: Dict[str, Any],
+                   remat: bool = True, use_kernel: Optional[bool] = None
+                   ) -> Tuple[torch.Tensor, Any]:
+    """``remat`` checkpoints each layer (``torch.utils.checkpoint``,
     non-reentrant: the counterpart of ``jax.checkpoint`` with
     ``nothing_saveable``), the hybrid each whole pattern cycle and not its
     tail, as the reference (the encoder's layers are checkpointed
@@ -696,7 +804,7 @@ def forward_train(params: Params, cfg: ArchConfig, batch: Dict[str, Any],
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
-               enc_len: int = 0, device: DeviceLike = None
+               enc_len: int = 0, device: DeviceLike = None, tp: int = 1
                ) -> Dict[str, torch.Tensor]:
     """Zeroed decode cache on ``device`` (default ``cuda``).  Dense and MoE:
     per-layer K/V {"k", "v": [L, B, max_len, Hkv, hd]}; SSM: {"conv":
@@ -705,30 +813,35 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
     min(local_window, max_len), the RG-LRU blocks' {"conv": [n_rglru, B,
     K-1, D], "h": [n_rglru, B, D] float32}; encoder-decoder: the dense
     K/V and the cross K/V {"enc_k", "enc_v": [L, B, enc_len, Hkv, hd]};
-    each with "pos", an int32 scalar on the CPU."""
+    each with "pos", an int32 scalar on the CPU.  ``tp``: one rank's
+    cache of a model axis of that size (its kv heads, SSM channels and
+    RG-LRU width)."""
     dev = resolve_device(device)
     dtype, n = cfg.activation_dtype, cfg.num_layers
+    kvh = local_kv_heads(cfg, tp)
     pos = torch.zeros((), dtype=torch.int32)
     if cfg.family == "hybrid":
         pattern = cfg.block_pattern
         n_attn = sum(pattern[i % len(pattern)] == "local" for i in range(n))
         w = min(cfg.local_window, max_len)
-        kv = (n_attn, batch, w, cfg.num_kv_heads, cfg.resolved_head_dim)
+        kv = (n_attn, batch, w, kvh, cfg.resolved_head_dim)
         rec = (n - n_attn, batch)
+        lru = cfg.d_model // tp
         return {"k": torch.zeros(kv, dtype=dtype, device=dev),
                 "v": torch.zeros(kv, dtype=dtype, device=dev),
-                "conv": torch.zeros(rec + (cfg.ssm_conv - 1, cfg.d_model),
+                "conv": torch.zeros(rec + (cfg.ssm_conv - 1, lru),
                                     dtype=dtype, device=dev),
-                "h": torch.zeros(rec + (cfg.d_model,), dtype=torch.float32,
+                "h": torch.zeros(rec + (lru,), dtype=torch.float32,
                                  device=dev),
                 "pos": pos}
     if cfg.family == "ssm":
-        return {"conv": torch.zeros((n, batch, cfg.ssm_conv - 1, cfg.d_inner),
+        di = cfg.d_inner // tp
+        return {"conv": torch.zeros((n, batch, cfg.ssm_conv - 1, di),
                                     dtype=dtype, device=dev),
-                "h": torch.zeros((n, batch, cfg.d_inner, cfg.ssm_state),
+                "h": torch.zeros((n, batch, di, cfg.ssm_state),
                                  dtype=torch.float32, device=dev),
                 "pos": pos}
-    shape = (n, batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    shape = (n, batch, max_len, kvh, cfg.resolved_head_dim)
     cache = {"k": torch.zeros(shape, dtype=dtype, device=dev),
              "v": torch.zeros(shape, dtype=dtype, device=dev), "pos": pos}
     if cfg.family == "encdec":
@@ -751,7 +864,16 @@ def prefill(params: Params, cfg: ArchConfig, batch: Dict[str, Any],
     tokens (``batch["soft_emb"]``) the cache covers n_soft + S positions
     and "pos" is n_soft + S.  The dense (and the encoder-decoder's self)
     cache is exactly the prompt's length; to decode without overwriting
-    its last position, pad it (the reference's own test pads by 8)."""
+    its last position, pad it (the reference's own test pads by 8).
+    Logits are whole on a rank's tree too."""
+    with model_parallel(params, cfg):
+        logits, cache = _prefill(params, cfg, batch, use_kernel)
+        return _whole_logits(cfg, logits), cache
+
+
+def _prefill(params: Params, cfg: ArchConfig, batch: Dict[str, Any],
+             use_kernel: Optional[bool] = None
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     uk = kernel_route(params, use_kernel)
     if cfg.family == "encdec":
         return _encdec_prefill(params, cfg, batch, uk)
@@ -783,7 +905,15 @@ def decode_step(params: Params, cfg: ArchConfig,
     direct attention over the cache, and the hybrid's over its rings,
     whose K/V tensors are updated in place and returned in the new
     cache; the encoder-decoder's direct cross-attention over its
-    ``enc_k`` / ``enc_v``."""
+    ``enc_k`` / ``enc_v``.  Logits are whole on a rank's tree too."""
+    with model_parallel(params, cfg):
+        logits, cache = _decode_step(params, cfg, cache, batch)
+        return _whole_logits(cfg, logits), cache
+
+
+def _decode_step(params: Params, cfg: ArchConfig,
+                 cache: Dict[str, torch.Tensor], batch: Dict[str, Any]
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     x = _embed(params, cfg, batch["tokens"])
     if cfg.family == "hybrid":
         return _hybrid_decode(params, cfg, cache, x)
@@ -817,18 +947,16 @@ def shard_decode_cache(cfg: ArchConfig, cache: Dict[str, Any], grid
     axis and the length does, else whole.  A sequence-sharded cache
     carries its global length as ``"smax"``, which ``decode_step`` reads
     under the same ambient grid.  Views of ``cache``; decode writes into
-    them in place.  (Head-sharded caches are not offered: the port's
-    attention projections are replicated over "model".)"""
+    them in place.  K and V head-sharded when the kv heads divide the
+    axis (the cache of a tree of shards, ``sharding.rules.shard_params``,
+    which decodes on its heads); the SSM's conv window and state over
+    their channels when those divide."""
     from repro_torch.sharding.rules import cache_specs, for_grid, local_shard
 
     specs = cache_specs(cfg, for_grid(grid), cache)
     out = {}
     for key, x in cache.items():
         spec = specs[key]
-        if key in ("k", "v") and spec[3] is not None:
-            raise NotImplementedError(
-                "head-sharded KV caches: the port keeps the attention "
-                "projections replicated over the model axis")
         out[key] = local_shard(x, spec, grid) if spec else x
     if specs["k"][2] is not None:
         out["smax"] = cache["k"].shape[2]
@@ -836,5 +964,5 @@ def shard_decode_cache(cfg: ArchConfig, cache: Dict[str, Any], grid
 
 
 __all__ = ["INIT_FAMILIES", "Params", "decode_step", "forward_train",
-           "init_cache", "init_params", "kernel_route", "param_specs",
-           "prefill", "shard_decode_cache"]
+           "init_cache", "init_params", "kernel_route", "local_kv_heads",
+           "param_specs", "prefill", "shard_decode_cache"]

@@ -14,18 +14,28 @@ returns the same tensors: at full width the optimizer state is most of
 the device memory, and a second copy would not fit.  Scalars (the
 learning rate, bias corrections) are computed in float32, as the
 reference computes them.
+
+On a rank's tree of a model axis (``sharding.rules.shard_params``) the
+clip's global norm is the whole tree's: the squares of the leaves cut
+over "model" are summed over the axis, those whole on every rank counted
+once (``model_axis``), so every rank clips alike and the replicated
+leaves stay equal across the axis.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.tree import stacked_ndims, tree_leaves, tree_map
+
+
+#: a model axis's comm and, for each leaf, whether it is cut over it
+ModelAxis = Tuple[Any, List[bool]]
 
 
 class AdamWState(NamedTuple):
@@ -85,21 +95,37 @@ def init_state(params: Any, master_weights: bool = False) -> AdamWState:
                       count=0, master=master)
 
 
-def global_norm(tree: Any) -> torch.Tensor:
+def global_norm(tree: Any, model_axis: Optional[ModelAxis] = None
+                ) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32 (a 0-d
-    tensor on the leaves' device)."""
-    return torch.sqrt(torch.stack(
-        [x.float().square().sum() for x in tree_leaves(tree)]).sum())
+    tensor on the leaves' device).  ``model_axis`` (comm, per-leaf flags
+    of ``sharding.rules.model_sharded_leaves``): the flagged leaves'
+    squares summed over the axis through the engine, the others once."""
+    squares = [x.float().square().sum() for x in tree_leaves(tree)]
+    if model_axis is None:
+        return torch.sqrt(torch.stack(squares).sum())
+    from repro_torch.collectives.api import get_engine
+
+    comm, sharded = model_axis
+    zero = squares[0].new_zeros(())
+    cut = torch.stack([q for q, f in zip(squares, sharded) if f]
+                      or [zero]).sum()
+    whole = torch.stack([q for q, f in zip(squares, sharded) if not f]
+                        or [zero]).sum()
+    cut = get_engine(device=comm.device).allreduce(cut.reshape(1), comm)[0]
+    return torch.sqrt(cut + whole)
 
 
 @torch.no_grad()
 def apply_updates(cfg: AdamWConfig, params: Any, grads: Any,
-                  state: AdamWState
+                  state: AdamWState,
+                  model_axis: Optional[ModelAxis] = None
                   ) -> Tuple[Any, AdamWState, Dict[str, Any]]:
     """One AdamW step with global-norm clipping, in place (see the module
-    docstring).  Returns (params, state, {"grad_norm", "lr"})."""
+    docstring; ``model_axis`` as :func:`global_norm`'s).  Returns
+    (params, state, {"grad_norm", "lr"})."""
     count = state.count + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, model_axis)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = lr_at(cfg, count)
     f32 = np.float32

@@ -23,6 +23,34 @@ The reference's rules see stacked ``[L, ...]`` leaves; the port keeps a
 list of per-layer trees.  ``param_sharding_tree`` computes each spec as
 for the stacked leaf (its shape with one leading dim per enclosing list)
 and drops those leading dims, which the rules always leave ``None``.
+
+The execution layout over "model" (``shard_params`` / ``unshard_params``):
+a rank's tree holds its 1/m of every leaf the rules shard over "model",
+cut so that the block computes on its own: whole attention heads (``wq``,
+``wk``, ``wv`` columns, ``wo`` rows, the cross-attention's ``x_*``
+alike), its d_ff / m hidden units (``wg``, ``wu`` columns, ``wd`` rows),
+its E / m experts, its di / m SSM channels and its RG-LRU blocks.  It
+follows the specs' contiguous block but in three places, each because
+the block would not compute on its own:
+
+* ``in_proj`` [D, 2 di] is [x; z]: rank r takes its di / m channels of x
+  **and** the same channels of z (``spec_for_param``'s column block
+  would give rank 0 all of x and rank 1 all of z at m = 2);
+* MQA / GQA with fewer kv heads than ranks (``recurrentgemma-9b``'s one
+  kv head): the spec cuts the kv head's columns; the execution keeps
+  ``wk`` / ``wv`` whole on every rank, and each rank attends with the
+  kv heads its q heads use;
+* a vocabulary "model" does not divide (``minicpm-2b``, ``whisper-
+  medium``): the spec moves "model" onto d_model, and so does the
+  execution: the embedding is column-sharded (its lookup gathered over
+  "model"), the head row-sharded (its partial logits reduced).  With a
+  vocabulary "model" divides, the embedding is vocab-parallel (rows) and
+  the head's columns give each rank its block of the logits.
+
+Norm weights, the MoE router and those whole ``wk`` / ``wv`` stay
+replicated.  A dim the execution cannot cut raises, naming the config
+and m; nothing is padded or silently replicated.  Whether a tree is one
+rank's shards is read off its embedding alone (:func:`tp_degree`).
 """
 
 from __future__ import annotations
@@ -35,6 +63,7 @@ import torch
 
 from repro_torch.collectives.comm import GridComm
 from repro_torch.configs.base import ArchConfig
+from repro_torch.tree import tree_leaves
 
 #: one dim's entry: an axis, a folded tuple of axes, or None
 AxisSpec = Union[str, Tuple[str, ...], None]
@@ -296,7 +325,180 @@ def local_shard(x: torch.Tensor, spec: Spec, grid: GridComm
     return x
 
 
+# ---------------------------------------------------------------------- #
+# the execution layout over "model": one rank's shards of a tree
+# ---------------------------------------------------------------------- #
+#: leaf name -> the dim (of the leaf's own dims) cut into m blocks over
+#: "model"; "pair" cuts both halves of the last dim alike (``in_proj``)
+_EXEC_DIMS: Dict[str, Any] = {
+    "wq": 1, "wk": 1, "wv": 1, "wo": 0,
+    "x_wq": 1, "x_wk": 1, "x_wv": 1, "x_wo": 0,
+    "wg": 1, "wu": 1, "wd": 0,
+    "eg": 0, "eu": 0, "ed": 0,
+    "in_proj": "pair", "conv_w": 1, "x_proj": 0, "dt_w": 1, "dt_b": 0,
+    "a_log": 0, "d_skip": 0, "out_proj": 0,
+    "w_x": 1, "w_y": 1, "w_a": 0, "w_i": 0, "lam": 0, "out": 0,
+}
+
+
+def _model_size(grid: GridLike, policy: Optional[ShardingPolicy]) -> int:
+    policy = for_grid(grid) if policy is None else policy
+    return policy.axis_size(policy.model_axis)
+
+
+def _refuse(cfg: ArchConfig, m: int, what: str) -> None:
+    raise ValueError(f"{cfg.name}: the model axis of {m} cannot cut {what} "
+                     f"(no padding, no silent replication)")
+
+
+def _kv_replicated(cfg: ArchConfig, m: int) -> bool:
+    """Whether ``wk`` / ``wv`` stay whole: fewer kv heads than ranks,
+    each rank's q heads in one kv head's group."""
+    return cfg.num_kv_heads % m != 0
+
+
+def _vocab_rows(cfg: ArchConfig, m: int) -> bool:
+    """The embedding vocab-parallel (True) or cut over d_model (False)."""
+    return cfg.vocab_size % m == 0
+
+
+def exec_layout(cfg: ArchConfig, m: int) -> Dict[str, Any]:
+    """Leaf name -> how the execution cuts it over a model axis of ``m``
+    (a dim, "pair", or None: whole on every rank); raises where the
+    config does not cut."""
+    if m == 1:
+        return {}
+    out = dict(_EXEC_DIMS)
+    if cfg.family in ("dense", "moe", "hybrid", "encdec"):
+        h, kv = cfg.num_heads, cfg.num_kv_heads
+        if h % m:
+            _refuse(cfg, m, f"{h} attention heads")
+        if _kv_replicated(cfg, m):
+            if m % kv:
+                _refuse(cfg, m, f"{kv} kv heads")
+            out.update(wk=None, wv=None, x_wk=None, x_wv=None)
+        if cfg.family == "moe":
+            if cfg.num_experts % m:
+                _refuse(cfg, m, f"{cfg.num_experts} experts")
+            if cfg.moe_dense_ff % m:
+                _refuse(cfg, m, f"a dense residual of {cfg.moe_dense_ff}")
+        elif cfg.d_ff % m:
+            _refuse(cfg, m, f"a hidden dim of {cfg.d_ff}")
+    if cfg.family == "ssm" and cfg.d_inner % m:
+        _refuse(cfg, m, f"{cfg.d_inner} SSM channels")
+    if cfg.family == "hybrid" and cfg.d_model % m:
+        _refuse(cfg, m, f"an RG-LRU width of {cfg.d_model}")
+    if _vocab_rows(cfg, m):
+        out.update(embed=0, head=1)
+    elif cfg.d_model % m == 0:
+        out.update(embed=1, head=0)
+    else:
+        _refuse(cfg, m, f"a vocabulary of {cfg.vocab_size} or d_model "
+                        f"{cfg.d_model}")
+    return out
+
+
+def _cut(x: torch.Tensor, how: Any, m: int, r: int) -> torch.Tensor:
+    if how == "pair":
+        x_half, z_half = x.chunk(2, dim=-1)
+        n = x_half.shape[-1] // m
+        return torch.cat([x_half.narrow(-1, r * n, n),
+                          z_half.narrow(-1, r * n, n)], dim=-1)
+    n = x.shape[how] // m
+    return x.narrow(how, r * n, n)
+
+
+def _join(parts, how: Any) -> torch.Tensor:
+    if how == "pair":
+        halves = [p.chunk(2, dim=-1) for p in parts]
+        return torch.cat([h[0] for h in halves] + [h[1] for h in halves],
+                         dim=-1)
+    return torch.cat(parts, dim=how)
+
+
+def _map_named(fn, tree: Any, name: str = "") -> Any:
+    """``fn(leaf name, leaf)`` over a parameter tree (the name is the
+    last dict key above the leaf)."""
+    if isinstance(tree, dict):
+        return {k: _map_named(fn, v, str(k)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_named(fn, v, name) for v in tree)
+    return fn(name, tree)
+
+
+def shard_for_rank(params: Any, cfg: ArchConfig, m: int, r: int) -> Any:
+    """Rank ``r``'s tree of ``m`` model ranks under the execution layout:
+    views of ``params`` (``in_proj`` a copy of its two blocks); leaves
+    whole on every rank are the same tensors."""
+    layout = exec_layout(cfg, m)
+    return _map_named(lambda name, x: x if layout.get(name) is None
+                      else _cut(x, layout[name], m, r), params)
+
+
+def shard_params(params: Any, cfg: ArchConfig, grid: GridComm,
+                 policy: Optional[ShardingPolicy] = None) -> Any:
+    """This rank's shards of the whole tree ``params`` over the grid's
+    model axis (the policy's ``model_axis``, default "model"): the
+    execution layout of the module docstring.  Views where a block is
+    contiguous in memory or strided, so rank threads of one card share
+    one weight set."""
+    policy = for_grid(grid) if policy is None else policy
+    m = _model_size(grid, policy)
+    if m == 1:
+        return params
+    return shard_for_rank(params, cfg, m, grid.axis_index(policy.model_axis))
+
+
+def unshard_params(params: Any, cfg: ArchConfig, grid: GridComm,
+                   policy: Optional[ShardingPolicy] = None) -> Any:
+    """The whole tree on every rank, each sharded leaf gathered over the
+    model axis (every rank of it must call this): the inverse of
+    :func:`shard_params`, exact."""
+    policy = for_grid(grid) if policy is None else policy
+    m = _model_size(grid, policy)
+    if m == 1:
+        return params
+    layout = exec_layout(cfg, m)
+    comm = grid.sub(policy.model_axis)
+
+    def gather(name, x):
+        how = layout.get(name)
+        if how is None:
+            return x
+        parts = comm.all_gather(x.contiguous()[None])
+        return _join(list(parts), how)
+
+    return _map_named(gather, params)
+
+
+def model_sharded_leaves(params: Any, cfg: ArchConfig) -> list:
+    """For each leaf in leaf order: whether a rank's tree holds only its
+    block of it (False for the leaves whole on every rank, and for every
+    leaf of a whole tree)."""
+    m = tp_degree(params, cfg)
+    layout = exec_layout(cfg, m)
+    return tree_leaves(_map_named(
+        lambda name, x: layout.get(name) is not None, params))
+
+
+def tp_degree(params: Any, cfg: ArchConfig) -> int:
+    """The one rule that says whether ``params`` is one rank's shards: the
+    model axis size its embedding was cut by (1 for a whole tree)."""
+    shape = tuple(params["embed"].shape)
+    v, d = cfg.vocab_size, cfg.d_model
+    if shape == (v, d):
+        return 1
+    if shape[1] == d and shape[0] and v % shape[0] == 0:
+        return v // shape[0]
+    if shape[0] == v and shape[1] and d % shape[1] == 0:
+        return d // shape[1]
+    raise ValueError(f"{cfg.name}: an embedding of {shape} is neither "
+                     f"whole ({v}, {d}) nor a model-axis block of it")
+
+
 __all__ = ["AxisSpec", "ShardingPolicy", "Spec", "batch_sharding_specs",
-           "cache_specs", "for_grid", "grad_sync_axes_for_grid",
-           "labels_spec", "local_shard", "logits_spec",
-           "param_sharding_tree", "spec_for_param"]
+           "cache_specs", "exec_layout", "for_grid",
+           "grad_sync_axes_for_grid", "labels_spec",
+           "local_shard", "logits_spec", "model_sharded_leaves",
+           "param_sharding_tree", "shard_for_rank", "shard_params",
+           "spec_for_param", "tp_degree", "unshard_params"]

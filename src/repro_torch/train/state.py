@@ -1,7 +1,8 @@
 """Train state and its sharding helpers (counterpart of
 ``repro/train/state.py``): the specs of a state over a grid, a state of
-meta tensors (nothing allocated), and the FSDP flat state back to the
-parameter tree."""
+meta tensors (nothing allocated), one rank's state over a model axis
+(``shard_train_state``) and its bytes, and the FSDP flat state back to
+the parameter tree."""
 
 from __future__ import annotations
 
@@ -11,7 +12,8 @@ import torch
 
 from repro_torch.optim.adamw import AdamWState, init_state
 from repro_torch.sharding.rules import (GridLike, ShardingPolicy,
-                                        param_sharding_tree)
+                                        param_sharding_tree, shard_for_rank,
+                                        shard_params)
 from repro_torch.tree import tree_leaves, unflatten_stacked
 
 
@@ -44,6 +46,43 @@ def abstract_train_state(cfg, master_weights: bool = False) -> TrainState:
     return init_train_state(init_params(cfg, device="meta"), master_weights)
 
 
+def shard_train_state(state: TrainState, cfg, grid,
+                      policy: Optional[ShardingPolicy] = None) -> TrainState:
+    """This rank's state over the grid's model axis: the parameters cut
+    by ``sharding.rules.shard_params``, the moments and the master copy
+    each inheriting its leaf's layout (tree-shaped state only)."""
+    opt = state.opt
+    for x in (opt.mu, opt.nu):
+        if torch.is_tensor(x):
+            raise ValueError("shard_train_state: a flat FSDP state; turn "
+                             "it into a tree first (fsdp_state_to_tree)")
+
+    def cut(tree):
+        return None if tree is None else shard_params(tree, cfg, grid,
+                                                      policy)
+
+    return TrainState(params=cut(state.params), opt=AdamWState(
+        mu=cut(opt.mu), nu=cut(opt.nu), count=opt.count,
+        master=cut(opt.master)))
+
+
+def rank_state_bytes(cfg, m: int, master_weights: bool = False) -> dict:
+    """A rank's bytes of parameters and of optimizer state over a model
+    axis of ``m`` (``abstract_train_state`` cut on the meta device; rank
+    0's, every rank's are equal): {"params", "opt"}."""
+    state = abstract_train_state(cfg, master_weights)
+
+    def nbytes(tree):
+        if tree is None:
+            return 0
+        return sum(x.numel() * x.element_size()
+                   for x in tree_leaves(shard_for_rank(tree, cfg, m, 0)))
+
+    opt = state.opt
+    return {"params": nbytes(state.params),
+            "opt": nbytes(opt.mu) + nbytes(opt.nu) + nbytes(opt.master)}
+
+
 def fsdp_state_to_tree(state: TrainState) -> TrainState:
     """The ``mode="fsdp"`` flat optimizer state back in the tree layout,
     so it resumes under ``mode="allreduce"`` (``apply_updates`` on
@@ -72,4 +111,5 @@ def fsdp_state_to_tree(state: TrainState) -> TrainState:
 
 
 __all__ = ["TrainState", "abstract_train_state", "fsdp_state_to_tree",
-           "init_train_state", "train_state_shardings"]
+           "init_train_state", "rank_state_bytes", "shard_train_state",
+           "train_state_shardings"]

@@ -20,7 +20,13 @@ the counterpart of ``repro/train/step.py`` for one device.
   -- where the reference's jit + GSPMD partitions one program.  The
   loss (and ``ce``) each rank computes is over its own rows; it is
   averaged over the DP axes through the engine, so the metrics are the
-  reference's global-batch ones.
+  reference's global-batch ones;
+* the model axis: on a rank's tree (``sharding.rules.shard_params``),
+  called under ``layers.ambient_grid`` with its "model" axis, the
+  forward is the tensor-parallel block, the cross entropy reduces the
+  vocabulary's blocks over "model", each rank syncs its own leaves over
+  the DP axes, and the clip's norm is the whole tree's
+  (``optim.adamw.global_norm``'s ``model_axis``).
 
 The gradient is taken with ``torch.autograd.grad`` on detached aliases of
 the parameters, so the parameter tensors themselves never carry
@@ -39,8 +45,10 @@ import torch
 from repro_torch.collectives.comm import GridComm
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer as tf
-from repro_torch.optim.adamw import (AdamWConfig, AdamWState, apply_updates,
-                                     lr_at)
+from repro_torch.models.layers import bind_tp, reduce_from_model, tp_comm
+from repro_torch.optim.adamw import (AdamWConfig, AdamWState, ModelAxis,
+                                     apply_updates, lr_at)
+from repro_torch.sharding.rules import model_sharded_leaves
 from repro_torch.train.state import TrainState
 from repro_torch.tree import (flatten_stacked, stacked_ndims, stacked_order,
                               tree_leaves, tree_map, tree_unflatten,
@@ -92,14 +100,34 @@ class GradSyncConfig:
                              f"expected 'allreduce' or 'fsdp'")
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
-                  ) -> torch.Tensor:
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  comm=None) -> torch.Tensor:
     """logits [B, S, V]; labels [B, S] int -> mean of (logsumexp - gold)
-    in float32."""
+    in float32.  With ``comm`` (a model axis of m ranks) ``logits`` is
+    this rank's block [B, S, V / m] of the vocabulary, rank r's the ids
+    [r V / m, (r + 1) V / m): the max is taken over the ranks' maxima,
+    the sum of exponentials reduced over the axis, and the target's
+    logit comes from the rank that holds it."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
-    return (lse - gold).mean()
+    if comm is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+        return (lse - gold).mean()
+    from repro_torch.collectives.api import get_engine
+
+    n = logits.shape[-1]
+    eng = get_engine(device=comm.device)
+    peak = eng.allgather(logits.detach().amax(-1)[None].contiguous(),
+                         comm).amax(0)
+    local = labels.long() - comm.rank * n
+    mine = (local >= 0) & (local < n)
+    gold = logits.gather(-1, local.clamp(0, n - 1)[..., None])[..., 0]
+    with bind_tp(comm):
+        sum_exp = reduce_from_model(
+            torch.exp(logits - peak[..., None]).sum(-1))
+        gold = reduce_from_model(torch.where(mine, gold,
+                                             torch.zeros_like(gold)))
+    return (torch.log(sum_exp) + peak - gold).mean()
 
 
 def loss_fn(params: Any, cfg: ArchConfig, batch: Batch, remat: bool = True,
@@ -108,7 +136,9 @@ def loss_fn(params: Any, cfg: ArchConfig, batch: Batch, remat: bool = True,
     model_inputs = {k: v for k, v in batch.items() if k != "labels"}
     logits, aux = tf.forward_train(params, cfg, model_inputs, remat=remat,
                                    use_kernel=use_kernel)
-    ce = cross_entropy(logits, batch["labels"])
+    comm = tp_comm(params, cfg)
+    vocab_cut = comm is not None and logits.shape[-1] != cfg.vocab_size
+    ce = cross_entropy(logits, batch["labels"], comm if vocab_cut else None)
     loss = ce + AUX_WEIGHT * aux
     return loss, {"ce": ce, "aux": aux}
 
@@ -128,20 +158,28 @@ def value_and_grad(params: Any, cfg: ArchConfig, batch: Batch,
     return loss.detach(), metrics, tree_unflatten(params, list(grads))
 
 
-def _decay_shard(params: Any, lo: int, hi: int,
-                 device: torch.device) -> torch.Tensor:
-    """Elements ``[lo, hi)`` of the flat decay mask: 1 where the element
-    belongs to a leaf of stacked rank >= 2 (ROADMAP C7), else 0."""
+def _mask_shard(params: Any, flags: list, lo: int, hi: int,
+                device: torch.device) -> torch.Tensor:
+    """Elements ``[lo, hi)`` of a flat mask in stacked order: 1 where the
+    element belongs to a leaf whose flag (in leaf order) is set."""
     out = torch.zeros(hi - lo, dtype=torch.float32, device=device)
-    leaves, ranks = tree_leaves(params), stacked_ndims(params)
+    leaves = tree_leaves(params)
     off = 0
     for i in stacked_order(params):
         size = leaves[i].numel()
         a, b = max(off, lo), min(off + size, hi)
-        if ranks[i] >= 2 and a < b:
+        if flags[i] and a < b:
             out[a - lo:b - lo] = 1.0
         off += size
     return out
+
+
+def _decay_shard(params: Any, lo: int, hi: int,
+                 device: torch.device) -> torch.Tensor:
+    """Elements ``[lo, hi)`` of the flat decay mask: 1 where the element
+    belongs to a leaf of stacked rank >= 2 (ROADMAP C7), else 0."""
+    return _mask_shard(params, [r >= 2 for r in stacked_ndims(params)],
+                       lo, hi, device)
 
 
 @torch.no_grad()
@@ -157,7 +195,8 @@ def fsdp_layout(params: Any, gs: GradSyncConfig
 
 
 def fsdp_sync_apply(opt_cfg: AdamWConfig, params: Any, grads: Any,
-                    opt: AdamWState, gs: GradSyncConfig
+                    opt: AdamWState, gs: GradSyncConfig,
+                    model_axis: Optional[ModelAxis] = None
                     ) -> Tuple[Any, AdamWState, Dict[str, Any]]:
     """FSDP-style sync + update on this rank: reduce-scatter grads, AdamW
     on the flat shard, allgather the updated params -- every byte through
@@ -174,13 +213,16 @@ def fsdp_sync_apply(opt_cfg: AdamWConfig, params: Any, grads: Any,
     ``opt.master`` with master weights) come back as those local shards;
     a tree-shaped state (step 0, or one restored from allreduce mode) is
     flattened and cut first.  The params are updated in place and
-    returned."""
+    returned.  On a rank's tree of a model axis (``model_axis``, as
+    ``optim.adamw.global_norm``'s) the flat vector is of the rank's
+    leaves and the clip's squares of the leaves cut over "model" are
+    summed over that axis too."""
     from repro_torch.collectives.api import get_engine
 
     axes = tuple(gs.axes)
     if not axes:
         # no DP axes (a single rank): nothing to scatter or gather
-        return apply_updates(opt_cfg, params, grads, opt)
+        return apply_updates(opt_cfg, params, grads, opt, model_axis)
     grid = gs.grid
     engine = get_engine(device=grid.device)
     n_world, n, pad, shard = fsdp_layout(params, gs)
@@ -221,9 +263,19 @@ def fsdp_sync_apply(opt_cfg: AdamWConfig, params: Any, grads: Any,
                                           algorithm=gs.algorithm)
     del flat_g
     g_s = g_s / float(n_world)          # mean over the DP world
-    sq = engine.allreduce_multi(g_s.square().sum().reshape(1), grid, axes,
-                                algorithm=gs.algorithm)
-    gnorm = torch.sqrt(sq[0])
+    if model_axis is None:
+        sq = engine.allreduce_multi(g_s.square().sum().reshape(1), grid,
+                                    axes, algorithm=gs.algorithm)
+        gnorm = torch.sqrt(sq[0])
+    else:
+        comm, sharded = model_axis
+        cut = _mask_shard(params, sharded, lo, hi, g_s.device)
+        g2 = g_s.square()
+        sq = engine.allreduce_multi(
+            torch.stack([(g2 * cut).sum(), (g2 * (1.0 - cut)).sum()]),
+            grid, axes, algorithm=gs.algorithm)
+        cut_sq = engine.allreduce(sq[:1].contiguous(), comm)[0]
+        gnorm = torch.sqrt(cut_sq + sq[1])
     gg = g_s * torch.clamp(opt_cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     mu.mul_(opt_cfg.b1).add_((1 - opt_cfg.b1) * gg)
     nu.mul_(opt_cfg.b2).add_((1 - opt_cfg.b2) * gg.square())
@@ -280,6 +332,9 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
     order."""
     def train_step(state: TrainState, batch: Batch):
         uk = tf.kernel_route(state.params, use_kernel)
+        comm = tp_comm(state.params, cfg)
+        model_axis = (None if comm is None else
+                      (comm, model_sharded_leaves(state.params, cfg)))
         if microbatches == 1:
             loss, metrics, grads = value_and_grad(
                 state.params, cfg, batch, remat=remat, use_kernel=uk)
@@ -305,7 +360,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
             # ZeRO-style pair: reduce-scatter grads, update the flat
             # shard, allgather params -- all through the engine
             params, opt, opt_metrics = fsdp_sync_apply(
-                opt_cfg, state.params, grads, state.opt, grad_sync)
+                opt_cfg, state.params, grads, state.opt, grad_sync,
+                model_axis)
             return TrainState(params=params, opt=opt), {
                 "loss": loss, **metrics, **opt_metrics}
         if grad_sync is not None:
@@ -318,7 +374,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
                 bucket_bytes=grad_sync.bucket_bytes,
                 compress=grad_sync.compress)
         params, opt, opt_metrics = apply_updates(opt_cfg, state.params,
-                                                 grads, state.opt)
+                                                 grads, state.opt,
+                                                 model_axis)
         return TrainState(params=params, opt=opt), {"loss": loss, **metrics,
                                                     **opt_metrics}
 

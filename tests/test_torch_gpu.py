@@ -85,6 +85,7 @@ def _case(b, h, hkv, d, bs, n, m, dtype, device, seed=5):
     (2, 32, 32, 96, 16, 16, 4),      # phi3 head dim
     (2, 8, 8, 256, 64, 8, 3),        # the largest head dim and block
     (2, 16, 4, 80, 16, 12, 4),       # GQA at a head dim without paged_mma
+    (4, 14, 2, 128, 16, 64, 8),      # yi-34b's heads a rank at TP-4
 ])
 def test_cuda_kernel_matches_plain(cuda_device, dtype, b, h, hkv, d, bs,
                                    n, m):
@@ -830,6 +831,9 @@ FLASH_SHAPES = [
     (2, 2, 2, 256, 256, True, None),      # D 256, MHA, causal
     (2, 4, 4, 512, 64, False, None),      # non-causal, no window (wgmma)
     (1, 16, 16, 1024, 64, False, None),   # whisper-medium's heads
+    (1, 14, 2, 512, 128, True, None),     # yi-34b's heads a rank at TP-4
+    (1, 4, 4, 512, 128, True, None),      # olmoe-1b-7b's at TP-4
+    (1, 4, 1, 384, 256, True, 128),       # recurrentgemma-9b's at TP-4
 ]
 
 
@@ -1742,3 +1746,83 @@ def test_two_replica_fleet_shares_weights_and_gives_one_replicas_streams(
         assert [t.data_ptr() for t in tree_leaves(rep.server.params)] == ptrs
     pools = [rep.server.pages["k"].data_ptr() for rep in two.replicas]
     assert len(set(pools)) == 2
+
+
+# ------------------- the block sharded over "model" -------------------- #
+def _tp_model(arch="yi-34b", dtype="float32"):
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype=dtype)
+    return cfg, init_params(cfg, seed=0, device="cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,s", [("yi-34b", 16), ("yi-34b", 4096),
+                                    ("olmoe-1b-7b", 16),
+                                    ("falcon-mamba-7b", 64)])
+def test_tp_block_forward_on_cuda_threads_matches_single_rank(cuda_device,
+                                                              arch, s):
+    """A reduced float32 config's tree cut over 2 model-rank threads on
+    the card: ``forward_train`` (no grad; at S 4096 the flash kernel at
+    the per-rank heads, 2 launches a layer) gathered over the vocabulary
+    within 2e-4 of the single rank's, and prefill + greedy decode with
+    identical tokens."""
+    from repro_torch.collectives import run_local_grid
+    from repro_torch.models import decode_step, forward_train, prefill
+    from repro_torch.models.layers import ambient_grid
+    from repro_torch.sharding.rules import shard_params
+    cfg, params = _tp_model(arch)
+    tokens = torch.randint(0, cfg.vocab_size, (1, s), device=cuda_device,
+                           generator=torch.Generator(cuda_device)
+                           .manual_seed(1))
+
+    def greedy(p):
+        logits, cache = prefill(p, cfg, {"tokens": tokens[:, :16]})
+        if "k" in cache:
+            pad = (0, 0, 0, 0, 0, 4)
+            cache = dict(cache, k=torch.nn.functional.pad(cache["k"], pad),
+                         v=torch.nn.functional.pad(cache["v"], pad))
+        toks = []
+        for _ in range(4):
+            nxt = logits[:, -1].argmax(-1, keepdim=True).int()
+            toks.append(nxt)
+            logits, cache = decode_step(p, cfg, cache, {"tokens": nxt})
+        return torch.cat(toks, 1)
+
+    def rank(grid):
+        local = shard_params(params, cfg, grid)
+        with torch.no_grad(), ambient_grid(grid):
+            logits, _ = forward_train(local, cfg, {"tokens": tokens})
+            parts = grid.sub("model").all_gather(logits[None])
+            return torch.cat(list(parts), -1), greedy(local)
+
+    with torch.no_grad():
+        want, _ = forward_train(params, cfg, {"tokens": tokens})
+        want_toks = greedy(params)
+    ops.reset_launch_counts()
+    out = run_local_grid(rank, (2,), ("model",), cuda_device, timeout=120)
+    if s > 2048:
+        assert ops.launch_counts()["flash_attention"] == 2 * cfg.num_layers
+    for logits, toks in out:
+        torch.testing.assert_close(logits, want, rtol=2e-4, atol=2e-4)
+        assert torch.equal(toks, want_toks)
+
+
+@pytest.mark.gpu
+def test_tp_block_backward_on_cuda_threads_is_refused(cuda_device):
+    """A backward through the block's reductions on CUDA rank threads
+    would deadlock on the autograd engine's one device thread (ROADMAP
+    C15): it raises."""
+    from repro_torch.collectives import run_local_grid
+    from repro_torch.models.layers import ambient_grid
+    from repro_torch.sharding.rules import shard_params
+    from repro_torch.train.step import value_and_grad
+    cfg, params = _tp_model()
+    tokens = torch.zeros((1, 8), dtype=torch.int32, device=cuda_device)
+
+    def rank(grid):
+        with ambient_grid(grid):
+            return value_and_grad(shard_params(params, cfg, grid), cfg,
+                                  {"tokens": tokens, "labels": tokens},
+                                  remat=False)
+
+    with pytest.raises(NotImplementedError, match="C15"):
+        run_local_grid(rank, (2,), ("model",), cuda_device, timeout=60)
