@@ -218,7 +218,16 @@
    ``yi-34b`` at 2 layers, ``olmoe-1b-7b`` (16 experts a rank),
    ``falcon-mamba-7b`` (di 2048 a rank, the scan kernel), the hybrid's
    first cycle and tail, ``whisper-medium`` at 2 + 2 layers.  The flash
-   and paged kernels at the per-rank shapes are among phase 2's cases.
+   and paged kernels at the per-rank shapes are among phase 2's cases;
+27. dryrun phase (after phase 11, host only): ``launch.dryrun`` sizes
+   every (arch x shape) cell of the 16 x 16 grid as one rank's sharded
+   step on meta tensors (4 processes), and one cell of the 2 x 16 x 16
+   grid: 20 ``ok``, 8 ``skipped`` (``long_500k`` of the attention
+   archs) and 12 ``refused`` (the 56- and 36-head archs, ROADMAP C33),
+   none ``failed``, each ``ok`` cell's predicted peak against the card
+   and its H100 bound; then its prediction of phase 11's step (one rank,
+   the same depth, batch and sequence) is held against the peak phase
+   11 measured (``max_memory_allocated``): within 10 % or 1 GB.
 
 Phase 10 (NCCL, two or more cards) also times neighbour shifts over
 NCCL and runs ``calibrate(grid=)`` one process a card (the NVLink
@@ -227,7 +236,8 @@ the sharded block one process a card (``--tp-train-worker``: ``yi-34b``
 at full width, 4 layers, TP over 2 or 4 cards, 2 steps; the loss and the
 leaves whole on every rank bitwise equal across the ranks, the loss
 within 2e-2 of the single rank's step, peak memory against the
-reckoning), and ends
+reckoning, and the dry-run's prediction of that peak within 10 % or 1
+GB), and ends
 with the trainer under torchrun with ``--arch olmoe-1b-7b --reduced
 --dp --moe-ep`` (EP with a backward), the loss equal on both ranks.
 
@@ -278,8 +288,10 @@ from repro_torch.core import patterns as pat  # noqa: E402
 from repro_torch.core import selector  # noqa: E402
 from repro_torch.core.model import (FabricTopology,  # noqa: E402
                                     TPU_V5E_AXIS)
+from repro_torch.configs import SHAPES, all_configs  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.configs.base import with_layer_units  # noqa: E402
+from repro_torch.configs.base import (ShapeSpec,  # noqa: E402
+                                      with_layer_units)
 from repro_torch.data import DataConfig, SyntheticLMDataset  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.collectives import shardmap_impl as impl  # noqa: E402
@@ -295,6 +307,7 @@ from repro_torch.kernels.ref import (FLASH_CHUNK,  # noqa: E402
                                      multi_add_ref, paged_attention_ref,
                                      selective_scan_ref)
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.launch.train import (build_batch,  # noqa: E402
                                       step_generator)
@@ -600,6 +613,16 @@ TP_ROUTE_TOL = 1e-4
 #: the sharded train step one process a card over NCCL: yi-34b at full
 #: width with 4 layers, TP over every card (2 or 4), 2 steps of 2 x 2048
 TP_TRAIN = dict(layers=4, batch=2, seq=2048, steps=2, lr=3e-4)
+#: the dry-run's sweep of the 16 x 16 grid: its status counts, the archs
+#: whose heads the model axis of 16 cannot cut (ROADMAP C33: refused in
+#: every shape but long_500k, which they skip), the processes it runs in
+#: (host work on meta tensors) and one cell of the 2 x 16 x 16 grid
+DRYRUN_COUNTS = {"ok": 20, "skipped": 8, "refused": 12, "failed": 0}
+DRYRUN_C33 = ("arctic-480b", "llava-next-34b", "minicpm-2b", "yi-34b")
+DRYRUN_WORKERS = 4
+DRYRUN_MULTIPOD = ("mistral-nemo-12b", "train_4k")
+#: a predicted peak against the card's measured one: 10 % or 1 GB
+DRYRUN_TOL = (0.10, 1e9)
 
 MOE_ARCH = "olmoe-1b-7b"
 #: olmoe-1b-7b at full width, 8 of its 16 layers (AdamW for all 16 needs
@@ -1799,7 +1822,7 @@ def flash_kernel_phase(seed: int) -> dict:
 
 
 # ------------------------- dense train phase --------------------------- #
-def dense_train_phase(seed: int, rows: dict) -> None:
+def dense_train_phase(seed: int, rows: dict) -> dict:
     cfg = with_layer_units(get_config(DENSE_ARCH), DENSE_TRAIN["layers"])
     t0 = time.perf_counter()
     state = init_train_state(init_params(cfg, seed=seed, device="cuda"))
@@ -1830,7 +1853,8 @@ def dense_train_phase(seed: int, rows: dict) -> None:
             f"{float(metrics['grad_norm']):.3f} | lr {metrics['lr']:.2e} | "
             f"wall {wall * 1e3:.1f} ms | {tokens / wall:.1f} tok/s")
     counts = ops.launch_counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak = torch.cuda.max_memory_allocated()
+    peak_gb = peak / 1e9
 
     assert all(math.isfinite(x) for x in losses), losses
     assert losses[-1] < losses[0], f"loss did not fall: {losses}"
@@ -1856,6 +1880,86 @@ def dense_train_phase(seed: int, rows: dict) -> None:
         holder["state"], _ = step_fn(holder["state"], batches[steps])
     log(f"profile of one dense train step (kernel route): "
         f"{profile_step(one_step)}")
+    return {"peak_bytes": peak, "step_s": steady}
+
+
+def dryrun_within(predicted: float, measured: float) -> bool:
+    rel, floor = DRYRUN_TOL
+    return abs(predicted - measured) <= max(rel * measured, floor)
+
+
+def dryrun_prediction(arch: str, layers: int, batch: int, seq: int,
+                      grid) -> dict:
+    """``launch.dryrun``'s record of one rank's train step of ``arch`` at
+    ``layers`` layers, ``batch`` x ``seq`` tokens (remat, AdamW) on
+    ``grid`` (shape, axis names): the step a phase runs on the card."""
+    shape = ShapeSpec(f"{batch}x{seq}", seq, batch, "train")
+    cfg = with_layer_units(get_config(arch), layers)
+    rec = dryrun.run_cell(arch, shape, f"{arch} on the card", grid=grid,
+                          save=False,
+                          levers={"num_layers": cfg.num_layers,
+                                  "encoder_layers": cfg.encoder_layers})
+    assert rec["status"] == "ok", rec
+    return rec
+
+
+def dryrun_phase(dense: dict) -> None:
+    """The dry-run on the host (phase 27): the sweep of the production
+    grid, one multi-pod cell, and its prediction of the dense train
+    phase's step held against what that phase measured."""
+    t0 = time.perf_counter()
+    records = dryrun.run_cells([(a, s) for a in sorted(all_configs())
+                                for s in SHAPES], "pod", log=log,
+                               workers=DRYRUN_WORKERS, save=False)
+    sweep_s = time.perf_counter() - t0
+    counts = dryrun.status_counts(records)
+    refused = sorted((r["arch"], r["shape"]) for r in records
+                     if r["status"] == "refused")
+    want = sorted((a, s) for a in DRYRUN_C33 for s in SHAPES
+                  if s != "long_500k")
+    log(f"dryrun pod (16 x 16) sweep: {counts} in {sweep_s:.1f} s on "
+        f"{DRYRUN_WORKERS} host processes; refused {refused}")
+    assert counts == DRYRUN_COUNTS, counts
+    assert refused == want, refused
+    for r in records:
+        if r["status"] == "ok":
+            h = r["roofline_h100"]
+            log(f"dryrun {r['arch']} x {r['shape']} (pod): one rank's peak "
+                f"{r['memory']['peak_memory_in_bytes'] / 1e9:.3f} GB of "
+                f"{dryrun.CARD_BYTES / 1e9:.3f} (fits {r['fits']}) | H100 "
+                f"bound {h['bound_s'] * 1e3:.3f} ms ({h['bound_by']}): "
+                f"{r['cost']['flops']:.4e} FLOP, "
+                f"{r['cost']['bytes accessed']:.4e} bytes")
+    t1 = time.perf_counter()
+    (mp,) = dryrun.run_cells([DRYRUN_MULTIPOD], "multipod", log=log,
+                             save=False)
+    assert mp["status"] == "ok", mp
+    log(f"dryrun multipod (2 x 16 x 16) {DRYRUN_MULTIPOD}: peak "
+        f"{mp['memory']['peak_memory_in_bytes'] / 1e9:.3f} GB in "
+        f"{time.perf_counter() - t1:.1f} s")
+    total = torch.cuda.get_device_properties(0).total_memory
+    t2 = time.perf_counter()
+    rec = dryrun_prediction(DENSE_ARCH, DENSE_TRAIN["layers"],
+                            DENSE_TRAIN["batch"], DENSE_TRAIN["seq"],
+                            ((1, 1), ("data", "model")))
+    pred = rec["memory"]["peak_memory_in_bytes"]
+    meas = dense["peak_bytes"]
+    h = rec["roofline_h100"]
+    log(f"dryrun prediction of the dense train step ({DENSE_ARCH}, "
+        f"{DENSE_TRAIN['layers']} layers, {DENSE_TRAIN['batch']} x "
+        f"{DENSE_TRAIN['seq']}, one rank) in "
+        f"{time.perf_counter() - t2:.1f} s: peak {pred / 1e9:.3f} GB "
+        f"(arguments {rec['memory']['argument_size_in_bytes'] / 1e9:.3f}, "
+        f"temporaries {rec['memory']['temp_size_in_bytes'] / 1e9:.3f}) vs "
+        f"max_memory_allocated {meas / 1e9:.3f} GB: "
+        f"{(pred - meas) / meas * 100:+.2f} % (tolerance 10 % or 1 GB); "
+        f"card {total / 1e9:.3f} GB (dry-run {dryrun.CARD_BYTES / 1e9:.3f})"
+        f" | step wall {dense['step_s'] * 1e3:.1f} ms vs H100 bound "
+        f"{h['bound_s'] * 1e3:.1f} ms ({h['bound_by']}: "
+        f"{rec['cost']['flops']:.4e} FLOP, "
+        f"{rec['cost']['bytes accessed']:.4e} bytes): "
+        f"{h['bound_s'] / dense['step_s'] * 100:.1f} % of bound")
+    assert dryrun_within(pred, meas), (pred, meas)
 
 
 def dense_lr_witness(seed: int) -> None:
@@ -4493,6 +4597,14 @@ def tp_train_worker(rank: int, world: int, init: str, seed: int) -> int:
     want = rank_state_bytes(cfg, world)
     reckoned = want["params"] * 2 + want["opt"]       # params, grads, moments
     torch.distributed.destroy_process_group()
+    predicted = dryrun_prediction(
+        TP_ARCH, TP_TRAIN["layers"], TP_TRAIN["batch"], TP_TRAIN["seq"],
+        ((world,), ("model",)))["memory"]["peak_memory_in_bytes"]
+    print(f"tp train rank {rank}/{world}: peak {peak / 1e9:.3f} GB vs the "
+          f"dry-run's {predicted / 1e9:.3f} GB: "
+          f"{(predicted - peak) / peak * 100:+.2f} % (tolerance 10 % or "
+          f"1 GB)", flush=True)
+    assert dryrun_within(predicted, peak), (predicted, peak)
     print(f"tp train rank {rank}/{world}: {TP_ARCH} at full width, "
           f"{cfg.num_layers} layers, TP-{world} one process a card over "
           f"NCCL, {TP_TRAIN['steps']} steps of {TP_TRAIN['batch']} x "
@@ -4739,7 +4851,8 @@ def main(argv=None) -> int:
     run("ssm train", train_phase, seed, rows)
     run("ssm route + decode",
         lambda: (route_phase(seed), decode_phase(seed, rows)))
-    run("dense train", dense_train_phase, seed, rows)
+    dense = run("dense train", dense_train_phase, seed, rows)
+    run("dryrun", dryrun_phase, dense)
     for arch in (DENSE_ARCH, *C12_ARCHS):
         run(f"route {arch}", dense_route_phase, seed, arch)
     run("dense decode", dense_decode_phase, seed)

@@ -39,7 +39,7 @@ from repro_torch.collectives.comm import Comm, GridComm
 from repro_torch.collectives.engine import (CollectiveEngine,
                                             find_calibrated_topology)
 from repro_torch.core.model import TPU_V5E_AXIS, Fabric, FabricTopology
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, resolve_or_meta
 
 _FabricKey = Union[Fabric, FabricTopology]
 _ENGINES: Dict[Tuple[_FabricKey, str], CollectiveEngine] = {}
@@ -50,7 +50,7 @@ def get_engine(fabric: _FabricKey = TPU_V5E_AXIS,
                device: DeviceLike = None) -> CollectiveEngine:
     """Process-wide engine for a fabric (or fabric topology) on a device
     type (shared decision cache).  ``device`` defaults to CUDA and
-    raises without a GPU.
+    raises without a GPU; ``"meta"`` is the dry-run's.
 
     The first time the stock default fabric is requested, the port's
     cache directory is checked for a calibrated v3 ``FabricTopology``
@@ -60,7 +60,7 @@ def get_engine(fabric: _FabricKey = TPU_V5E_AXIS,
     constants, whatever a calibration left in the cache.  An explicitly
     requested ``FabricTopology`` key is never overridden.  ``set_engine``
     installs another."""
-    dev = resolve_device(device)
+    dev = resolve_or_meta(device)
     with _ENGINES_LOCK:
         key = (fabric, dev.type)
         eng = _ENGINES.get(key)

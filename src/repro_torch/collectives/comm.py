@@ -22,6 +22,10 @@ Two backends:
 * :class:`ProcessGroupComm` runs over ``torch.distributed``: one process
   per rank, NCCL on cards and gloo on the CPU.
 
+The dry-run's :class:`CountingGridComm` is one rank of a grid on the
+meta device: every native returns the shape it would, and a
+:class:`CollectiveCounter` records calls and bytes.
+
 A ``Comm`` is made for CUDA unless the caller passes ``device="cpu"``;
 without a GPU that raises (``repro_torch.device.resolve_device``).
 """
@@ -648,6 +652,126 @@ class ProcessGroupGrid(GridComm):
             [ordered.index(m) for m in members], axis)
 
 
+# ---------------------------------------------------------------------- #
+# a counting grid: the dry-run's communicator
+# ---------------------------------------------------------------------- #
+#: each native's name in a compiled module's HLO
+#: (``launch.roofline.COLLECTIVE_OPS``)
+HLO_OPS = {"ppermute": "collective-permute", "psum": "all-reduce",
+           "psum_scatter": "reduce-scatter", "all_gather": "all-gather",
+           "all_to_all": "all-to-all"}
+
+
+def _axis_label(axis: AxisName) -> str:
+    if axis is None:
+        return ""
+    return axis if isinstance(axis, str) else ",".join(axis)
+
+
+class CollectiveCounter:
+    """Calls and bytes of the natives one rank's comms ran, by HLO op
+    name and by axis (a folded subset's names joined by commas).  A
+    call's bytes are its result's, as ``launch.roofline.
+    parse_collective_bytes`` counts a compiled module's result shapes, so
+    :meth:`ops` is what ``collective_total`` and ``roofline_terms``
+    take."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.by_axis: Dict[str, Dict[str, Dict[str, float]]] = {}
+
+    def add(self, native: str, axis: AxisName, nbytes: int) -> None:
+        with self._lock:
+            ops = self.by_axis.setdefault(_axis_label(axis), {})
+            slot = ops.setdefault(HLO_OPS[native], {"bytes": 0.0,
+                                                    "count": 0})
+            slot["bytes"] += float(nbytes)
+            slot["count"] += 1
+
+    def ops(self) -> Dict[str, Dict[str, float]]:
+        """{HLO op: {"bytes", "count"}} over every axis, every op keyed."""
+        out = {op: {"bytes": 0.0, "count": 0} for op in HLO_OPS.values()}
+        with self._lock:
+            for ops in self.by_axis.values():
+                for op, slot in ops.items():
+                    out[op]["bytes"] += slot["bytes"]
+                    out[op]["count"] += slot["count"]
+        return out
+
+
+class CountingComm(Comm):
+    """A comm that records every native it runs in a
+    :class:`CollectiveCounter`.  Around another comm (``inner``) it runs
+    that comm's natives; alone it is a meta comm: each native returns a
+    meta tensor of the shape and dtype :class:`LocalComm` returns, after
+    the same checks of its arguments."""
+
+    def __init__(self, counter: CollectiveCounter, rank: int, size: int,
+                 device: torch.device, axis: AxisName = None,
+                 inner: Optional[Comm] = None):
+        self.counter = counter
+        self.rank, self.size = rank, size
+        self.device, self.axis = device, axis
+        self.inner = inner
+
+    def _run(self, native: str, x: torch.Tensor, shape, *args
+             ) -> torch.Tensor:
+        self._check(x)
+        if self.inner is not None:
+            out = getattr(self.inner, native)(x, *args)
+        else:
+            out = x.new_empty(shape)
+        self.counter.add(native, self.axis, out.numel() * out.element_size())
+        return out
+
+    def ppermute(self, x: torch.Tensor, pairs: Pairs) -> torch.Tensor:
+        _recv_source(pairs, self.rank, self.size)
+        return self._run("ppermute", x, x.shape, pairs)
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        return self._run("psum", x, x.shape)
+
+    def psum_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        return self._run("psum_scatter", x,
+                         _chunks(x, self.size)[0].shape)
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        return self._run("all_gather", x,
+                         (x.shape[0] * self.size,) + tuple(x.shape[1:]))
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        _chunks(x, self.size)
+        return self._run("all_to_all", x, x.shape)
+
+
+class CountingGridComm(GridComm):
+    """A grid whose every sub-comm is a :class:`CountingComm` on one
+    :class:`CollectiveCounter` (``counter``).  Built from a shape it is
+    one rank of a meta grid (no peers, nothing allocated: the dry-run
+    sizes one rank's step of a production grid so); :meth:`around`
+    counts what another grid's rank runs (a test holds the two counts
+    equal)."""
+
+    def __init__(self, shape: Sequence[int], names: Sequence[str],
+                 rank: int = 0, *, inner: Optional[GridComm] = None):
+        device = torch.device("meta") if inner is None else inner.device
+        super().__init__(names, shape, rank, device)
+        self.inner = inner
+        self.counter = CollectiveCounter()
+
+    @classmethod
+    def around(cls, grid: GridComm) -> "CountingGridComm":
+        """This rank of ``grid``, counted."""
+        return cls(grid.shape, grid.axis_names, grid.rank, inner=grid)
+
+    def _make_sub(self, members, sub_rank, axis) -> Comm:
+        key = (axis,) if isinstance(axis, str) else tuple(axis)
+        inner = None if self.inner is None else self.inner.sub(key)
+        return CountingComm(self.counter, sub_rank, len(members),
+                            self.device, axis, inner)
+
+
 __all__ = ["Comm", "LocalComm", "ProcessGroupComm", "GridComm",
-           "LocalGridComm", "ProcessGroupGrid", "run_local",
+           "CollectiveCounter", "CountingComm", "CountingGridComm",
+           "HLO_OPS", "LocalGridComm", "ProcessGroupGrid", "run_local",
            "run_local_grid", "single_rank_grid", "DEFAULT_TIMEOUT"]

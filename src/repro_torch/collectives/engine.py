@@ -91,7 +91,7 @@ from repro_torch.core import selector
 from repro_torch.core.autogen import autogen_tree, cache_dir, compute_tables
 from repro_torch.core.model import (Fabric, FabricTopology, TPU_V5E_AXIS,
                                     as_topology, ceil_div)
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, resolve_or_meta
 from repro_torch.obs import trace as obs_trace
 
 #: one model "element" on the TPU fabric (512-byte flit group).  A TPU
@@ -374,13 +374,15 @@ class CollectiveEngine:
     sites share one decision cache.  ``device`` defaults to CUDA (and
     raises without a GPU); every op refuses tensors on another device
     type, so the engine never runs on the CPU unless it was made for it.
+    An engine on the meta device runs the dry-run's counting grid
+    (``comm.CountingGridComm``): the same decisions and plans on shapes.
     """
 
     def __init__(self, fabric: "Fabric | FabricTopology" = TPU_V5E_AXIS,
                  cache_path: Optional[str] = None, persist: bool = True,
                  element_bytes: int = ICI_ELEMENT_BYTES,
                  device: DeviceLike = None):
-        self.device = resolve_device(device)
+        self.device = resolve_or_meta(device)
         self.topology = as_topology(fabric)
         self.element_bytes = element_bytes
         self._persist = persist

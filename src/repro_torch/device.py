@@ -3,7 +3,8 @@
 Every public entry point takes a ``device`` argument.  ``None`` means
 ``"cuda"``: the port targets the GPU, and a missing GPU is an error, not
 a reason to carry on quietly on the CPU.  The CPU runs only when the
-caller asks for it, as the tests do.
+caller asks for it, as the tests do.  The meta device is taken only
+where a dry-run needs it (:func:`resolve_or_meta`).
 """
 
 from __future__ import annotations
@@ -31,4 +32,13 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
-__all__ = ["DeviceLike", "resolve_device"]
+def resolve_or_meta(device: DeviceLike = None) -> torch.device:
+    """:func:`resolve_device`, except that the meta device passes: shapes
+    and dtypes with nothing allocated (the dry-run sizes a step so,
+    ``repro_torch.launch.dryrun``)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)
+
+
+__all__ = ["DeviceLike", "resolve_device", "resolve_or_meta"]

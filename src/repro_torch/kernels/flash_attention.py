@@ -137,14 +137,34 @@ flash_attention_cuda.launches = 0
 flash_attention_cuda.variant_launches = dict.fromkeys(VARIANTS, 0)
 
 
+@torch.library.custom_op("repro_torch::flash_attention_meta",
+                         mutates_args=())
+def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool, window: Optional[int]
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's shape-only body on meta tensors: (o, lse) as
+    ``flash_attention_cuda`` allocates them, nothing launched or counted
+    (the dry-run sizes the card's route so, ``launch.dryrun``).  One
+    operator, so a dispatch mode sees what the kernel reads and writes."""
+    raise ValueError("flash_attention_meta takes meta tensors only")
+
+
+@flash_attention_meta.register_fake
+def _(q, k, v, causal, window):
+    b, h, s, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, h, s), dtype=torch.float32)
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """The kernel forward, saving q, k, v, o and lse; the backward is the
     plain flash backward (``ref.flash_attention_bwd_ref``), each gradient
-    cast to its input's dtype."""
+    cast to its input's dtype.  On meta tensors the forward is
+    :func:`flash_attention_meta`, saving the same tensors."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: Optional[int]):
-        o, lse = flash_attention_cuda(q, k, v, causal, window)
+        launch = flash_attention_meta if q.is_meta else flash_attention_cuda
+        o, lse = launch(q, k, v, causal, window)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.window = causal, window
         return o
@@ -158,4 +178,4 @@ class FlashAttentionFn(torch.autograd.Function):
 
 
 __all__ = ["FlashAttentionFn", "HEAD_DIMS", "VARIANTS", "flash_attention_cuda",
-           "flash_variant"]
+           "flash_attention_meta", "flash_variant"]

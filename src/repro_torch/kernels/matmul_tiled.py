@@ -100,14 +100,29 @@ matmul_tiled_cuda.launches = 0
 matmul_tiled_cuda.variant_launches = dict.fromkeys(VARIANTS, 0)
 
 
+@torch.library.custom_op("repro_torch::matmul_tiled_meta", mutates_args=())
+def matmul_tiled_meta(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The kernel's shape-only body on meta tensors: the ``[M, N]``
+    output, nothing launched or counted (``launch.dryrun``)."""
+    raise ValueError("matmul_tiled_meta takes meta tensors only")
+
+
+@matmul_tiled_meta.register_fake
+def _(x, w):
+    return x.new_empty((x.shape[0], w.shape[1]))
+
+
 class MatmulTiledFn(torch.autograd.Function):
     """The kernel forward with the reference's dense backward
     (``repro/kernels/fused_matmul_rs.py::_mm_bwd``): the products in
-    float32, each gradient cast to its input's dtype."""
+    float32, each gradient cast to its input's dtype.  On meta tensors
+    the forward is :func:`matmul_tiled_meta`."""
 
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
+        if x.is_meta:
+            return matmul_tiled_meta(x, w)
         return matmul_tiled_cuda(x, w)
 
     @staticmethod
@@ -120,4 +135,4 @@ class MatmulTiledFn(torch.autograd.Function):
 
 
 __all__ = ["MatmulTiledFn", "VARIANTS", "matmul_tiled_cuda",
-           "matmul_variant"]
+           "matmul_tiled_meta", "matmul_variant"]

@@ -5,6 +5,14 @@ plain PyTorch version (``repro_torch.kernels.ref``), a CUDA tensor
 launches the hand-written kernel, which raises on what it does not
 take.  No path falls back to the other.  (The reference picks Pallas
 interpret mode the same way, in ``repro/kernels/ops.py``.)
+
+A meta tensor takes the kernel route of the model paths' kernels
+(flash, paged, the scans, ``matmul_tiled``) with each kernel's
+shape-only body (``*_meta``): the outputs, and for the differentiable
+kernels the saved tensors, that the card's route allocates, with
+nothing launched or counted.  The dry-run (``launch.dryrun``) sizes a
+step's memory so; :func:`on_card_route` is the models' test for that
+route.
 """
 
 from __future__ import annotations
@@ -30,6 +38,12 @@ WRAPPERS = {"paged_attention": _pa.paged_attention,
             "multi_add": _ma.multi_add,
             "matmul_tiled": _mt.matmul_tiled_cuda,
             "flash_attention": _fa.flash_attention_cuda}
+
+
+def on_card_route(x: torch.Tensor) -> bool:
+    """Whether ``x`` takes the kernels' route: a CUDA tensor (the
+    kernels) or a meta tensor (their shape-only bodies)."""
+    return x.device.type in ("cuda", "meta")
 
 
 def multi_add(stacked: torch.Tensor) -> torch.Tensor:
@@ -70,6 +84,9 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, block_tables,
                                    lengths)
+    if q.is_meta:
+        return _pa.paged_attention_meta(q, k_pages, v_pages, block_tables,
+                                        lengths)
     return _pa.paged_attention(q, k_pages, v_pages, block_tables, lengths)
 
 
@@ -86,6 +103,8 @@ def selective_scan(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
         return selective_scan_ref(dt, x, b, c, a, h0)
     if trainable:
         return _ss.selective_scan_trainable(dt, x, b, c, a, h0)
+    if x.is_meta:
+        return _ss.selective_scan_meta(dt, x, b, c, a, h0)
     return _ss.selective_scan(dt, x, b, c, a, h0)
 
 
@@ -110,6 +129,6 @@ def reset_launch_counts() -> None:
 
 __all__ = ["WRAPPERS", "flash_attention", "flash_attention_ref",
            "launch_counts", "matmul_tiled", "matmul_tiled_ref",
-           "multi_add", "multi_add_ref", "paged_attention",
+           "multi_add", "multi_add_ref", "on_card_route", "paged_attention",
            "paged_attention_ref", "reset_launch_counts", "selective_scan",
            "selective_scan_ref", "variant_launch_counts"]

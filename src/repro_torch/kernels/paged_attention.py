@@ -244,6 +244,24 @@ def describe(q: torch.Tensor, k_pages: torch.Tensor,
 paged_attention.launches = 0
 
 
+@torch.library.custom_op("repro_torch::paged_attention_meta",
+                         mutates_args=())
+def paged_attention_meta(q: torch.Tensor, k_pages: torch.Tensor,
+                         v_pages: torch.Tensor, block_tables: torch.Tensor,
+                         lengths: torch.Tensor) -> torch.Tensor:
+    """The kernel's shape-only body on meta tensors: the [B, H, D]
+    output, nothing launched or counted (``launch.dryrun``).  The splits'
+    float32 scratch is left out: its size follows the card's occupancy
+    (``plan_splits``), which a meta tensor has no card to ask."""
+    raise ValueError("paged_attention_meta takes meta tensors only")
+
+
+@paged_attention_meta.register_fake
+def _(q, k_pages, v_pages, block_tables, lengths):
+    return torch.empty_like(q)
+
+
 __all__ = ["MAX_BLOCK_SIZE", "MAX_HEAD_DIM", "MAX_SPLITS",
-           "MAX_SPLIT_BLOCKS", "describe", "paged_attention", "plan_splits",
+           "MAX_SPLIT_BLOCKS", "describe", "paged_attention",
+           "paged_attention_meta", "plan_splits",
            "slots", "split_plan"]

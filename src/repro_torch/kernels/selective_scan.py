@@ -34,6 +34,12 @@ import torch
 from repro_torch.kernels import build
 
 MAX_STATE = 16
+#: csrc/selective_scan.cu's kChunk (steps a checkpoint) and kBwdChannels
+#: (channels a backward block): the meta bodies' shapes.  A call on the
+#: card reads them from the library (``selective_scan_chunk()``,
+#: ``selective_scan_channels()``)
+CKPT_CHUNK = 32
+BWD_CHANNELS = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _F32 = (torch.float32,)
 
@@ -175,6 +181,12 @@ def selective_scan_bwd(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
         n, _stream(x))
     _raise_on(name, err)
     build.count_launch(selective_scan_bwd)
+    return _sum_partials(ddt, dx, db_part, dc_part, da_part, dh0)
+
+
+def _sum_partials(ddt, dx, db_part, dc_part, da_part, dh0):
+    """The backward kernel's outputs with its partials of db / dc (over
+    channel blocks) and dA (over the batch) summed."""
     return (ddt, dx, db_part.sum(dim=1), dc_part.sum(dim=1),
             da_part.sum(dim=0), dh0)
 
@@ -199,14 +211,79 @@ selective_scan_fwd_ckpt.launches = 0
 selective_scan_bwd.launches = 0
 
 
+# ---------------------------------------------------------------------- #
+# shape-only bodies on meta tensors (the dry-run sizes the card's route
+# so, ``launch.dryrun``): the outputs and scratch each wrapper allocates,
+# nothing launched or counted; one operator each, so a dispatch mode sees
+# what the kernel reads and writes
+# ---------------------------------------------------------------------- #
+@torch.library.custom_op("repro_torch::selective_scan_meta", mutates_args=())
+def selective_scan_meta(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
+                        c: torch.Tensor, a: torch.Tensor, h0: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`selective_scan`'s (y, h_final)."""
+    raise ValueError("selective_scan_meta takes meta tensors only")
+
+
+@selective_scan_meta.register_fake
+def _(dt, x, b, c, a, h0):
+    return torch.empty_like(x), torch.empty_like(h0)
+
+
+@torch.library.custom_op("repro_torch::selective_scan_fwd_ckpt_meta",
+                         mutates_args=())
+def selective_scan_fwd_ckpt_meta(dt: torch.Tensor, x: torch.Tensor,
+                                 b: torch.Tensor, c: torch.Tensor,
+                                 a: torch.Tensor, h0: torch.Tensor
+                                 ) -> Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]:
+    """:func:`selective_scan_fwd_ckpt`'s (y, h_final, hck)."""
+    raise ValueError("selective_scan_fwd_ckpt_meta takes meta tensors only")
+
+
+@selective_scan_fwd_ckpt_meta.register_fake
+def _(dt, x, b, c, a, h0):
+    bsz, s, d = x.shape
+    hck = x.new_empty((bsz, -(-s // CKPT_CHUNK), d, h0.shape[-1]),
+                      dtype=torch.float32)
+    return torch.empty_like(x), torch.empty_like(h0), hck
+
+
+@torch.library.custom_op("repro_torch::selective_scan_bwd_meta",
+                         mutates_args=())
+def selective_scan_bwd_meta(dt: torch.Tensor, x: torch.Tensor,
+                            b: torch.Tensor, c: torch.Tensor,
+                            a: torch.Tensor, hck: torch.Tensor,
+                            dy: torch.Tensor, dh_final: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor, torch.Tensor,
+                                       torch.Tensor, torch.Tensor]:
+    """:func:`selective_scan_bwd`'s kernel outputs, its partials unsummed
+    (ddt, dx, db_part, dc_part, da_part, dh0)."""
+    raise ValueError("selective_scan_bwd_meta takes meta tensors only")
+
+
+@selective_scan_bwd_meta.register_fake
+def _(dt, x, b, c, a, hck, dy, dh_final):
+    bsz, s, d = x.shape
+    part = x.new_empty((bsz, -(-d // BWD_CHANNELS), s, dh_final.shape[-1]),
+                       dtype=torch.float32)
+    return (torch.empty_like(x), torch.empty_like(x), part,
+            torch.empty_like(part), torch.empty_like(dh_final),
+            torch.empty_like(dh_final))
+
+
 class SelectiveScanFn(torch.autograd.Function):
     """Differentiable scan: the forward saves only the chunk-start states
     (``selective_scan_fwd_ckpt``); the backward recomputes within chunks
-    (``selective_scan_bwd``)."""
+    (``selective_scan_bwd``).  On meta tensors both are the shape-only
+    bodies, saving the same tensors."""
 
     @staticmethod
     def forward(ctx, dt, x, b, c, a, h0):
-        y, h_final, hck = selective_scan_fwd_ckpt(dt, x, b, c, a, h0)
+        fwd = (selective_scan_fwd_ckpt_meta if x.is_meta
+               else selective_scan_fwd_ckpt)
+        y, h_final, hck = fwd(dt, x, b, c, a, h0)
         ctx.save_for_backward(dt, x, b, c, a, hck)
         return y, h_final
 
@@ -220,6 +297,9 @@ class SelectiveScanFn(torch.autograd.Function):
         dh_final = (torch.zeros((bsz, d, a.shape[1]), dtype=torch.float32,
                                 device=x.device) if dh_final is None
                     else dh_final.float().contiguous())
+        if x.is_meta:
+            return _sum_partials(*selective_scan_bwd_meta(
+                dt, x, b, c, a, hck, dy, dh_final))
         return selective_scan_bwd(dt, x, b, c, a, hck, dy, dh_final)
 
 
@@ -235,6 +315,8 @@ def selective_scan_trainable(dt: torch.Tensor, x: torch.Tensor,
     return SelectiveScanFn.apply(dt, x, b, c, a, h0)
 
 
-__all__ = ["MAX_STATE", "SelectiveScanFn", "describe", "selective_scan",
-           "selective_scan_bwd", "selective_scan_fwd_ckpt",
+__all__ = ["BWD_CHANNELS", "CKPT_CHUNK", "MAX_STATE", "SelectiveScanFn",
+           "describe", "selective_scan", "selective_scan_bwd",
+           "selective_scan_bwd_meta", "selective_scan_fwd_ckpt",
+           "selective_scan_fwd_ckpt_meta", "selective_scan_meta",
            "selective_scan_trainable"]

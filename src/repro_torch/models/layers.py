@@ -201,10 +201,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``use_kernel`` picks the chunked branch's route: the kernel route
     (``True``, or ``None`` on a CUDA tensor) launches the flash kernel on
-    a CUDA tensor; the plain route (``False``, or ``None`` on the CPU) and
-    every CPU tensor take the plain chunked path.  The kernel does not
-    round the probabilities to bf16, so ``probs_bf16`` on the kernel
-    route raises."""
+    a CUDA tensor (its shape-only body on a meta one,
+    ``ops.on_card_route``); the plain route (``False``, or ``None`` on the
+    CPU) and every CPU tensor take the plain chunked path.  The kernel
+    does not round the probabilities to bf16, so ``probs_bf16`` on the
+    kernel route raises."""
     _, sq, h, _ = q.shape
     hkv = k.shape[2]
     group = h // hkv
@@ -216,7 +217,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if sq % min(FLASH_CHUNK, sq):
             raise ValueError(f"attention: sequence {sq} is not a multiple "
                              f"of the KV chunk {FLASH_CHUNK}")
-        on_card = q.device.type == "cuda"
+        on_card = ops.on_card_route(q)
         if use_kernel is None:
             use_kernel = on_card
         if use_kernel and probs_bf16:

@@ -49,7 +49,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, resolve_or_meta
 from repro_torch.kernels.ops import paged_attention
 from repro_torch.models.layers import (apply_rope, copy_to_model,
                                       model_parallel, reduce_from_model,
@@ -70,12 +70,13 @@ def supports_paged(cfg: ArchConfig) -> bool:
 def init_pages(cfg: ArchConfig, num_blocks: int, block_size: int,
                device: DeviceLike = None, tp: int = 1) -> Pages:
     """Zeroed physical block pool (block 0 is the scratch sink); ``tp``:
-    one rank's pool of a model axis of that size (its kv heads)."""
+    one rank's pool of a model axis of that size (its kv heads);
+    ``device="meta"`` gives the shapes only."""
     if not supports_paged(cfg):
         raise NotImplementedError(
             f"paged KV cache covers families {PAGED_FAMILIES}, not "
             f"{cfg.family!r}")
-    dev = resolve_device(device)
+    dev = resolve_or_meta(device)
     shape = (cfg.num_layers, num_blocks, block_size,
              local_kv_heads(cfg, tp), cfg.resolved_head_dim)
     dtype = cfg.activation_dtype

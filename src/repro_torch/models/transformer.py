@@ -89,7 +89,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, resolve_or_meta
+from repro_torch.kernels import ops
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
@@ -99,8 +100,9 @@ from repro_torch.models.layers import (_ambient_grid, _direct_attention,
                                       copy_to_model, flash_decode,
                                       fused_tp_enabled, gather_from_model,
                                       model_parallel,
-                                      reduce_from_model, rms_norm, swiglu,
-                                      use_flash_decode)
+                                      reduce_from_model,
+                                      refuse_cuda_thread_backward, rms_norm,
+                                      swiglu, use_flash_decode)
 from repro_torch.sharding.rules import _kv_replicated
 
 Params = Dict[str, Any]
@@ -191,10 +193,11 @@ INIT_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
 def kernel_route(params: Params, use_kernel: Optional[bool]) -> bool:
     """``use_kernel``, or, when it is None, whether the parameters live
     on a CUDA device: the kernels run on the card, their plain versions
-    on the CPU."""
+    on the CPU.  A meta tree takes the card's route (the kernels'
+    shape-only bodies, ``ops.on_card_route``)."""
     if use_kernel is not None:
         return use_kernel
-    return params["embed"].device.type == "cuda"
+    return ops.on_card_route(params["embed"])
 
 
 def init_params(cfg: ArchConfig, seed: int = 0,
@@ -210,10 +213,8 @@ def init_params(cfg: ArchConfig, seed: int = 0,
     if cfg.family not in INIT_FAMILIES:
         raise ValueError(f"init_params: unknown family {cfg.family!r}")
     gen = None
-    if device is not None and torch.device(device).type == "meta":
-        dev = torch.device("meta")
-    else:
-        dev = resolve_device(device)
+    dev = resolve_or_meta(device)
+    if dev.type != "meta":
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
     dtype = cfg.activation_dtype
@@ -755,6 +756,13 @@ def _forward_train(params: Params, cfg: ArchConfig, batch: Dict[str, Any],
     soft = batch.get("soft_emb")
     x = _embed(params, cfg, batch["tokens"], soft)
     grid = _ambient_grid()
+    if (remat and _tp() is not None and torch.is_grad_enabled()
+            and x.requires_grad):
+        # the layers' copy_to_model would refuse a backward it cannot run
+        # (C15) inside torch's checkpoint, leaving its generator suspended
+        # with saved-tensor hooks pushed on this thread (ROADMAP C34):
+        # refuse before the first checkpoint
+        refuse_cuda_thread_backward(x, _tp(), "the tensor-parallel block")
     if (remat and torch.is_grad_enabled() and fused_tp_enabled()
             and x.device.type == "cuda" and grid is not None
             and "model" in grid.axis_names
@@ -815,8 +823,9 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
     K/V and the cross K/V {"enc_k", "enc_v": [L, B, enc_len, Hkv, hd]};
     each with "pos", an int32 scalar on the CPU.  ``tp``: one rank's
     cache of a model axis of that size (its kv heads, SSM channels and
-    RG-LRU width)."""
-    dev = resolve_device(device)
+    RG-LRU width).  ``device="meta"`` gives the shapes only (the
+    dry-run's cache, ``launch.specs.decode_cache_specs``)."""
+    dev = resolve_or_meta(device)
     dtype, n = cfg.activation_dtype, cfg.num_layers
     kvh = local_kv_heads(cfg, tp)
     pos = torch.zeros((), dtype=torch.int32)

@@ -382,13 +382,14 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
     return train_step
 
 
-def make_prefill_step(cfg: ArchConfig):
+def make_prefill_step(cfg: ArchConfig, use_kernel: Optional[bool] = None):
     """``prefill_step(params, batch) -> (logits, cache)``; on a CUDA
     device the SSM's scan takes the forward-only kernel and the dense
-    family's long-prompt attention the flash kernel."""
+    family's long-prompt attention the flash kernel (``use_kernel``, as
+    ``make_train_step``'s)."""
     @torch.no_grad()
     def prefill_step(params, batch):
-        return tf.prefill(params, cfg, batch)
+        return tf.prefill(params, cfg, batch, use_kernel=use_kernel)
     return prefill_step
 
 

@@ -52,7 +52,8 @@ def test_port_imports_neither_jax_nor_repro():
     n_modules = int(proc.stdout.split()[0])
     assert n_modules >= 71, proc.stdout
     names = set(proc.stdout.splitlines()[1].split())
-    for name in ("checkpoint", "checkpoint.manager", "launch.mesh", "runtime",
+    for name in ("checkpoint", "checkpoint.manager", "launch.dryrun",
+                 "launch.mesh", "launch.specs", "runtime",
                  "runtime.fault_tolerance", "launch.roofline",
                  "serving.fleet", "serving.fleet.admission",
                  "serving.fleet.fleet", "serving.fleet.replica",

@@ -342,3 +342,43 @@ def test_cpu_backward_runs_on_the_calling_thread():
         t.join(timeout=30)
     assert not any(t.is_alive() for t in threads)
     assert len(set(callers)) == 2 and sorted(seen) == sorted(callers)
+
+
+def test_tp_refusal_comes_before_the_remat_checkpoint(monkeypatch):
+    """ROADMAP C34: a C15 refusal raised inside a checkpointed layer leaves
+    torch's checkpoint generator suspended, its saved-tensor hooks pushed
+    on the rank thread.  ``forward_train`` on a rank's tree refuses the
+    backward it cannot run before it enters the first checkpoint (the
+    refusal made to fire on the CPU here; it fires on CUDA rank threads
+    only)."""
+    from repro_torch.models import forward_train
+    from repro_torch.models import transformer as tf
+    from repro_torch.sharding.rules import shard_params
+    from repro_torch.tree import tree_map
+
+    def refuse(x, grid, what):
+        raise NotImplementedError(f"{what}: refused (C15)")
+
+    entered = []
+    real = tf.checkpoint
+    monkeypatch.setattr(tf, "checkpoint",
+                        lambda *a, **k: entered.append(1) or real(*a, **k))
+    monkeypatch.setattr(tf, "refuse_cuda_thread_backward", refuse)
+    monkeypatch.setattr(layers, "refuse_cuda_thread_backward", refuse)
+    cfg = get_config("yi-34b").reduced()
+    params = init_params(cfg, seed=0, device="cpu")
+    tokens = torch.zeros((1, 8), dtype=torch.int32)
+
+    def rank(grid, remat):
+        local = tree_map(lambda t: t.detach().requires_grad_(),
+                         shard_params(params, cfg, grid))
+        with layers.ambient_grid(grid):
+            return forward_train(local, cfg, {"tokens": tokens},
+                                 remat=remat)
+
+    for remat in (True, False):
+        with pytest.raises(NotImplementedError, match="C15"):
+            run_local_grid(lambda g: rank(g, remat), (2,), ("model",),
+                           "cpu", timeout=60)
+    assert entered == []
+
