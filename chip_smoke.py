@@ -84,7 +84,7 @@
    the teacher-forced forward;
 14. data-parallel train phase: ``minicpm-2b`` at its published width
    with 2 of its 40 layers on a 2 x 2 (pod, data) grid of rank threads,
-   1 x 4096 tokens a rank, 3 bf16 steps of ``make_train_step(grad_sync=
+   1 x 4096 tokens a rank, 2 bf16 steps of ``make_train_step(grad_sync=
    GradSyncConfig(...))`` in each sync mode (bucketed allreduce, fsdp,
    fsdp fused): the memory reckoned first, then the loss, step wall,
    tokens/s, peak memory, the per-bucket plans, the engine's plan hits
@@ -200,44 +200,56 @@
    64) rejects only at the cap, each rejection with a retry-after hint,
    every admitted request with all its tokens;
 26. tp block phase (after phase 23): the block sharded over "model"
-   (``sharding.rules.shard_params``): ``yi-34b`` at its published width
-   and depth (60 layers, 56/8 heads x 128, 34.389 B parameters, bf16,
-   random weights from ``--seed``) once on the card, each of 4 model-rank
-   threads holding views of its shards (14/2 heads, d_ff 5120, 16000
-   words of the vocabulary): 2 x 4096 prompts through
-   ``make_prefill_step`` (4 wgmma flash launches a layer) and 16 greedy
-   ``make_decode_step`` steps over head-sharded caches against the
+   (``sharding.rules.shard_params``), forward only on model-rank threads
+   of the card sharing one weight set (bf16, random weights from
+   ``--seed``): ``yi-34b`` at its published width with 30 of its 60
+   layers on 4 threads (14/2 heads x 128 a rank: the kv heads cut),
+   ``minicpm-2b`` at its published width and depth on 8 (36/36 heads x
+   64 padded to 40/40: 5 a rank, ``sharding.rules.padded_heads``) and
+   ``yi-34b`` at its published width with 8 layers on 16 (56/8 padded to
+   64/8: 4 q heads and one kv head a rank).  Each: 2 x 4096 prompts
+   through ``make_prefill_step`` (one wgmma flash launch a layer a rank
+   at the per-rank heads) and greedy ``make_decode_step`` steps (16 at
+   TP-4, 4 at TP-8 and TP-16) over head-sharded caches against the
    single rank's on the same weights (tokens identical but at logged
-   near-ties, logits within 16 bf16 ulps of the largest); the paged
-   route (a 2 x 512 chunk, 8 ``decode_step_paged`` steps through the
-   paged kernel, 4 launches a layer a step, per-rank pools); a no-grad
-   ``forward_train`` at 2 x 4096 (loss and each rank's block of the
-   logits); each rank's bytes of weights, cache and pool against 1/4 of
-   the single rank's; float32 route checks of the sharded block through
-   the kernels against the single rank's plain route (1 x 4096, 1e-4):
-   ``yi-34b`` at 2 layers, ``olmoe-1b-7b`` (16 experts a rank),
-   ``falcon-mamba-7b`` (di 2048 a rank, the scan kernel), the hybrid's
-   first cycle and tail, ``whisper-medium`` at 2 + 2 layers.  The flash
-   and paged kernels at the per-rank shapes are among phase 2's cases;
+   near-ties, logits within 16 bf16 ulps of the largest); each rank's
+   bytes of weights and cache against the (padded) 1/m; the paged route
+   of ``yi-34b`` TP-4 (8 steps, the GQA ``paged_mma`` at 14/2 heads a
+   rank) and ``minicpm-2b`` TP-8 (4 steps, 5/5 heads a rank): a 2 x 512
+   chunk, then ``decode_step_paged`` steps through the paged kernel,
+   per-rank pools; a no-grad ``forward_train`` of ``yi-34b`` TP-4 at 2 x
+   4096 (the loss through the vocabulary-parallel cross entropy, and
+   each rank's block of the logits).  Then float32 route checks of the
+   sharded block at TP-4 through the kernels against the single rank's
+   plain route (1 x 4096, 1e-4): ``yi-34b`` at 2 layers, ``olmoe-1b-7b``
+   (16 experts a rank), ``falcon-mamba-7b`` (di 2048 a rank, the scan
+   kernel), the hybrid's first cycle and tail, ``whisper-medium`` at 2 +
+   2 layers.  The flash and paged kernels at the per-rank shapes are
+   among phase 2's cases;
 27. dryrun phase (after phase 11, host only): ``launch.dryrun`` sizes
    every (arch x shape) cell of the 16 x 16 grid as one rank's sharded
-   step on meta tensors (4 processes), and one cell of the 2 x 16 x 16
-   grid: 20 ``ok``, 8 ``skipped`` (``long_500k`` of the attention
-   archs) and 12 ``refused`` (the 56- and 36-head archs, ROADMAP C33),
-   none ``failed``, each ``ok`` cell's predicted peak against the card
-   and its H100 bound; then its prediction of phase 11's step (one rank,
-   the same depth, batch and sequence) is held against the peak phase
-   11 measured (``max_memory_allocated``): within 10 % or 1 GB.
+   step on meta tensors, its tree cut over "data" too (8 processes, the
+   host's cores), and one cell of the 2 x 16 x 16 grid: 32 ``ok`` (the
+   56- and 36-head archs with their heads padded), 8 ``skipped``
+   (``long_500k`` of the attention archs), none ``refused`` or
+   ``failed``, each ``ok`` cell's
+   predicted peak against the card, its H100 bound and its padding; then
+   its prediction of phase 11's step (one rank, the same depth, batch and
+   sequence) is held against the peak phase 11 measured
+   (``max_memory_allocated``): within 10 % or 1 GB.
 
 Phase 10 (NCCL, two or more cards) also times neighbour shifts over
 NCCL and runs ``calibrate(grid=)`` one process a card (the NVLink
 constants, persisted in a cache directory of the phase's own), trains
 the sharded block one process a card (``--tp-train-worker``: ``yi-34b``
-at full width, 4 layers, TP over 2 or 4 cards, 2 steps; the loss and the
-leaves whole on every rank bitwise equal across the ranks, the loss
-within 2e-2 of the single rank's step, peak memory against the
-reckoning, and the dry-run's prediction of that peak within 10 % or 1
-GB), and ends
+at full width, 4 layers, 2 steps: TP over the four cards on the 4 x
+2048 global batch, then on a (data 2, model 2) grid, 2 x 2048 rows a
+data rank, the tree whole over "data" and then cut over it (ZeRO-3);
+the loss and the leaves whole on every rank bitwise equal across the
+ranks, the loss within 2e-2 of the single rank's step on the 4 x 2048
+batch, each peak against the reckoning and the dry-run's prediction for
+that grid within 10 % or 1 GB, the data cut's below the other's), and
+ends
 with the trainer under torchrun with ``--arch olmoe-1b-7b --reduced
 --dp --moe-ep`` (EP with a backward), the loss equal on both ranks.
 
@@ -326,8 +338,10 @@ from repro_torch.serving.fleet import (AdmissionConfig,  # noqa: E402
                                        FleetServer, ROUTER_POLICIES,
                                        arrival_waves)
 from repro_torch.serving.telemetry import export_to_registry  # noqa: E402
-from repro_torch.sharding.rules import (model_sharded_leaves,  # noqa
-                                        shard_for_rank, shard_params)
+from repro_torch.models.transformer import local_kv_heads  # noqa: E402
+from repro_torch.sharding.rules import (grad_sync_axes_for_grid,  # noqa
+                                        padded_heads, shard_for_rank,
+                                        shard_params, tree_cuts)
 from repro_torch.train.state import (init_train_state,  # noqa: E402
                                      rank_state_bytes)
 from repro_torch.train.step import (GradSyncConfig,  # noqa: E402
@@ -458,7 +472,11 @@ FLASH_CASES = (("minicpm-2b train layer", 2, 36, 36, 4096, 64, True, None),
                ("yi-34b TP-4 rank layer (14/2 heads)", 2, 14, 2, 4096, 128,
                 True, None),
                ("olmoe-1b-7b TP-4 rank layer (4/4 heads)", 2, 4, 4, 4096,
-                128, True, None))
+                128, True, None),
+               ("minicpm-2b TP-8 rank layer (5/5 heads of 40/40 padded)", 2,
+                5, 5, 4096, 64, True, None),
+               ("yi-34b TP-16 rank layer (4/1 heads of 64/8 padded)", 2, 4,
+                1, 4096, 128, True, None))
 #: kernel vs plain lse (float32 sums of up to 4096 terms in other
 #: orders, lse of magnitude ~10): 1e-4 absolute
 LSE_TOL = 1e-4
@@ -560,11 +578,12 @@ MATMUL_CASES = (("one ring step of the fused phase", 1024, 2560, 7168,
                  "(minicpm-2b, TP 8)", 1024, 720, 2304, torch.bfloat16))
 #: data-parallel training: minicpm-2b at full width with 2 of its 40
 #: layers on a 2 x 2 (pod, data) grid of rank threads on the one card,
-#: 1 x 4096 tokens a rank, 3 bf16 steps per sync mode; the float32 check
+#: 1 x 4096 tokens a rank, 2 bf16 steps per sync mode (the allreduce
+#: mode's ~10.5 k thread barriers take ~25 s a step); the float32 check
 #: is one step at 1 layer of each mode against the plain single-rank step
 #: on the same global batch (microbatches = the ranks)
 DP_ARCH = "minicpm-2b"
-DP_TRAIN = dict(grid=(2, 2), layers=2, rows=1, seq=4096, steps=3, lr=3e-4,
+DP_TRAIN = dict(grid=(2, 2), layers=2, rows=1, seq=4096, steps=2, lr=3e-4,
                 check_layers=1, check_steps=2)
 DP_MODES = (("allreduce", False), ("fsdp", False), ("fsdp", True))
 #: the DP check's bounds on every parameter (tests/test_engine.py:431)
@@ -584,16 +603,30 @@ TP_DECODE = dict(tp=8, layers=2, batch=2, prompt=4096, new_tokens=8,
 #: float32 sum once, at most one bf16 ulp (2^-7 of the value) apart
 MM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
-#: the block sharded over "model" (``sharding.rules.shard_params``): yi-34b
-#: at full width and depth on 4 model-rank threads sharing one weight set;
-#: prompts past 2048 positions, where the reference's dispatch (and the
-#: port's) takes the chunked branch, the flash kernel's route: 2 x 4096,
-#: 16 greedy steps; the paged route's prefill chunk is 2 x 512 (its
-#: gathered attention materialises a chunk's logits), then 8 decode steps
-#: through the paged kernel
+#: the block sharded over "model" (``sharding.rules.shard_params``) on
+#: model-rank threads sharing one weight set (``TP_CASES``): yi-34b at
+#: full width with 30 of its 60 layers on 4 (14/2 heads a rank: the kv
+#: heads cut, the GQA paged kernel) with its paged route and a no-grad
+#: ``forward_train``; then at model axes the heads do not divide, padded
+#: (``padded_heads``): minicpm-2b at full width and depth on 8 (36/36
+#: heads padded to 40/40, 5 a rank) with its paged route, yi-34b at full
+#: width with 8 layers on 16 (56/8 padded to 64/8: 4 q heads a rank and
+#: its group's kv head; the padded wq / wo blocks are copies, and 60
+#: layers of them would not fit beside the whole tree).  Prompts past
+#: 2048 positions, where the reference's dispatch (and the port's) takes
+#: the chunked branch, the flash kernel's route: 2 x 4096; the paged
+#: route's prefill chunk is 2 x 512 (its gathered attention materialises
+#: a chunk's logits), then decode steps through the paged kernel.  The
+#: greedy and paged steps are few where many threads decode (8 threads
+#: take ~4.8 s a step on the card's host: the phase's wall)
 TP_ARCH = "yi-34b"
-TP_BLOCK = dict(tp=4, batch=2, prompt=4096, new_tokens=16, headroom=16,
-                paged_prompt=512, paged_steps=8, block_size=16)
+TP_BLOCK = dict(batch=2, prompt=4096, headroom=16, paged_prompt=512,
+                block_size=16)
+#: (arch, model axis, layers or None: full depth, greedy steps, paged
+#: route steps or 0: none, the no-grad ``forward_train`` too)
+TP_CASES = (("yi-34b", 4, 30, 16, 8, True),
+            ("minicpm-2b", 8, None, 4, 4, False),
+            ("yi-34b", 16, 8, 4, 0, False))
 #: the sharded route's bf16 logits against the single rank's: 2 bf16 ulps
 #: of the largest logit at one layer (the tp decode phase's bound), the
 #: sharded route adding 2 roundings of a 4-way sum a layer; as independent
@@ -609,17 +642,22 @@ TP_BF16_ULPS = 16
 #: layers: one pattern cycle, whose third block is the local attention)
 TP_ROUTE = (("yi-34b", 2), ("olmoe-1b-7b", 2), ("falcon-mamba-7b", 2),
             ("recurrentgemma-9b", 1), ("whisper-medium", 2))
+TP_ROUTE_TP = 4
 TP_ROUTE_TOL = 1e-4
 #: the sharded train step one process a card over NCCL: yi-34b at full
-#: width with 4 layers, TP over every card (2 or 4), 2 steps of 2 x 2048
+#: width with 4 layers, 2 steps, on a ("model",) grid of every card (the 4
+#: x 2048 global batch on each) and on a ("data", "model") grid of (2,
+#: cards / 2) (2 x 2048 rows a data rank), the tree whole over "data" and
+#: then cut over it (ZeRO-3), each held to the single rank's step on the
+#: global batch and its peak to the dry-run's prediction
 TP_TRAIN = dict(layers=4, batch=2, seq=2048, steps=2, lr=3e-4)
-#: the dry-run's sweep of the 16 x 16 grid: its status counts, the archs
-#: whose heads the model axis of 16 cannot cut (ROADMAP C33: refused in
-#: every shape but long_500k, which they skip), the processes it runs in
-#: (host work on meta tensors) and one cell of the 2 x 16 x 16 grid
-DRYRUN_COUNTS = {"ok": 20, "skipped": 8, "refused": 12, "failed": 0}
-DRYRUN_C33 = ("arctic-480b", "llava-next-34b", "minicpm-2b", "yi-34b")
-DRYRUN_WORKERS = 4
+#: the dry-run's sweep of the 16 x 16 grid: its status counts (the archs
+#: whose heads the model axis of 16 does not divide padded, ``DRYRUN_
+#: PADDED``: none refused), the processes it runs in (host work on meta
+#: tensors) and one cell of the 2 x 16 x 16 grid
+DRYRUN_COUNTS = {"ok": 32, "skipped": 8, "refused": 0, "failed": 0}
+DRYRUN_PADDED = ("arctic-480b", "llava-next-34b", "minicpm-2b", "yi-34b")
+DRYRUN_WORKERS = 8
 DRYRUN_MULTIPOD = ("mistral-nemo-12b", "train_4k")
 #: a predicted peak against the card's measured one: 10 % or 1 GB
 DRYRUN_TOL = (0.10, 1e9)
@@ -859,6 +897,9 @@ PAGED_CASES = (
      torch.bfloat16, True),
     ("yi-34b TP-4 rank decode (14/2 heads a rank, llava's rows)", 8, 14, 2,
      128, 16, 480, [577, 650, 700, 733, 820, 871, 900, 944],
+     torch.bfloat16, True),
+    ("minicpm-2b TP-8 rank decode (5/5 heads of 40/40 padded, the serving "
+     "rows)", 8, 5, 5, 64, 16, 201, [1, 0, 37, 100, 157, 211, 290, 383],
      torch.bfloat16, True),
 )
 
@@ -1889,14 +1930,15 @@ def dryrun_within(predicted: float, measured: float) -> bool:
 
 
 def dryrun_prediction(arch: str, layers: int, batch: int, seq: int,
-                      grid) -> dict:
+                      grid, fsdp: bool = True) -> dict:
     """``launch.dryrun``'s record of one rank's train step of ``arch`` at
-    ``layers`` layers, ``batch`` x ``seq`` tokens (remat, AdamW) on
-    ``grid`` (shape, axis names): the step a phase runs on the card."""
+    ``layers`` layers, ``batch`` x ``seq`` tokens (the global batch; remat,
+    AdamW) on ``grid`` (shape, axis names), with ``fsdp`` its tree cut
+    over "data" too: the step a phase runs on the card."""
     shape = ShapeSpec(f"{batch}x{seq}", seq, batch, "train")
     cfg = with_layer_units(get_config(arch), layers)
     rec = dryrun.run_cell(arch, shape, f"{arch} on the card", grid=grid,
-                          save=False,
+                          save=False, fsdp=fsdp,
                           levers={"num_layers": cfg.num_layers,
                                   "encoder_layers": cfg.encoder_layers})
     assert rec["status"] == "ok", rec
@@ -1913,23 +1955,28 @@ def dryrun_phase(dense: dict) -> None:
                                workers=DRYRUN_WORKERS, save=False)
     sweep_s = time.perf_counter() - t0
     counts = dryrun.status_counts(records)
-    refused = sorted((r["arch"], r["shape"]) for r in records
-                     if r["status"] == "refused")
-    want = sorted((a, s) for a in DRYRUN_C33 for s in SHAPES
-                  if s != "long_500k")
     log(f"dryrun pod (16 x 16) sweep: {counts} in {sweep_s:.1f} s on "
-        f"{DRYRUN_WORKERS} host processes; refused {refused}")
+        f"{DRYRUN_WORKERS} host processes (the tree cut over \"data\" too)")
     assert counts == DRYRUN_COUNTS, counts
-    assert refused == want, refused
+    padded = sorted({r["arch"] for r in records if r["status"] == "ok"
+                     and r["padding"] is not None
+                     and r["padding"]["heads"] != r["padding"][
+                         "padded_heads"]})
+    assert padded == sorted(DRYRUN_PADDED), padded
     for r in records:
         if r["status"] == "ok":
-            h = r["roofline_h100"]
+            h, pad = r["roofline_h100"], r["padding"]
             log(f"dryrun {r['arch']} x {r['shape']} (pod): one rank's peak "
                 f"{r['memory']['peak_memory_in_bytes'] / 1e9:.3f} GB of "
                 f"{dryrun.CARD_BYTES / 1e9:.3f} (fits {r['fits']}) | H100 "
                 f"bound {h['bound_s'] * 1e3:.3f} ms ({h['bound_by']}): "
                 f"{r['cost']['flops']:.4e} FLOP, "
-                f"{r['cost']['bytes accessed']:.4e} bytes")
+                f"{r['cost']['bytes accessed']:.4e} bytes"
+                + ("" if pad is None or pad["heads"] == pad["padded_heads"]
+                   else f" | heads {pad['heads']} padded to "
+                   f"{pad['padded_heads']}: {pad['pad_flops_share']:.1%} of "
+                   f"the attention FLOPs, {pad['pad_bytes_share']:.1%} of "
+                   f"its bytes on pad heads"))
     t1 = time.perf_counter()
     (mp,) = dryrun.run_cells([DRYRUN_MULTIPOD], "multipod", log=log,
                              save=False)
@@ -3578,10 +3625,10 @@ def _tree_bytes(tree) -> int:
     return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
 
 
-def tp_block_greedy(params, cfg, prompt, grid):
-    """Prefill, the cache padded (a rank's tree: its kv heads), greedy
-    decode steps; (tokens, the logits of every step, the padded cache's
-    bytes, prefill wall, decode wall)."""
+def tp_block_greedy(params, cfg, prompt, grid, n_steps: int):
+    """Prefill, the cache padded (a rank's tree: its kv heads), ``n_steps``
+    greedy decode steps; (tokens, the logits of every step, the padded
+    cache's bytes, prefill wall, decode wall)."""
     with ambient_grid(grid):
         if grid is not None:
             params = shard_params(params, cfg, grid)
@@ -3596,7 +3643,7 @@ def tp_block_greedy(params, cfg, prompt, grid):
         decode = make_decode_step(cfg)
         steps, toks = [logits[:, -1]], []
         t0 = time.perf_counter()
-        for _ in range(TP_BLOCK["new_tokens"]):
+        for _ in range(n_steps):
             nxt = steps[-1].argmax(-1, keepdim=True).to(torch.int32)
             toks.append(nxt)
             logits, cache = decode(params, cache, {"tokens": nxt})
@@ -3608,13 +3655,13 @@ def tp_block_greedy(params, cfg, prompt, grid):
             t_decode)
 
 
-def tp_paged_greedy(params, cfg, prompt, grid, tp: int):
+def tp_paged_greedy(params, cfg, prompt, grid, tp: int, n_steps: int):
     """The paged route: the prompt as one prefill chunk (gathered
-    attention), then greedy steps of ``decode_step_paged`` through the
-    paged kernel, each rank on its pool of its kv heads; (tokens, logits
-    of every step, the pool's bytes)."""
+    attention), then ``n_steps`` greedy steps of ``decode_step_paged``
+    through the paged kernel, each rank on its pool of its kv heads;
+    (tokens, logits of every step, the pool's bytes)."""
     b, s = prompt.shape
-    bs, n_steps = TP_BLOCK["block_size"], TP_BLOCK["paged_steps"]
+    bs = TP_BLOCK["block_size"]
     m = -(-(s + n_steps) // bs)
     pages = init_pages(cfg, 1 + b * m, bs, device="cuda", tp=tp)
     bt = (1 + torch.arange(b * m, dtype=torch.int32,
@@ -3699,113 +3746,142 @@ def tp_route_check(seed: int, arch: str, units: int, tp: int) -> str:
             + f") {counts} err {max(errs):.3e}")
 
 
-def tp_block_phase(seed: int, rows: dict) -> None:
-    """The block sharded over "model" on ``TP_BLOCK["tp"]`` rank threads
-    of one card: yi-34b at full width and depth, one weight set on the
-    card (each rank's tree views of it), prefill + greedy decode, the
-    paged route and a no-grad ``forward_train`` against the single rank on
-    the same weights; then float32 route checks of every family."""
-    tp = TP_BLOCK["tp"]
-    cfg = get_config(TP_ARCH)
+def tp_case(seed: int, rows: dict, arch: str, tp: int, layers,
+            n_steps: int, paged_steps: int, train: bool) -> None:
+    """One config of the tp block phase: ``arch`` (``layers`` layers, or
+    its full depth) on ``tp`` model-rank threads of the card, its heads
+    padded to the axis where it does not divide them; one weight set on
+    the card (each rank's tree views of it, padded blocks copies); prefill
+    + ``n_steps`` greedy decode steps against the single rank on the same
+    weights, ``paged_steps`` of the paged route, and with ``train`` a
+    no-grad ``forward_train`` and loss."""
+    cfg = get_config(arch)
+    if layers:
+        cfg = with_layer_units(cfg, layers)
     b, s = TP_BLOCK["batch"], TP_BLOCK["prompt"]
-    weights_gb = cfg.param_count() * 2 / 1e9
-    free, total = torch.cuda.mem_get_info()
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    hp, kvp = padded_heads(cfg, tp)
+    hl, kvl = hp // tp, local_kv_heads(cfg, tp)
     want_rank = rank_state_bytes(cfg, tp)["params"]
-    log(f"tp block {TP_ARCH}: {cfg.num_layers} layers at full width, "
-        f"{cfg.num_heads}/{cfg.num_kv_heads} heads x "
-        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
-        f"{cfg.param_count() / 1e9:.3f}B params, {weights_gb:.2f} GB bf16 "
-        f"once on the card ({free / 1e9:.1f} of {total / 1e9:.1f} GB free) "
-        f"shared by {tp} model-rank threads; reckoned a rank's tree "
+    free, total = torch.cuda.mem_get_info()
+    log(f"tp block {arch}: {cfg.num_layers} layers at full width, {h}/{kv} "
+        f"heads x {cfg.resolved_head_dim} padded to {hp}/{kvp} over a model "
+        f"axis of {tp} ({hl}/{kvl} heads a rank), "
+        f"{cfg.param_count() / 1e9:.3f}B params, "
+        f"{cfg.param_count() * 2 / 1e9:.2f} GB bf16 once on "
+        f"the card ({free / 1e9:.1f} of {total / 1e9:.1f} GB free) shared by "
+        f"{tp} model-rank threads; reckoned a rank's tree "
         f"{want_rank / 1e9:.3f} GB (1/{tp} of each leaf the layout cuts, "
-        f"norms whole)")
+        f"its pad heads included, norms whole)")
     params = init_params(cfg, seed=seed, device="cuda")
     prompt = lm_batch(cfg, b, s, 3, seed)["tokens"]
 
     # prefill + greedy decode: the single rank, then the sharded block
     ops.reset_launch_counts()
     want_toks, want_logits, single_cache, ts_pre, ts_dec = tp_block_greedy(
-        params, cfg, prompt, None)
+        params, cfg, prompt, None, n_steps)
     assert ops.launch_counts()["flash_attention"] == cfg.num_layers
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    out = _tp_threads(lambda g: tp_block_greedy(params, cfg, prompt, g), tp)
+    out = _tp_threads(lambda g: tp_block_greedy(params, cfg, prompt, g,
+                                                n_steps), tp)
     t_tp = time.perf_counter() - t0
     counts = ops.launch_counts()
     want = dict.fromkeys(ops.WRAPPERS, 0)
     want["flash_attention"] = tp * cfg.num_layers
     assert counts == want, (counts, want)
-    assert ops.variant_launch_counts()["flash_attention"]["wgmma"] == \
-        tp * cfg.num_layers
+    variants = {k: n for k, n in ops.variant_launch_counts()[
+        "flash_attention"].items() if n}
+    assert variants == {flash_variant(torch.bfloat16,
+                                      cfg.resolved_head_dim):
+                        tp * cfg.num_layers}, variants
     rows["flash_attention"]["launches"] += counts["flash_attention"]
     tol = TP_BF16_ULPS * float(bf16_ulp(want_logits.float().abs().max()))
-    res = [compare_streams("tp block", want_toks, want_logits, toks, logits,
-                           tol) for toks, logits, *_ in out]
+    res = [compare_streams(f"tp block {arch}", want_toks, want_logits, toks,
+                           logits, tol) for toks, logits, *_ in out]
     rank_cache = out[0][2]
-    assert rank_cache * tp == single_cache, (rank_cache, single_cache)
-    local = shard_for_rank(params, cfg, tp, 1)
+    # a rank's cache holds its kv heads (the padded ones too)
+    assert rank_cache * kv == single_cache * kvl, (rank_cache, single_cache)
+    local = shard_for_rank(params, cfg, tp, tp - 1)
     assert _tree_bytes(local) == want_rank, (_tree_bytes(local), want_rank)
     del local
     parted = [(p, m) for _, p, m in res if p is not None]
-    log(f"tp block prefill + decode ({b} x {s} prompt, flash launches "
-        f"{counts['flash_attention']} = {tp} ranks x {cfg.num_layers} "
-        f"layers, all wgmma at {cfg.num_heads // tp}/"
-        f"{cfg.num_kv_heads // tp} heads a rank; {TP_BLOCK['new_tokens']} "
-        f"greedy steps over head-sharded caches): tokens "
+    log(f"tp block {arch} TP-{tp} prefill + decode ({b} x {s} prompt, flash "
+        f"launches {counts['flash_attention']} = {tp} ranks x "
+        f"{cfg.num_layers} layers, {variants} at {hl}/{kvl} heads a rank; "
+        f"{n_steps} greedy steps over head-sharded caches): "
+        f"tokens "
         + ("identical to the single rank's on every rank" if not parted else
            f"part from the single rank's at near-ties {parted} (step, "
            f"top-two margin)")
         + f" | logits max_abs_err {max(r[0] for r in res):.3e} (tol "
         f"{tol:.3e}: {TP_BF16_ULPS} bf16 ulps of the largest logit) | a "
-        f"rank's tree {want_rank / 1e9:.3f} GB of views and its padded "
-        f"cache {rank_cache / 1e9:.4f} GB = 1/{tp} of the single rank's "
-        f"{single_cache / 1e9:.4f} GB | host walls: single rank prefill "
-        f"{ts_pre * 1e3:.1f} ms, decode {ts_dec * 1e3:.1f} ms; {tp} rank "
-        f"threads prefill {max(o[3] for o in out) * 1e3:.1f} ms, decode "
-        f"{max(o[4] for o in out) * 1e3:.1f} ms, whole "
-        f"{t_tp * 1e3:.1f} ms ({THREADS_NOTE})")
+        f"rank's tree {want_rank / 1e9:.3f} GB (padded 1/{tp}) and its "
+        f"padded cache {rank_cache / 1e9:.4f} GB = {kvl}/{kv} of the single "
+        f"rank's {single_cache / 1e9:.4f} GB | host walls: single rank "
+        f"prefill {ts_pre * 1e3:.1f} ms, decode {ts_dec * 1e3:.1f} ms; {tp} "
+        f"rank threads prefill {max(o[3] for o in out) * 1e3:.1f} ms, decode "
+        f"{max(o[4] for o in out) * 1e3:.1f} ms, whole {t_tp * 1e3:.1f} ms "
+        f"({THREADS_NOTE})")
     del out, want_logits
     torch.cuda.empty_cache()
+    if paged_steps:
+        tp_paged_case(rows, params, cfg, prompt, tp, paged_steps)
+    if train:
+        tp_forward_train_case(rows, params, cfg, tp, seed)
+    del params
+    torch.cuda.empty_cache()
 
-    # the paged route, each rank's pool of its kv heads
+
+def tp_paged_case(rows: dict, params, cfg, prompt, tp: int,
+                  n_steps: int) -> None:
+    """The paged route of :func:`tp_case`, each rank's pool of its
+    (padded) kv heads, against the single rank's."""
+    arch, b = cfg.name, TP_BLOCK["batch"]
+    kv, kvl = cfg.num_kv_heads, local_kv_heads(cfg, tp)
+    hl = padded_heads(cfg, tp)[0] // tp
     pp = prompt[:, :TP_BLOCK["paged_prompt"]].contiguous()
     want_toks, want_logits, single_pool = tp_paged_greedy(params, cfg, pp,
-                                                          None, 1)
+                                                          None, 1, n_steps)
     ops.reset_launch_counts()
-    out = _tp_threads(lambda g: tp_paged_greedy(params, cfg, pp, g, tp), tp)
+    out = _tp_threads(lambda g: tp_paged_greedy(params, cfg, pp, g, tp,
+                                                n_steps), tp)
     counts = ops.launch_counts()
-    n_paged = tp * cfg.num_layers * TP_BLOCK["paged_steps"]
+    n_paged = tp * cfg.num_layers * n_steps
     assert counts["paged_attention"] == n_paged, counts
     rows["paged_attention"]["launches"] += counts["paged_attention"]
-    info = pa.describe(torch.empty(b, cfg.num_heads // tp,
-                                   cfg.resolved_head_dim,
+    info = pa.describe(torch.empty(b, hl, cfg.resolved_head_dim,
                                    dtype=torch.bfloat16, device="cuda"),
-                       torch.empty(2, TP_BLOCK["block_size"],
-                                   cfg.num_kv_heads // tp,
+                       torch.empty(2, TP_BLOCK["block_size"], kvl,
                                    cfg.resolved_head_dim,
                                    dtype=torch.bfloat16, device="cuda"),
                        torch.zeros(b, 1, dtype=torch.int32, device="cuda"))
     tol = TP_BF16_ULPS * float(bf16_ulp(want_logits.float().abs().max()))
-    res = [compare_streams("tp paged", want_toks, want_logits, toks, logits,
-                           tol) for toks, logits, _ in out]
-    assert out[0][2] * tp == single_pool, (out[0][2], single_pool)
+    res = [compare_streams(f"tp paged {arch}", want_toks, want_logits, toks,
+                           logits, tol) for toks, logits, _ in out]
+    assert out[0][2] * kv == single_pool * kvl, (out[0][2], single_pool)
     parted = [(p, m) for _, p, m in res if p is not None]
-    log(f"tp block paged route ({b} x {TP_BLOCK['paged_prompt']} prefill "
-        f"chunk, {TP_BLOCK['paged_steps']} decode steps): paged_attention "
-        f"launches {counts['paged_attention']} = {tp} ranks x "
-        f"{cfg.num_layers} layers x {TP_BLOCK['paged_steps']} steps "
-        f"({info['kernel']} at {cfg.num_heads // tp}/"
-        f"{cfg.num_kv_heads // tp} heads a rank) | tokens "
+    log(f"tp block {arch} TP-{tp} paged route ({b} x "
+        f"{TP_BLOCK['paged_prompt']} prefill chunk, {n_steps} decode steps): "
+        f"paged_attention launches {counts['paged_attention']} = {tp} ranks "
+        f"x {cfg.num_layers} layers x {n_steps} steps "
+        f"({info['kernel']} at {hl}/{kvl} heads a rank) | tokens "
         + ("identical to the single rank's" if not parted else
            f"part at near-ties {parted}")
         + f" | logits max_abs_err {max(r[0] for r in res):.3e} (tol "
-        f"{tol:.3e}) | a rank's pool {out[0][2] / 1e9:.4f} GB = 1/{tp} of "
-        f"{single_pool / 1e9:.4f} GB")
+        f"{tol:.3e}) | a rank's pool {out[0][2] / 1e9:.4f} GB = {kvl}/{kv} "
+        f"of {single_pool / 1e9:.4f} GB")
     del out, want_logits
     torch.cuda.empty_cache()
 
-    # forward_train without grad: the loss and each rank's logits block
+
+def tp_forward_train_case(rows: dict, params, cfg, tp: int,
+                          seed: int) -> None:
+    """``forward_train`` without grad on each rank's tree of :func:`tp_case`
+    (the vocabulary-parallel cross entropy of ``loss_fn`` too): the loss
+    and each rank's block of the logits against the single rank's."""
+    b, s = TP_BLOCK["batch"], TP_BLOCK["prompt"]
     batch = lm_batch(cfg, b, s, 4, seed)
     inputs = {"tokens": batch["tokens"]}
     with torch.no_grad():
@@ -3832,24 +3908,32 @@ def tp_block_phase(seed: int, rows: dict) -> None:
     assert len(set(losses)) == 1, losses
     d_loss = abs(losses[0] - want_loss)
     assert max(o[1] for o in out) <= tol and d_loss <= 2 * tol, (out, tol)
-    log(f"tp block forward_train (no grad, {b} x {s}): loss "
-        f"{losses[0]:.6f} on every rank vs the single rank's {want_loss:.6f}"
-        f" (|diff| {d_loss:.3e}, tol {2 * tol:.3e}: twice the logits' "
-        f"tol) | each rank's block of the vocabulary's logits max_abs_err "
-        f"{max(o[1] for o in out):.3e} (tol {tol:.3e}) | flash launches "
-        f"{counts['flash_attention']} (loss and logits: 2 forwards x {tp} "
-        f"ranks x {cfg.num_layers} layers)")
-    del params, want_logits, out
+    log(f"tp block {cfg.name} TP-{tp} forward_train (no grad, {b} x {s}): "
+        f"loss {losses[0]:.6f} on every rank vs the single rank's "
+        f"{want_loss:.6f} (|diff| {d_loss:.3e}, tol {2 * tol:.3e}: twice "
+        f"the logits' tol) | each rank's block of the vocabulary's logits "
+        f"max_abs_err {max(o[1] for o in out):.3e} (tol {tol:.3e}) | flash "
+        f"launches {counts['flash_attention']} (loss and logits: 2 forwards "
+        f"x {tp} ranks x {cfg.num_layers} layers)")
+    del want_logits, out
     torch.cuda.empty_cache()
+
+
+def tp_block_phase(seed: int, rows: dict) -> None:
+    """The block sharded over "model" on rank threads of one card, forward
+    only (ROADMAP C15): ``TP_CASES``, the model axes its heads do not
+    divide padded; then float32 route checks of every family at TP-4."""
+    for case in TP_CASES:
+        tp_case(seed, rows, *case)
 
     # float32 route checks, every family
     ops.reset_launch_counts()
-    notes = [tp_route_check(seed, arch, units, tp)
+    notes = [tp_route_check(seed, arch, units, TP_ROUTE_TP)
              for arch, units in TP_ROUTE]
-    log(f"tp block float32 route checks (the sharded block on {tp} threads "
-        f"through the kernels vs the single rank's plain route, 1 x 4096, "
-        f"max |err| / max |plain|, tol {TP_ROUTE_TOL:.0e}): "
-        + " | ".join(notes))
+    log(f"tp block float32 route checks (the sharded block on "
+        f"{TP_ROUTE_TP} threads through the kernels vs the single rank's "
+        f"plain route, 1 x 4096, max |err| / max |plain|, tol "
+        f"{TP_ROUTE_TOL:.0e}): " + " | ".join(notes))
 
 
 # ------------------------------ MoE phases ------------------------------ #
@@ -3973,11 +4057,9 @@ def ep_forward_phase(seed: int) -> None:
                                  (grid.axes_index(dp) + 1) * per)
                     ep_axes = moe_ep._ep_axes_for(grid)
                     spec = ep_axes if len(ep_axes) > 1 else ep_axes[0]
-                    fsdp = ("data" if "data" in names
-                            and "data" not in ep_axes else None)
                     lp = params["layers"][0]
                     held = moe.expert_weights(grid, lp["eg"], lp["eu"],
-                                              lp["ed"], spec, fsdp)
+                                              lp["ed"], spec)
                     outs = []
                     with torch.no_grad(), ambient_grid(grid):
                         for h, lp in zip(inputs, params["layers"]):
@@ -4541,81 +4623,131 @@ def nccl_worker(rank: int, world: int, init: str, seed: int) -> int:
 
 def tp_train_worker(rank: int, world: int, init: str, seed: int) -> int:
     """One rank of the sharded train step over NCCL, on card ``rank``:
-    rank 0 first runs the single-rank step on the whole tree; then every
-    rank runs the step on its shards of the same weights (a (world,)
-    "model" grid, ``ProcessGroupGrid``): the loss and every leaf whole on
-    each rank bitwise equal across the ranks, the loss within the bf16
-    tolerance of the single rank's, the peak memory against the
-    reckoning."""
+    rank 0 first runs the single-rank step on the whole tree over the
+    global batch; then every rank runs the step on its shards of the same
+    weights (``ProcessGroupGrid``), on a ("model",) grid of every card
+    (the global batch on each) and, with 4 cards or more, on a ("data",
+    "model") grid of (2, world / 2), its data rank's rows, with the tree
+    whole over "data" and then cut over it (ZeRO-3): the loss bitwise
+    equal on every rank and within the bf16 tolerance of the single
+    rank's, the leaves whole on every rank bitwise equal across the
+    ranks, each run's peak within 10 % or 1 GB of the dry-run's
+    prediction for its grid, the data cut's below the peak of the step
+    whole over "data"."""
     torch.distributed.init_process_group("nccl", init_method=init,
                                          rank=rank, world_size=world)
     dev = torch.device(f"cuda:{rank}")
     torch.cuda.set_device(dev)
-    grid = ProcessGroupGrid((world,), ("model",), device=dev)
-    comm = grid.sub("model")
     cfg = with_layer_units(get_config(TP_ARCH), TP_TRAIN["layers"])
     opt_cfg = AdamWConfig(lr=TP_TRAIN["lr"], warmup_steps=1, total_steps=10)
-    batches = [lm_batch(cfg, TP_TRAIN["batch"], TP_TRAIN["seq"], i, seed)
-               for i in range(TP_TRAIN["steps"])]
-    step = make_train_step(cfg, opt_cfg)
+    n_global = 2 if world >= 4 else 1
+    batches = [lm_batch(cfg, TP_TRAIN["batch"] * n_global, TP_TRAIN["seq"],
+                        i, seed) for i in range(TP_TRAIN["steps"])]
     single = torch.zeros(TP_TRAIN["steps"], device=dev)
     if rank == 0:
+        step = make_train_step(cfg, opt_cfg)
         state = init_train_state(init_params(cfg, seed=seed, device=dev))
         for i, batch in enumerate(batches):
             state, metrics = step(state, batch)
             single[i] = metrics["loss"]
         del state, metrics
         torch.cuda.empty_cache()
-    single = comm.psum(single)          # rank 0's, on every rank
-    torch.cuda.reset_peak_memory_stats(dev)
-    whole = init_params(cfg, seed=seed, device=dev)
-    local = tree_map(lambda t: t.clone(), shard_params(whole, cfg, grid))
-    del whole
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
-    state = init_train_state(local)
-    losses, walls = [], []
-    with ambient_grid(grid):
-        for batch in batches:
-            state, metrics, loss, wall = timed_step(step, state, batch)
-            losses.append(loss)
-            walls.append(wall)
-    peak = torch.cuda.max_memory_allocated(dev)
-    flags = model_sharded_leaves(state.params, cfg)
-    mine = torch.tensor(losses, device=dev)
-    assert torch.equal(comm.all_gather(mine[None]),
-                       mine[None].expand(world, -1)), "losses differ"
-    n_whole = 0
-    for leaf, cut in zip(tree_leaves(state.params), flags):
-        if not cut:
-            got = comm.all_gather(leaf[None].contiguous())
-            assert all(torch.equal(g, leaf) for g in got), "a leaf drifted"
-            n_whole += 1
-    tol = 2e-2 * float(single.abs().max())
-    d_loss = float((mine - single).abs().max())
-    assert d_loss <= tol, (losses, single.tolist(), tol)
-    want = rank_state_bytes(cfg, world)
-    reckoned = want["params"] * 2 + want["opt"]       # params, grads, moments
+    torch.distributed.all_reduce(single)      # rank 0's, on every rank
+    runs = [(((world,), ("model",)), False)]
+    if world >= 4:
+        grid2 = ((2, world // 2), ("data", "model"))
+        runs += [(grid2, False), (grid2, True)]
+    results = []
+    for (shape, names), data_cut in runs:
+        grid = ProcessGroupGrid(shape, names, device=dev)
+        everyone = grid.sub(names)
+        n_data = grid.axis_size("data") if "data" in names else 1
+        m = grid.axis_size("model")
+        rows = len(batches[0]["tokens"]) // n_data
+        d = grid.axis_index("data") if n_data > 1 else 0
+        mine = [{k: v[d * rows:(d + 1) * rows] for k, v in batch.items()}
+                for batch in batches]
+        gs = GradSyncConfig(grid=grid, axes=grad_sync_axes_for_grid(grid),
+                            mode="allreduce")
+        step = make_train_step(cfg, opt_cfg,
+                               grad_sync=gs if gs.axes else None)
+        whole = init_params(cfg, seed=seed, device=dev)
+        local = tree_map(lambda t: t.clone(),
+                         shard_params(whole, cfg, grid, data_cut=data_cut))
+        del whole
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        state = init_train_state(local)
+        del local
+        held = torch.cuda.memory_allocated(dev)        # the step's state
+        losses, walls = [], []
+        t0 = time.perf_counter()
+        with ambient_grid(grid):
+            for batch in mine:
+                state, metrics, loss, wall = timed_step(step, state, batch)
+                losses.append(loss)
+                walls.append(wall)
+            run_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated(dev)
+            cuts = tree_cuts(state.params, cfg)
+        cut = [a or b is not None for a, b in zip(cuts.model_cut,
+                                                  cuts.data_dims)]
+        got = torch.tensor(losses, device=dev)
+        assert torch.equal(everyone.all_gather(got[None]),
+                           got[None].expand(world, -1)), "losses differ"
+        n_whole = 0
+        for leaf, c in zip(tree_leaves(state.params), cut):
+            if not c:
+                gathered = everyone.all_gather(leaf[None].contiguous())
+                assert all(torch.equal(g, leaf) for g in gathered), \
+                    "a leaf drifted"
+                n_whole += 1
+        tol = 2e-2 * float(single.abs().max())
+        d_loss = float((got - single).abs().max())
+        assert d_loss <= tol, (losses, single.tolist(), tol)
+        want = rank_state_bytes(cfg, m, n=n_data if data_cut else 1)
+        reckoned = want["params"] * 2 + want["opt"]   # params, grads, moments
+        del state, metrics
+        torch.cuda.empty_cache()
+        results.append((shape, names, data_cut, rows, peak, reckoned,
+                        losses, walls, run_s, d_loss, tol, n_whole, held))
     torch.distributed.destroy_process_group()
-    predicted = dryrun_prediction(
-        TP_ARCH, TP_TRAIN["layers"], TP_TRAIN["batch"], TP_TRAIN["seq"],
-        ((world,), ("model",)))["memory"]["peak_memory_in_bytes"]
-    print(f"tp train rank {rank}/{world}: peak {peak / 1e9:.3f} GB vs the "
-          f"dry-run's {predicted / 1e9:.3f} GB: "
-          f"{(predicted - peak) / peak * 100:+.2f} % (tolerance 10 % or "
-          f"1 GB)", flush=True)
-    assert dryrun_within(predicted, peak), (predicted, peak)
-    print(f"tp train rank {rank}/{world}: {TP_ARCH} at full width, "
-          f"{cfg.num_layers} layers, TP-{world} one process a card over "
-          f"NCCL, {TP_TRAIN['steps']} steps of {TP_TRAIN['batch']} x "
-          f"{TP_TRAIN['seq']}: losses {losses} (single rank "
-          f"{[round(x, 6) for x in single.tolist()]}, max |diff| "
-          f"{d_loss:.3e}, tol {tol:.3e}: 2e-2 of the loss, ~5 bf16 ulps) | "
-          f"loss and {n_whole} leaves whole on every rank bitwise equal "
-          f"across the {world} ranks | step walls "
-          f"{[round(w * 1e3, 1) for w in walls]} ms | peak memory "
-          f"{peak / 1e9:.2f} GB vs reckoned {reckoned / 1e9:.2f} GB of "
-          f"params, grads and moments a rank (+ activations)", flush=True)
+    peaks = {}
+    for (shape, names, data_cut, rows, peak, reckoned, losses, walls, run_s,
+         d_loss, tol, n_whole, held) in results:
+        n_data = dict(zip(names, shape)).get("data", 1)
+        rec = dryrun_prediction(
+            TP_ARCH, TP_TRAIN["layers"], rows * n_data, TP_TRAIN["seq"],
+            (shape, names), fsdp=data_cut)["memory"]
+        predicted = rec["peak_memory_in_bytes"]
+        grid_s = " x ".join(f"{k} {v}" for k, v in zip(names, shape))
+        what = ("cut over data (ZeRO-3)" if data_cut else
+                "whole over data" if n_data > 1 else "cut over model only")
+        peaks[(shape, data_cut)] = peak
+        print(f"tp train rank {rank}/{world}: ({grid_s}) the tree {what}: "
+              f"peak {peak / 1e9:.3f} GB vs the dry-run's "
+              f"{predicted / 1e9:.3f} GB: "
+              f"{(predicted - peak) / peak * 100:+.2f} % (tolerance 10 % or "
+              f"1 GB) | the state before the step {held / 1e9:.3f} GB vs "
+              f"the dry-run's arguments "
+              f"{rec['argument_size_in_bytes'] / 1e9:.3f} GB", flush=True)
+        print(f"tp train rank {rank}/{world}: {TP_ARCH} at full width, "
+              f"{cfg.num_layers} layers, a ({grid_s}) grid one process a "
+              f"card over NCCL, the tree {what}, {TP_TRAIN['steps']} steps "
+              f"of {rows} x {TP_TRAIN['seq']} a rank: losses {losses} "
+              f"(single rank on the {rows * n_data} x {TP_TRAIN['seq']} "
+              f"batch {[round(x, 6) for x in single.tolist()]}, max |diff| "
+              f"{d_loss:.3e}, tol {tol:.3e}: 2e-2 of the loss, ~5 bf16 "
+              f"ulps) | loss on every rank and {n_whole} leaves whole on "
+              f"every rank bitwise equal across the {world} ranks | step "
+              f"walls {[round(w * 1e3, 1) for w in walls]} ms, "
+              f"{run_s:.3f} s for the {TP_TRAIN['steps']} steps | peak "
+              f"memory {peak / 1e9:.2f} GB vs reckoned {reckoned / 1e9:.2f} "
+              f"GB of params, grads and moments a rank (+ activations and "
+              f"gathered layers)", flush=True)
+        assert dryrun_within(predicted, peak), (what, predicted, peak)
+    if world >= 4:
+        assert peaks[(grid2[0], True)] < peaks[(grid2[0], False)], peaks
     return 0
 
 
@@ -4721,8 +4853,10 @@ def nccl_phase(seed: int) -> None:
         for line in out.splitlines():
             if line.startswith("tp train rank"):
                 log(line)
-    log(f"nccl phase: the sharded train step on {tp_world} cards passed in "
-        f"{time.perf_counter() - t0:.1f} s of host wall")
+    log(f"nccl phase: the sharded train step on {tp_world} cards (TP over "
+        f"every card, then a (data, model) grid, the tree whole over data "
+        f"and cut over it) passed in {time.perf_counter() - t0:.1f} s of "
+        f"host wall")
     # the DP trainer as users start it: one process a card under torchrun
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(root / "src"))

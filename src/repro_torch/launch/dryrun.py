@@ -9,16 +9,19 @@ meta tensors, so nothing is allocated and no device is needed; it runs
 on the host, as the reference's does:
 
 * the state is ``shard_train_state(abstract_train_state(cfg), cfg,
-  grid)`` (under ``fsdp`` the moments as the flat 1/P shards that
-  ``fsdp_sync_apply`` keeps from its first step on), the batch and the
-  decode cache a rank's rows (``launch.specs``);
+  grid, data_cut=fsdp)``: under ``fsdp`` (the default, the reference's
+  ``for_mesh(fsdp=True)``) the tree, its gradients and its moments are
+  cut over "data" too (ZeRO-3), for prefill and decode the tree too;
+  ``--no-fsdp`` keeps the tree whole over "data".  Heads the model axis
+  does not divide are padded (``sharding.rules.padded_heads``).  The
+  batch and the decode cache are a rank's rows (``launch.specs``);
 * the step is ``make_train_step(..., grad_sync=GradSyncConfig(grid,
-  axes=grad_sync_axes_for_grid(grid), mode="fsdp" | "allreduce"))``,
+  axes=grad_sync_axes_for_grid(grid), mode="allreduce"))``,
   ``make_prefill_step`` or ``make_decode_step``, under
   ``ambient_grid`` of a ``CountingGridComm``: the collectives on the
-  count are the engine's own plans (bucketed AllReduce, the FSDP
-  reduce-scatter and allgather, TP's two allreduces a block, EP's
-  AllToAll), not GSPMD's;
+  count are the engine's own plans (the data cut's per-layer allgathers
+  and reduce-scatters, bucketed AllReduce, TP's two allreduces a block,
+  EP's AllToAll), not GSPMD's;
 * **memory**: a dispatch mode counts live storage bytes (added when an
   operator returns a new storage, rounded up to the CUDA caching
   allocator's 512-byte blocks; dropped when the storage is freed) on
@@ -41,13 +44,16 @@ The record keeps the reference's keys.  ``roofline`` is priced by
 ``launch.roofline`` for a TPU v5e (labelled so: ROADMAP C8);
 ``roofline_h100`` is the data-sheet bound on one H100, max(FLOPs / 989e12,
 bytes / 3.35e12), with no collective term (no NVLink fit ships: C8).
-``fits`` holds the peak against one H100 80GB HBM3.  ``lower_s`` is
+``fits`` holds the peak against one H100 80GB HBM3.  ``padding`` holds
+the real and padded heads and the share of the attention's FLOPs and
+bytes a rank spends on pad heads (the reference's roofline shows
+GSPMD's padding as HLO FLOPs over model FLOPs).  ``lower_s`` is
 the wall of building the full-depth arguments, ``compile_s`` of the
 card-route passes, ``measure_s`` of the FLOP passes; keys without a
 counterpart (XLA's scan-once cost, the HLO's size) are null.  A cell
 ``cell_is_runnable`` rules out is ``skipped``; one whose model axis the
-execution layout cannot cut (``sharding.rules.exec_layout``) is
-``refused`` (ROADMAP C33); any other exception is ``failed``.
+execution layout can neither cut nor pad (``sharding.rules.
+exec_layout``) is ``refused``; any other exception is ``failed``.
 
 Usage (no device needed):
     PYTHONPATH=src python -m repro_torch.launch.dryrun \
@@ -66,6 +72,7 @@ import json
 import math
 import multiprocessing
 import os
+import sys
 import time
 import traceback
 import weakref
@@ -93,9 +100,8 @@ from repro_torch.optim.adamw import AdamWConfig, AdamWState
 from repro_torch.sharding import rules
 from repro_torch.train.state import (TrainState, abstract_train_state,
                                      shard_train_state)
-from repro_torch.train.step import (GradSyncConfig, fsdp_layout,
-                                    make_decode_step, make_prefill_step,
-                                    make_train_step)
+from repro_torch.train.step import (GradSyncConfig, make_decode_step,
+                                    make_prefill_step, make_train_step)
 from repro_torch.tree import tree_map
 
 _REPO = os.path.join(os.path.dirname(__file__), "..", "..", "..")
@@ -140,9 +146,12 @@ def _meta_tensors(tree: Any) -> List[torch.Tensor]:
 class _Meter(TorchDispatchMode):
     """Live and peak storage bytes of meta tensors, and bytes accessed,
     over the operators run under it.  The storages of ``args`` are live
-    from the start (the step's arguments)."""
+    from the start (the step's arguments).  With ``run`` (the code of the
+    function that calls the step) the peak is also kept for each
+    statement of the step that runs the operator (``phase_peaks``, by
+    line): each is linear in the depth, their max is not."""
 
-    def __init__(self, args: Any):
+    def __init__(self, args: Any, run: Any = None):
         super().__init__()
         self.live = 0
         self.accessed = 0
@@ -152,6 +161,16 @@ class _Meter(TorchDispatchMode):
             self.arguments.add(self._track(t))
         self.argument_bytes = self.live
         self.peak = self.live
+        self._run = run
+        self.phase_peaks: Dict[Optional[int], int] = {}
+
+    def _phase(self) -> Optional[int]:
+        """The line of the step's statement running now (the frame that
+        ``run`` called), or None."""
+        f = sys._getframe(2)
+        while f.f_back is not None and f.f_back.f_code is not self._run:
+            f = f.f_back
+        return None if f.f_back is None else f.f_lineno
 
     def _track(self, t: torch.Tensor) -> int:
         st = t.untyped_storage()
@@ -174,6 +193,10 @@ class _Meter(TorchDispatchMode):
         for t in _meta_tensors(out):
             self._track(t)
         self.peak = max(self.peak, self.live)
+        if self._run is not None:
+            line = self._phase()
+            self.phase_peaks[line] = max(self.phase_peaks.get(line, 0),
+                                         self.live)
         return out
 
     def outputs(self, out: Any) -> Tuple[int, int]:
@@ -212,20 +235,19 @@ class RankStep:
         shape = self.shape
         batch = sp.rank_batch_specs(policy, sp.input_specs(cfg, shape))
         if shape.step == "train":
-            state = _own_state(shard_train_state(abstract_train_state(cfg),
-                                                 cfg, grid))
+            state = _own_state(shard_train_state(
+                abstract_train_state(cfg), cfg, grid, data_cut=self.fsdp))
             gs = GradSyncConfig(grid=grid,
                                 axes=rules.grad_sync_axes_for_grid(grid),
-                                mode="fsdp" if self.fsdp else "allreduce")
-            if self.fsdp and gs.axes:
-                state = _fsdp_steady(state, gs)
+                                mode="allreduce")
             step = make_train_step(cfg, AdamWConfig(), self.microbatches,
                                    remat=self.remat, grad_sync=gs,
                                    use_kernel=use_kernel)
             args: Any = (state, batch)
         else:
             params = _own(rules.shard_params(
-                tf.init_params(cfg, device="meta"), cfg, grid))
+                tf.init_params(cfg, device="meta"), cfg, grid,
+                data_cut=self.fsdp))
             if shape.step == "prefill":
                 step = make_prefill_step(cfg, use_kernel=use_kernel)
                 args = (params, batch)
@@ -233,6 +255,12 @@ class RankStep:
                 step = make_decode_step(cfg)
                 args = (params, sp.rank_cache_specs(cfg, shape, policy),
                         batch)
+
+        # the rules' bookkeeping (a whole tree's shapes on the meta
+        # device, cached by config) is made here, outside any meter:
+        # no device holds it
+        rules.tree_cuts(args[0].params if shape.step == "train"
+                        else args[0], cfg, grid)
 
         def run():
             with ambient_grid(grid):
@@ -254,18 +282,31 @@ def _own_state(state: TrainState) -> TrainState:
         master=None if opt.master is None else _own(opt.master)))
 
 
-def _fsdp_steady(state: TrainState, gs: GradSyncConfig) -> TrainState:
-    """The state as ``fsdp_sync_apply`` holds it from its first step on:
-    the moments (and a master copy) as this rank's flat float32 shard."""
-    shard = fsdp_layout(state.params, gs)[3]
-    opt = state.opt
+def padding_record(cfg: ArchConfig, shape: ShapeSpec, m: int
+                   ) -> Optional[Dict[str, Any]]:
+    """The heads of an attention config and what padding them to a model
+    axis of ``m`` costs: the share of a layer's attention FLOPs (the four
+    projections, 2 D hd a head a token each, and the core, 4 hd a head a
+    (query, key) pair: half the context causal, all of it in decode) and
+    of its attention bytes (the projections' weights, and a decode cell's
+    KV cache) that a rank spends on pad heads."""
+    if not cfg.num_heads:
+        return None
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    hp, kvp = rules.padded_heads(cfg, m)
+    d, hd, s = cfg.d_model, cfg.resolved_head_dim, shape.seq_len
+    keys = s if shape.step == "decode" else (s + 1) / 2
 
-    def flat():
-        return torch.empty(shard, dtype=torch.float32, device="meta")
+    def flops(q, k):
+        return 2 * d * hd * (2 * q + 2 * k) + 4 * hd * q * keys
 
-    return TrainState(params=state.params, opt=AdamWState(
-        mu=flat(), nu=flat(), count=opt.count,
-        master=None if opt.master is None else flat()))
+    def nbytes(q, k):
+        cache = 2 * s * k * hd if shape.step == "decode" else 0
+        return d * hd * (2 * q + 2 * k) + cache
+
+    return {"heads": [h, kv], "padded_heads": [hp, kvp], "model_axis": m,
+            "pad_flops_share": 1 - flops(h, kv) / flops(hp, kvp),
+            "pad_bytes_share": 1 - nbytes(h, kv) / nbytes(hp, kvp)}
 
 
 def card_pass(cell: RankStep, cfg: ArchConfig, use_kernel: bool
@@ -273,11 +314,12 @@ def card_pass(cell: RankStep, cfg: ArchConfig, use_kernel: bool
     """Memory, bytes accessed and collectives of one step on the card's
     route."""
     run, args, grid = cell.build(cfg, use_kernel)
-    meter = _Meter(args)
+    meter = _Meter(args, run.__code__)
     with meter:
         out = run()
     fresh, alias = meter.outputs(out)
     return {"arguments": meter.argument_bytes, "peak": meter.peak,
+            "phase_peaks": meter.phase_peaks,
             "outputs": fresh, "alias": alias, "bytes": meter.accessed,
             "collectives": grid.counter.ops(),
             "collectives_by_axis": grid.counter.by_axis}
@@ -330,9 +372,7 @@ def run_cell(arch: str, shape: Union[str, ShapeSpec], mesh_kind: str = "pod",
     try:
         rules.exec_layout(cfg, m)
     except ValueError as e:
-        record.update({"status": "refused", "reason": (
-            f"{e} (ROADMAP C33: the execution layout pads nothing yet, "
-            f"A.7 (d) (b))")})
+        record.update({"status": "refused", "reason": str(e)})
         return _finish(record, save)
     _use_meta_engine()
     record["n_devices"] = math.prod(sizes)
@@ -369,8 +409,15 @@ def run_cell(arch: str, shape: Union[str, ShapeSpec], mesh_kind: str = "pod",
     coll = [rl.collective_total(k["collectives"]) for k in (k1, k2)]
     coll_dev = extrap(*coll)
     outputs = extrap(k1["outputs"], k2["outputs"])
-    peak = full_args + extrap(k1["peak"] - k1["arguments"],
-                              k2["peak"] - k2["arguments"])
+    # each statement's peak extrapolated on its own: where the largest
+    # moves with the depth (AdamW's temporaries of the widest leaf at 1
+    # and 2 units, the bucketed AllReduce's flat copy deeper), the
+    # extrapolated max of the two depths would miss it
+    above = [{line: p - k["arguments"] for line, p in
+              k["phase_peaks"].items()} for k in (k1, k2)]
+    peak = full_args + max(
+        extrap(above[0][line], b) if line in above[0] else b
+        for line, b in above[1].items())
     record["memory"] = {
         "argument_size_in_bytes": float(full_args),
         "output_size_in_bytes": float(outputs),
@@ -379,6 +426,7 @@ def run_cell(arch: str, shape: Union[str, ShapeSpec], mesh_kind: str = "pod",
         "peak_memory_in_bytes": float(peak),
     }
     record["fits"] = bool(peak <= CARD_BYTES)
+    record["padding"] = padding_record(cfg, shape, m)
     record["card_bytes"] = CARD_BYTES
     record["cost_scan_counted_once"] = None
     record["hlo_bytes"] = None
@@ -387,6 +435,8 @@ def run_cell(arch: str, shape: Union[str, ShapeSpec], mesh_kind: str = "pod",
         "flops": [f1, f2], "bytes": [k1["bytes"], k2["bytes"]],
         "collective_bytes": coll,
         "peak_memory_in_bytes": [k1["peak"], k2["peak"]],
+        "peak_by_step_line": [{str(line): p for line, p in
+                               k["phase_peaks"].items()} for k in (k1, k2)],
         "argument_size_in_bytes": [k1["arguments"], k2["arguments"]],
     }
     record["collectives_u2"] = k2["collectives"]
@@ -458,8 +508,13 @@ def _one_cell(arch: str, shape: str, mesh_kind: str, skip_existing: bool,
     if rec["status"] == "ok":
         r, h = rec["roofline"], rec["roofline_h100"]
         gb = rec["memory"]["peak_memory_in_bytes"] / 1e9
+        pad = rec["padding"]
+        padded = ("" if pad is None or pad["heads"] == pad["padded_heads"]
+                  else f" heads {pad['heads']} -> {pad['padded_heads']} "
+                  f"(pad {pad['pad_flops_share'] * 100:.1f} % of attention "
+                  f"FLOPs)")
         lines.append(
-            f"  ok: peak {gb:.3f} GB (fits {rec['fits']}) "
+            f"  ok: peak {gb:.3f} GB (fits {rec['fits']}){padded} "
             f"compute={r['compute_s']:.4f}s memory={r['memory_s']:.4f}s "
             f"collective={r['collective_s']:.4f}s "
             f"dominant={r['dominant']} (TPU v5e, C8) | H100 bound "
@@ -559,7 +614,8 @@ def main(argv: Optional[List[str]] = None) -> None:
 
 __all__ = ["ALLOC_BLOCK", "CARD_BYTES", "H100_HBM_BW", "H100_PEAK_FLOPS",
            "MESHES", "RankStep", "art_dir", "card_pass", "flop_pass",
-           "h100_bound", "main", "run_cell", "run_cells", "status_counts"]
+           "h100_bound", "main", "padding_record", "run_cell", "run_cells",
+           "status_counts"]
 
 
 if __name__ == "__main__":

@@ -30,12 +30,21 @@ sequence-sharded KV cache runs ``flash_decode``.  Two trees run there:
   computes everything but the fused down-projection's ring;
 * one rank's shards (``sharding.rules.shard_params``): the tensor-
   parallel block.  The entry points bind the model axis
-  (:func:`model_parallel`, the one rule :func:`tp_comm` reads off the
-  tree), and each column-parallel input passes :func:`copy_to_model`
+  (:func:`model_parallel`, :func:`tree_comms` reading the tree's
+  shapes), and each column-parallel input passes :func:`copy_to_model`
   (identity forward, all-reduce of the cotangent backward), each
   row-parallel output :func:`reduce_from_model` (the engine's
   ``allreduce``, the cotangent passed through).  Attention runs on the
   heads its weights hold, SwiGLU on its block of the hidden dim.
+
+A tree cut over "data" too (ZeRO-3, ``shard_params(...,
+data_cut=True)``): the entry points bind the data axis and each leaf's
+cut dim (:func:`model_parallel`, from ``sharding.rules.tree_cuts``), and
+each layer loop gathers the layer's leaves over "data" just before it
+runs them (:func:`gather_layer`, :class:`_GatherFromData`: the engine's
+allgather forward, its reduce-scatter of the cotangent backward, divided
+by the data size: the DP step's mean).  The MoE's expert weights are
+gathered inside the MoE body instead (``moe.expert_weights``).
 
 The reduction of a backward runs inside an autograd node: fine on the
 CPU and one process a rank; on CUDA rank threads the autograd engine
@@ -267,25 +276,32 @@ def _ambient_grid():
 # ---------------------------------------------------------------------- #
 # tensor parallelism over "model" on a tree of one rank's shards
 # ---------------------------------------------------------------------- #
-def tp_comm(params, cfg, grid=None):
-    """The model axis's ``Comm`` when ``params`` is one rank's shards
-    (``sharding.rules.tp_degree``, read off the embedding), else None.
-    The grid is ``grid`` or the thread's ambient one, and its model axis
-    must be the one the tree was cut for."""
-    from repro_torch.sharding.rules import tp_degree
+def tree_comms(params, cfg):
+    """(the model axis's ``Comm`` when ``params`` is one rank's shards,
+    else None; (the data axis's ``Comm``, {id(leaf): its cut dim}) when
+    the tree is cut over "data" too, else None; the tree's
+    ``sharding.rules.Cuts``), by ``sharding.rules.tree_cuts`` under the
+    thread's ambient grid, whose model axis must be the one the tree was
+    cut for."""
+    from repro_torch.sharding.rules import tree_cuts
+    from repro_torch.tree import tree_leaves
 
-    m = tp_degree(params, cfg)
-    if m == 1:
-        return None
-    grid = _ambient_grid() if grid is None else grid
-    if (grid is None or "model" not in grid.axis_names
-            or grid.axis_size("model") != m):
+    grid = _ambient_grid()
+    cuts = tree_cuts(params, cfg, grid)
+    m = cuts.model
+    if m > 1 and (grid is None or "model" not in grid.axis_names
+                  or grid.axis_size("model") != m):
         have = None if grid is None else dict(zip(grid.axis_names,
                                                   grid.shape))
         raise ValueError(
             f"{cfg.name}: a tree cut over a model axis of {m} runs under a "
             f"grid with that axis (ambient_grid), not {have}")
-    return grid.sub("model")
+    data = None
+    if cuts.data > 1:
+        data = (grid.sub("data"), {
+            id(x): dim for x, dim in zip(tree_leaves(params),
+                                         cuts.data_dims) if dim is not None})
+    return (grid.sub("model") if m > 1 else None), data, cuts
 
 
 def _tp():
@@ -305,12 +321,40 @@ def bind_tp(comm) -> Iterator:
         _AMBIENT.tp = prev
 
 
+def _data_cut():
+    """(data axis, {id(leaf): dim}) this thread's entry point bound for a
+    tree cut over "data", or None."""
+    return getattr(_AMBIENT, "data_cut", None)
+
+
+@contextlib.contextmanager
+def bind_data(cut) -> Iterator:
+    """Bind ``cut`` (:func:`_data_cut`'s pair, or None) for the block."""
+    prev = getattr(_AMBIENT, "data_cut", None)
+    _AMBIENT.data_cut = cut
+    try:
+        yield cut
+    finally:
+        _AMBIENT.data_cut = prev
+
+
 @contextlib.contextmanager
 def model_parallel(params, cfg) -> Iterator:
-    """What an entry point runs under: the model axis of ``params``
-    (:func:`tp_comm`) bound for the block; yields it (or None)."""
-    with bind_tp(tp_comm(params, cfg)) as comm:
-        yield comm
+    """What an entry point runs under: the model axis of ``params`` and
+    its data cut (:func:`tree_comms`) bound for the block; yields the
+    model axis (or None).  An entry point called inside another's block
+    on the same ``params`` keeps that binding: the tree is read once."""
+    outer = getattr(_AMBIENT, "params", None)
+    if outer is params:
+        yield _tp()
+        return
+    comm, data, _ = tree_comms(params, cfg)
+    _AMBIENT.params = params
+    try:
+        with bind_tp(comm), bind_data(data):
+            yield comm
+    finally:
+        _AMBIENT.params = outer
 
 
 def refuse_cuda_thread_backward(x: torch.Tensor, grid, what: str) -> None:
@@ -377,6 +421,57 @@ class _GatherFromModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         return ct.narrow(-1, ctx.comm.rank * ctx.n, ctx.n), None
+
+
+class _GatherFromData(torch.autograd.Function):
+    """A leaf's blocks gathered over the data axis along ``dim`` (the
+    engine's allgather); the backward reduce-scatters the cotangent over
+    the axis (the engine's reduce-scatter) and divides it by the axis
+    size: each rank's block gets the mean of the ranks' gradients, the DP
+    step's mean, so the leaf needs no allreduce over "data"."""
+
+    @staticmethod
+    def forward(ctx, w, comm, dim):
+        ctx.comm, ctx.dim = comm, dim
+        whole = _engine(comm).allgather(w.movedim(dim, 0).contiguous(), comm)
+        return whole.movedim(0, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, ct):
+        comm, dim = ctx.comm, ctx.dim
+        g = _engine(comm).reduce_scatter(ct.movedim(dim, 0).contiguous(),
+                                         comm)
+        return (g / comm.size).movedim(0, dim).contiguous(), None, None
+
+
+#: leaves the MoE body gathers itself (``moe.expert_weights``)
+_EXPERT_LEAVES = ("eg", "eu", "ed")
+
+
+def gather_leaf(w: torch.Tensor) -> torch.Tensor:
+    """``w`` whole over "data": gathered (:class:`_GatherFromData`) when
+    it is a leaf of the bound tree cut over "data", else ``w`` itself."""
+    cut = _data_cut()
+    dim = None if cut is None else cut[1].get(id(w))
+    if dim is None:
+        return w
+    comm = cut[0]
+    if torch.is_grad_enabled() and w.requires_grad:
+        refuse_cuda_thread_backward(w, comm, "the tree cut over data")
+    return _GatherFromData.apply(w, comm, dim)
+
+
+def gather_layer(tree, name: str = ""):
+    """A layer's leaves whole over "data" (:func:`gather_leaf`), but the
+    expert weights, which the MoE body gathers; the tree itself when no
+    data cut is bound."""
+    if _data_cut() is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: gather_layer(v, str(k)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(gather_layer(v, name) for v in tree)
+    return tree if name in _EXPERT_LEAVES else gather_leaf(tree)
 
 
 def copy_to_model(x: torch.Tensor) -> torch.Tensor:
@@ -583,9 +678,10 @@ def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, b_up: torch.Tensor,
     return h @ w_down + b_down
 
 
-__all__ = ["ambient_grid", "apply_rope", "attention", "bind_tp",
-           "copy_to_model", "flash_decode", "fused_tp_enabled",
-           "gather_from_model", "gelu_mlp", "model_parallel",
-           "reduce_from_model", "refuse_cuda_thread_backward", "rms_norm",
-           "rope_frequencies", "set_fused_tp", "swiglu", "tp_comm",
+__all__ = ["ambient_grid", "apply_rope", "attention", "bind_data",
+           "bind_tp", "copy_to_model", "flash_decode", "fused_tp_enabled",
+           "gather_from_model", "gather_layer", "gather_leaf", "gelu_mlp",
+           "model_parallel", "reduce_from_model",
+           "refuse_cuda_thread_backward", "rms_norm", "rope_frequencies",
+           "set_fused_tp", "swiglu", "tree_comms",
            "use_flash_decode"]

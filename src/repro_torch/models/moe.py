@@ -26,8 +26,9 @@ expert weights arrive as a rank's tree holds them (``sharding.rules.
 shard_params``: its E / m experts, taken as they stand), or whole (a
 whole tree under a model grid: each rank cuts its block with
 ``sharding.rules.local_shard``, their gradients reduced over "model"),
-and with a ``"data"`` axis the block is FSDP-cut over it and all-gathered
-just in time, as in the reference.
+and on a tree cut over "data" too (ZeRO-3) the rank's real block of each
+expert weight is all-gathered over "data" just in time
+(``layers.gather_leaf``), as in the reference.
 
 Gradients follow the reference's ``shard_map`` transpose with the port's
 data-parallel step in mind (each rank differentiates its own loss; the
@@ -48,7 +49,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import (_ambient_grid,
+from repro_torch.models.layers import (_ambient_grid, gather_leaf,
                                       refuse_cuda_thread_backward)
 from repro_torch.sharding.rules import for_grid, local_shard
 
@@ -161,7 +162,9 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
             capacity_factor: float = 1.25
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [G, gs, D]; router_w: [D, E]; w_gate/up: [E, D, F]; w_down:
-    [E, F, D].  Returns (out [G, gs, D], aux_loss scalar)."""
+    [E, F, D] (a tree's leaves cut over "data" gathered first).  Returns
+    (out [G, gs, D], aux_loss scalar)."""
+    w_gate, w_up, w_down = (gather_leaf(w) for w in (w_gate, w_up, w_down))
     r = Routing(x, router_w, top_k, capacity_factor)
     buf = _dispatch(x, r, r.sorted_e, r.pos, r.keep, r.e)
     y = _experts(buf, w_gate, w_up, w_down)
@@ -227,25 +230,6 @@ class _ScaleGrad(torch.autograd.Function):
         return ct * ctx.scale, None
 
 
-class _GatherInTime(torch.autograd.Function):
-    """FSDP just in time: cut this rank's block of the (whole) ``w`` along
-    ``dim`` over ``comm`` and all-gather the blocks back.  The value is
-    ``w`` itself, so the backward passes the cotangent through: the
-    gradient stays whole on every rank and the DP step's sync averages
-    it, as it does every replicated weight's."""
-
-    @staticmethod
-    def forward(ctx, w, comm, dim):
-        n = w.shape[dim] // comm.size
-        block = w.narrow(dim, comm.rank * n, n).movedim(dim, 0)
-        full = comm.all_gather(block.contiguous())
-        return full.movedim(0, dim).contiguous()
-
-    @staticmethod
-    def backward(ctx, ct):
-        return ct, None, None
-
-
 def psum_grad(x, comm):
     return x if comm.size == 1 else _PsumGrad.apply(x, comm)
 
@@ -262,24 +246,22 @@ def scale_grad(x, scale: float):
     return x if scale == 1.0 else _ScaleGrad.apply(x, scale)
 
 
-def gather_in_time(w, comm, dim: int):
-    return w if comm.size == 1 else _GatherInTime.apply(w, comm, dim)
-
-
-def expert_weights(grid, w_gate, w_up, w_down, ep_spec, fsdp_axis,
+def expert_weights(grid, w_gate, w_up, w_down, ep_spec,
                    e_total: Optional[int] = None
                    ) -> Tuple[torch.Tensor, ...]:
-    """This rank's experts: of whole ``[E, ...]`` weights (``e_total``
-    of them; None: the weights are whole) cut over the expert axes
-    (``ep_spec``) with ``local_shard``, or a rank's tree's ``[E / m,
-    ...]`` as they stand; FSDP-cut over ``fsdp_axis`` and gathered back
-    just in time.  Whole
-    weights under a ``"model"`` axis among the expert axes first pass
-    ``psum_grad`` over it, so that every model rank ends up with every
-    expert's gradient, as the DP step does not sync over "model"."""
+    """This rank's experts: a tree's leaves cut over "data" first
+    gathered just in time (``layers.gather_leaf``: the rank's real block,
+    its gradient reduce-scattered back); then whole ``[E, ...]`` weights
+    (``e_total`` of them; None: the weights are whole) cut over the
+    expert axes (``ep_spec``) with ``local_shard``, or a rank's tree's
+    ``[E / m, ...]`` taken as they stand.  Whole weights under a
+    ``"model"`` axis among the expert axes first pass ``psum_grad`` over
+    it, so that every model rank ends up with every expert's gradient,
+    as the DP step does not sync over "model"."""
     axes = (ep_spec,) if isinstance(ep_spec, str) else tuple(ep_spec)
     out = []
-    for w, dim in ((w_gate, 1), (w_up, 1), (w_down, 2)):
+    for w in (w_gate, w_up, w_down):
+        w = gather_leaf(w)
         if e_total is None or w.shape[0] == e_total:
             if "model" in axes:
                 w = psum_grad(w, grid.sub("model"))
@@ -287,8 +269,6 @@ def expert_weights(grid, w_gate, w_up, w_down, ep_spec, fsdp_axis,
         elif axes != ("model",):
             raise ValueError(f"a rank's {w.shape[0]} of {e_total} experts "
                              f"run over the model axis, not {axes}")
-        if fsdp_axis is not None:
-            w = gather_in_time(w, grid.sub(fsdp_axis), dim)
         out.append(w)
     return tuple(out)
 
@@ -340,12 +320,11 @@ def moe_ffn_sharded(x, router_w, w_gate, w_up, w_down, *, top_k: int,
         raise ValueError(f"{w_gate.shape[0]} experts a rank of {e_total} "
                          f"over a model axis of {m}")
     refuse_cuda_thread_backward(x, grid, "moe_ffn_sharded")
-    fsdp_axis = "data" if "data" in grid.axis_names else None
     model = grid.sub("model")
     x = psum_grad(x, model)
     router_w = psum_grad(router_w, model)
     wg, wu, wd = expert_weights(grid, w_gate, w_up, w_down, "model",
-                                fsdp_axis, e_total)
+                                e_total)
     out, aux = _moe_local(x, router_w, wg, wu, wd, top_k=top_k,
                           capacity_factor=capacity_factor,
                           rank=model.rank)

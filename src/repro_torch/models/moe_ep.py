@@ -18,8 +18,8 @@ Layout, on each rank of the ambient grid (``models.layers.ambient_grid``):
 * experts ``w_* [E, ...]`` arrive whole (a whole tree): rank r of the
   folded EP axes cuts experts ``[r E_l, (r + 1) E_l)`` with
   ``sharding.rules.local_shard``; or as a rank's tree holds them (its
-  ``E / m`` over "model", ``sharding.rules.shard_params``); either is
-  FSDP-cut over a spare "data" axis and gathered just in time;
+  ``E / m`` over "model", ``sharding.rules.shard_params``); a tree's
+  leaves cut over "data" (ZeRO-3) are gathered just in time first;
 * dispatch: ``moe_ffn``'s group-local sort builds the ``[G_l, E, Cap,
   D]`` buffer, reordered destination-rank-major and exchanged (chunk r
   -> rank r); the reverse exchange brings the expert outputs home for
@@ -173,8 +173,6 @@ def moe_ffn_ep(x, router_w, w_gate, w_up, w_down, *, top_k: int,
     dp_axes = tuple(a for a in ("pod", "data")
                     if a in names and a not in ep_axes)
     token_axes = dp_axes + ep_axes
-    fsdp_axis = ("data" if "data" in names and "data" not in ep_axes
-                 else None)
     e_total = router_w.shape[1]
     n_ranks = math.prod(sizes[a] for a in ep_axes)
     n_tok = n_ranks * math.prod(sizes[a] for a in dp_axes)
@@ -201,7 +199,7 @@ def moe_ffn_ep(x, router_w, w_gate, w_up, w_down, *, top_k: int,
         x = x.narrow(0, model.rank * rows, rows)
     ep_spec = ep_axes if len(ep_axes) > 1 else ep_axes[0]
     wg, wu, wd = expert_weights(grid, w_gate, w_up, w_down, ep_spec,
-                                fsdp_axis, e_total)
+                                e_total)
     out, aux = _moe_ep_local(x, router_w, wg, wu, wd, top_k=top_k,
                              capacity_factor=capacity_factor, grid=grid,
                              ep_axes=ep_axes, token_axes=token_axes,

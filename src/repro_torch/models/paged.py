@@ -39,7 +39,8 @@ an ambient grid with its "model" axis, as ``transformer``'s entry points:
 its pool holds the rank's kv heads (``init_pages(..., tp=m)``), the
 block attends on its heads (the paged kernel at the per-rank shape) and
 reduces its two row-parallel outputs over "model"; the logits come back
-whole.
+whole.  Heads padded to the model axis are masked as in ``transformer``;
+a tree cut over "data" is refused (the server has no model axis).
 """
 
 from __future__ import annotations
@@ -51,12 +52,13 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_or_meta
 from repro_torch.kernels.ops import paged_attention
-from repro_torch.models.layers import (apply_rope, copy_to_model,
-                                      model_parallel, reduce_from_model,
-                                      rms_norm)
+from repro_torch.models.layers import (_data_cut, apply_rope,
+                                      copy_to_model, model_parallel,
+                                      reduce_from_model, rms_norm)
 from repro_torch.models.transformer import (Params, _embed, _ffn_sublayer,
-                                           _kv_proj, _q_proj, _unembed,
-                                           _whole_logits, local_kv_heads)
+                                           _kv_proj, _mask_pad_heads,
+                                           _q_proj, _unembed, _whole_logits,
+                                           local_kv_heads)
 
 Pages = Dict[str, torch.Tensor]
 
@@ -177,6 +179,7 @@ def _paged_decoder_block(cfg: ArchConfig, x: torch.Tensor, lp: Params,
                               ctx_lens + 1)[:, None]
     else:
         out = _gathered_attention(q, kp, vp, block_tables, ctx_lens)
+    out = _mask_pad_heads(cfg, out)
     x = x + reduce_from_model(out.reshape(b, t, h * hd) @ lp["wo"])
     f, _ = _ffn_sublayer(cfg, rms_norm(x, lp["ln2"], cfg.norm_eps), lp)
     return x + f
@@ -205,6 +208,10 @@ def forward_paged(params: Params, cfg: ArchConfig, pages: Pages,
         raise NotImplementedError(
             f"forward_paged: unsupported family {cfg.family!r}")
     with model_parallel(params, cfg):
+        if _data_cut() is not None:
+            raise NotImplementedError(
+                "forward_paged: the paged route runs a tree whole over "
+                "\"data\" (the server has no model axis, ROADMAP A)")
         logits, pages = _forward_paged(params, cfg, pages, batch,
                                        block_tables, ctx_lens, new_lens,
                                        use_kernel)

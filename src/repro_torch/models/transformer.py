@@ -70,7 +70,15 @@ of the vocabulary's logits (whole logits for an odd vocabulary), which
 ``train.step.cross_entropy`` reduces over "model", while ``prefill`` and
 ``decode_step`` return whole logits.  Their caches hold the rank's kv
 heads (``init_cache(..., tp=m)``, ``shard_decode_cache``), channels and
-blocks.
+blocks.  Where the heads are padded to the model axis
+(``sharding.rules.padded_heads``) a rank's pad heads attend like the
+others and their output is multiplied by zero before ``wo``
+(:func:`_mask_pad_heads`), so they change nothing, forward or backward.
+A tree cut over "data" too gathers each layer's leaves just before the
+layer runs (``layers.gather_layer``; in ``forward_train`` inside the
+checkpointed function, so the recompute gathers again and no whole
+layer is saved), and the embedding and head in :func:`_embed` /
+:func:`_unembed`.
 
 Vision configs (``frontend == "vision"``) take ``batch["soft_emb"]``
 [B, n_soft, D] in ``forward_train`` and ``prefill``: the soft tokens
@@ -94,16 +102,18 @@ from repro_torch.kernels import ops
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import (_ambient_grid, _direct_attention,
-                                      _repeat_kv, _tp, ambient_grid,
-                                      apply_rope, attention, bind_tp,
-                                      copy_to_model, flash_decode,
-                                      fused_tp_enabled, gather_from_model,
-                                      model_parallel,
+from repro_torch.models.layers import (_ambient_grid, _data_cut,
+                                      _direct_attention, _repeat_kv, _tp,
+                                      ambient_grid, apply_rope, attention,
+                                      bind_data, bind_tp, copy_to_model,
+                                      flash_decode, fused_tp_enabled,
+                                      gather_from_model, gather_layer,
+                                      gather_leaf, model_parallel,
                                       reduce_from_model,
                                       refuse_cuda_thread_backward, rms_norm,
                                       swiglu, use_flash_decode)
-from repro_torch.sharding.rules import _kv_replicated
+from repro_torch.sharding.rules import (_kv_replicated, padded_heads,
+                                        real_heads)
 
 Params = Dict[str, Any]
 
@@ -285,7 +295,7 @@ def _embed(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
            soft_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Scaled token embeddings, after the vision soft tokens [B, n_soft,
     D] when given (cast to the embeddings' dtype)."""
-    x = _lookup(params["embed"], cfg, tokens)
+    x = _lookup(gather_leaf(params["embed"]), cfg, tokens)
     # the sqrt(d_model) scale is rounded to the activation dtype first
     scale = torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
     x = x * scale
@@ -300,7 +310,7 @@ def _unembed(params: Params, cfg: ArchConfig,
     vocabulary's (a head cut over d_model: the partial logits reduced,
     whole)."""
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    head = params["head"]
+    head = gather_leaf(params["head"])
     # head matmul in the activation dtype, then the cast (inputs are not
     # upcast first)
     out_dtype = torch.bfloat16 if cfg.logits_bf16 else torch.float32
@@ -359,10 +369,25 @@ KV = Tuple[torch.Tensor, torch.Tensor]
 
 def local_kv_heads(cfg: ArchConfig, tp: int = 1) -> int:
     """The kv heads a rank of a model axis of ``tp`` attends with (and
-    caches): its block of them, or the one its q heads use where they
-    are fewer than the ranks."""
-    kv = cfg.num_kv_heads
-    return 1 if _kv_replicated(cfg, tp) else kv // tp
+    caches): its block of the (padded) kv heads, or the one its q heads
+    use where they are fewer than the ranks."""
+    return 1 if _kv_replicated(cfg, tp) else padded_heads(cfg, tp)[1] // tp
+
+
+def _mask_pad_heads(cfg: ArchConfig, out: torch.Tensor) -> torch.Tensor:
+    """``out`` [B, S, H_l, hd] with this rank's pad heads (the last ones
+    of its block, ``sharding.rules.head_block``) multiplied by zero: a
+    pad q head of a GQA group attends over the group's real keys, and its
+    output would reach ``wo``'s zero rows' gradient."""
+    comm = _tp()
+    if comm is None:
+        return out
+    n_real = real_heads(cfg, comm.size, comm.rank)
+    h = out.shape[2]
+    if n_real == h:
+        return out
+    mask = torch.cat([out.new_ones(n_real), out.new_zeros(h - n_real)])
+    return out * mask[:, None]
 
 
 def _q_proj(cfg: ArchConfig, x: torch.Tensor, w: torch.Tensor
@@ -385,8 +410,8 @@ def _kv_proj(cfg: ArchConfig, x: torch.Tensor, w: torch.Tensor
     if comm is None or not _kv_replicated(cfg, comm.size):
         return (x @ w).reshape(b, s, w.shape[1] // hd, hd)
     y = (x @ copy_to_model(w)).reshape(b, s, cfg.num_kv_heads, hd)
-    group = cfg.num_heads // cfg.num_kv_heads
-    j = comm.rank * (cfg.num_heads // comm.size) // group
+    # the group of the rank's q heads: m / kv ranks a group (padded or not)
+    j = comm.rank * cfg.num_kv_heads // comm.size
     return y[:, :, j:j + 1]
 
 
@@ -454,6 +479,7 @@ def _attention_sublayer(cfg: ArchConfig, x: torch.Tensor, p: Params, *,
                             probs_bf16=cfg.attn_probs_bf16,
                             use_kernel=use_kernel)
         new_kv = (ck, cv)
+    out = _mask_pad_heads(cfg, out)
     return reduce_from_model(out.reshape(b, s, h * hd) @ p["wo"]), new_kv
 
 
@@ -482,11 +508,11 @@ def _remat(fn, grid, *args):
     the reference's ``jax.checkpoint`` with ``nothing_saveable``).  The
     recompute runs where the autograd engine runs it: on CUDA its own
     device thread, where this thread's ambient grid is not bound (ROADMAP
-    C24); it binds the forward's."""
-    tp = _tp()
+    C24); it binds the forward's (its model axis and data cut too)."""
+    tp, data = _tp(), _data_cut()
 
     def bound(*a):
-        with ambient_grid(grid), bind_tp(tp):
+        with ambient_grid(grid), bind_tp(tp), bind_data(data):
             return fn(*a)
     return checkpoint(bound, *args, use_reentrant=False)
 
@@ -569,6 +595,7 @@ def _hybrid_prefill(params: Params, cfg: ArchConfig, x: torch.Tensor,
     w = cfg.local_window
     ks, vs, convs, hs = [], [], [], []
     for kind, p in _hybrid_layers(params, cfg):
+        p = gather_layer(p)
         x, st = _hybrid_block(cfg, kind, x, p, use_kernel=use_kernel)
         if kind == "local":
             ks.append(_ring(st[0], w))
@@ -608,8 +635,8 @@ def _local_decode(cfg: ArchConfig, x: torch.Tensor, p: Params, pos: int,
                             _repeat_kv(cv.transpose(1, 2), group),
                             causal=False, window=None,
                             kv_len=min(pos + 1, w))
-    x = x + reduce_from_model(out.transpose(1, 2).reshape(b, 1, h * hd)
-                              @ p["wo"])
+    out = _mask_pad_heads(cfg, out.transpose(1, 2))
+    x = x + reduce_from_model(out.reshape(b, 1, h * hd) @ p["wo"])
     f, _ = _ffn_sublayer(cfg, rms_norm(x, p["ln2"], cfg.norm_eps), p)
     return x + f
 
@@ -621,6 +648,7 @@ def _hybrid_decode(params: Params, cfg: ArchConfig,
     ai = 0
     convs, hs = [], []
     for kind, p in _hybrid_layers(params, cfg):
+        p = gather_layer(p)
         if kind == "local":
             x = _local_decode(cfg, x, p, pos, cache["k"][ai], cache["v"][ai])
             ai += 1
@@ -645,6 +673,7 @@ def _encoder_forward(params: Params, cfg: ArchConfig, frames: torch.Tensor,
     layer checkpointed under autograd whatever ``remat`` says (as the
     reference), then the final norm."""
     def layer(h, lp):
+        lp = gather_layer(lp)
         a, _ = _attention_sublayer(cfg, rms_norm(h, lp["ln1"], cfg.norm_eps),
                                    lp, causal=False, use_kernel=use_kernel)
         h = h + a
@@ -675,6 +704,7 @@ def _cross_attention(cfg: ArchConfig, x: torch.Tensor, p: Params,
     b, s, _ = x.shape
     q = _q_proj(cfg, copy_to_model(x), p["x_wq"])
     out = attention(q, enc_k, enc_v, causal=False, use_kernel=use_kernel)
+    out = _mask_pad_heads(cfg, out)
     return reduce_from_model(out.reshape(b, s, -1) @ p["x_wo"])
 
 
@@ -705,6 +735,7 @@ def _encdec_prefill(params: Params, cfg: ArchConfig, batch: Dict[str, Any],
     x = _embed(params, cfg, batch["tokens"])
     kvs, enc_kvs = [], []
     for lp in params["layers"]:
+        lp = gather_layer(lp)
         enc_kv = _cross_kv(cfg, enc_out, lp)
         x, kv = _dec_layer(cfg, x, lp, enc_kv, use_kernel=use_kernel)
         kvs.append(kv)
@@ -722,6 +753,7 @@ def _encdec_decode(params: Params, cfg: ArchConfig,
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     pos = int(cache["pos"])
     for i, lp in enumerate(params["layers"]):
+        lp = gather_layer(lp)
         x, _ = _dec_layer(cfg, x, lp, (cache["enc_k"][i], cache["enc_v"][i]),
                           pos=pos, cache_kv=(cache["k"][i], cache["v"][i]))
     return _unembed(params, cfg, x), dict(cache, pos=cache["pos"] + 1)
@@ -756,13 +788,16 @@ def _forward_train(params: Params, cfg: ArchConfig, batch: Dict[str, Any],
     soft = batch.get("soft_emb")
     x = _embed(params, cfg, batch["tokens"], soft)
     grid = _ambient_grid()
-    if (remat and _tp() is not None and torch.is_grad_enabled()
-            and x.requires_grad):
-        # the layers' copy_to_model would refuse a backward it cannot run
-        # (C15) inside torch's checkpoint, leaving its generator suspended
-        # with saved-tensor hooks pushed on this thread (ROADMAP C34):
-        # refuse before the first checkpoint
-        refuse_cuda_thread_backward(x, _tp(), "the tensor-parallel block")
+    data = _data_cut()
+    if remat and torch.is_grad_enabled() and x.requires_grad:
+        # the layers' copy_to_model (and gather_layer) would refuse a
+        # backward it cannot run (C15) inside torch's checkpoint, leaving
+        # its generator suspended with saved-tensor hooks pushed on this
+        # thread (ROADMAP C34): refuse before the first checkpoint
+        if _tp() is not None:
+            refuse_cuda_thread_backward(x, _tp(), "the tensor-parallel block")
+        if data is not None:
+            refuse_cuda_thread_backward(x, data[0], "the tree cut over data")
     if (remat and torch.is_grad_enabled() and fused_tp_enabled()
             and x.device.type == "cuda" and grid is not None
             and "model" in grid.axis_names
@@ -778,23 +813,26 @@ def _forward_train(params: Params, cfg: ArchConfig, batch: Dict[str, Any],
     if cfg.family == "hybrid":
         def layer(h, blocks):
             for kind, p in blocks:
-                h = _hybrid_block(cfg, kind, h, p, use_kernel=uk)[0]
+                h = _hybrid_block(cfg, kind, h, gather_layer(p),
+                                  use_kernel=uk)[0]
             return h, 0.0
         cycles, tail = _hybrid_cycles(params, cfg)
         units = [(cyc, True) for cyc in cycles] + [([t], False)
                                                    for t in tail]
     elif cfg.family == "ssm":
         def layer(h, lp):
-            return _ssm_layer(cfg, h, lp, uk)[0], 0.0
+            return _ssm_layer(cfg, h, gather_layer(lp), uk)[0], 0.0
     elif cfg.family == "encdec":
         enc_out = _encoder_forward(params, cfg, batch["frames"], uk, grid)
 
         def layer(h, lp):
+            lp = gather_layer(lp)
             return _dec_layer(cfg, h, lp, _cross_kv(cfg, enc_out, lp),
                               use_kernel=uk)[0], 0.0
     else:
         def layer(h, lp):
-            h, _, aux = _decoder_block(cfg, h, lp, use_kernel=uk)
+            h, _, aux = _decoder_block(cfg, h, gather_layer(lp),
+                                       use_kernel=uk)
             return h, aux
     if cfg.family != "hybrid":
         units = [(lp, True) for lp in params["layers"]]
@@ -892,6 +930,7 @@ def _prefill(params: Params, cfg: ArchConfig, batch: Dict[str, Any],
     s = x.shape[1]
     states = []
     for lp in params["layers"]:
+        lp = gather_layer(lp)
         if cfg.family == "ssm":
             x, st = _ssm_layer(cfg, x, lp, uk)
             states.append((st.conv, st.h))
@@ -932,7 +971,7 @@ def _decode_step(params: Params, cfg: ArchConfig,
         convs, hs = [], []
         for i, lp in enumerate(params["layers"]):
             st = ssm_lib.SSMState(conv=cache["conv"][i], h=cache["h"][i])
-            x, st = _ssm_layer(cfg, x, lp, False, state=st,
+            x, st = _ssm_layer(cfg, x, gather_layer(lp), False, state=st,
                                single_step=True)
             convs.append(st.conv)
             hs.append(st.h)
@@ -942,7 +981,7 @@ def _decode_step(params: Params, cfg: ArchConfig,
     pos = int(cache["pos"])
     smax = int(cache.get("smax", cache["k"].shape[2]))
     for i, lp in enumerate(params["layers"]):
-        x, _, _ = _decoder_block(cfg, x, lp, pos=pos,
+        x, _, _ = _decoder_block(cfg, x, gather_layer(lp), pos=pos,
                                  cache_kv=(cache["k"][i], cache["v"][i]),
                                  smax=smax)
     return _unembed(params, cfg, x), dict(cache, pos=cache["pos"] + 1)

@@ -19,7 +19,10 @@ On a rank's tree of a model axis (``sharding.rules.shard_params``) the
 clip's global norm is the whole tree's: the squares of the leaves cut
 over "model" are summed over the axis, those whole on every rank counted
 once (``model_axis``), so every rank clips alike and the replicated
-leaves stay equal across the axis.
+leaves stay equal across the axis.  On a tree cut over "data" too
+(``sharding.rules.shard_params(..., data_cut=True)``) each leaf's squares
+are summed over the axes that cut it (``data_axis``): "data", "model",
+both, or none.
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ import torch
 from repro_torch.tree import stacked_ndims, tree_leaves, tree_map
 
 
-#: a model axis's comm and, for each leaf, whether it is cut over it
+#: an axis's comm and, for each leaf, whether it is cut over it (the
+#: model axis, or the data axis of a tree cut over "data")
 ModelAxis = Tuple[Any, List[bool]]
 
 
@@ -95,37 +99,55 @@ def init_state(params: Any, master_weights: bool = False) -> AdamWState:
                       count=0, master=master)
 
 
-def global_norm(tree: Any, model_axis: Optional[ModelAxis] = None
-                ) -> torch.Tensor:
+def global_norm(tree: Any, model_axis: Optional[ModelAxis] = None,
+                data_axis: Optional[ModelAxis] = None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32 (a 0-d
     tensor on the leaves' device).  ``model_axis`` (comm, per-leaf flags
     of ``sharding.rules.model_sharded_leaves``): the flagged leaves'
-    squares summed over the axis through the engine, the others once."""
+    squares summed over the axis through the engine, the others once;
+    ``data_axis`` (comm, flags of ``data_sharded_leaves``) likewise over
+    "data", a leaf cut over both summed over both."""
     squares = [x.float().square().sum() for x in tree_leaves(tree)]
-    if model_axis is None:
+    if model_axis is None and data_axis is None:
         return torch.sqrt(torch.stack(squares).sum())
     from repro_torch.collectives.api import get_engine
 
-    comm, sharded = model_axis
     zero = squares[0].new_zeros(())
-    cut = torch.stack([q for q, f in zip(squares, sharded) if f]
-                      or [zero]).sum()
-    whole = torch.stack([q for q, f in zip(squares, sharded) if not f]
-                        or [zero]).sum()
-    cut = get_engine(device=comm.device).allreduce(cut.reshape(1), comm)[0]
-    return torch.sqrt(cut + whole)
+    none = [False] * len(squares)
+    m_flags = none if model_axis is None else model_axis[1]
+    d_flags = none if data_axis is None else data_axis[1]
+
+    def total(model: bool, data: bool) -> torch.Tensor:
+        return torch.stack([q for q, fm, fd in zip(squares, m_flags, d_flags)
+                            if fm == model and fd == data] or [zero]).sum()
+
+    def reduce(x: torch.Tensor, comm) -> torch.Tensor:
+        return get_engine(device=comm.device).allreduce(x, comm)
+
+    if data_axis is None:
+        cut = reduce(total(True, False).reshape(1), model_axis[0])[0]
+        return torch.sqrt(cut + total(False, False))
+    both, model_only = total(True, True), total(True, False)
+    if model_axis is not None:
+        both, model_only = reduce(torch.stack([both, model_only]),
+                                  model_axis[0])
+    both, data_only = reduce(torch.stack([both, total(False, True)]),
+                             data_axis[0])
+    return torch.sqrt(both + model_only + data_only + total(False, False))
 
 
 @torch.no_grad()
 def apply_updates(cfg: AdamWConfig, params: Any, grads: Any,
                   state: AdamWState,
-                  model_axis: Optional[ModelAxis] = None
+                  model_axis: Optional[ModelAxis] = None,
+                  data_axis: Optional[ModelAxis] = None
                   ) -> Tuple[Any, AdamWState, Dict[str, Any]]:
     """One AdamW step with global-norm clipping, in place (see the module
-    docstring; ``model_axis`` as :func:`global_norm`'s).  Returns
-    (params, state, {"grad_norm", "lr"})."""
+    docstring; ``model_axis`` and ``data_axis`` as :func:`global_norm`'s),
+    on whatever blocks the leaves are.  Returns (params, state,
+    {"grad_norm", "lr"})."""
     count = state.count + 1
-    gnorm = global_norm(grads, model_axis)
+    gnorm = global_norm(grads, model_axis, data_axis)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = lr_at(cfg, count)
     f32 = np.float32

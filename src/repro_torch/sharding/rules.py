@@ -48,22 +48,48 @@ the block would not compute on its own:
   the head's columns give each rank its block of the logits.
 
 Norm weights, the MoE router and those whole ``wk`` / ``wv`` stay
-replicated.  A dim the execution cannot cut raises, naming the config
-and m; nothing is padded or silently replicated.  Whether a tree is one
-rank's shards is read off its embedding alone (:func:`tp_degree`).
+replicated.
+
+Heads that do not divide the model axis are padded, where the reference
+lets GSPMD pad them (:func:`padded_heads`): multi-head attention pads
+its q and kv heads alike to the next multiple of m (``minicpm-2b``'s
+36 / 36 to 40 / 40 at 8, 48 / 48 at 16); GQA with fewer kv heads than
+ranks pads each kv group's q heads to a multiple of m / kv (56 / 8 to
+64 / 8 at 16), so that each rank's q heads still lie in one group.  A
+pad head has zero ``wq`` (and, MHA, ``wk`` / ``wv``) columns and zero
+``wo`` rows; the model multiplies its attention output by zero
+(``transformer._mask_pad_heads``), so its every gradient is exactly
+zero too.  A rank's block of a padded leaf is a copy (its real heads,
+then zeros); ``unshard_params`` strips the padding.  Any other dim the
+execution cannot cut raises, naming the config and m; nothing is
+silently replicated.
+
+The data cut (ZeRO-3, ``shard_params(..., data_cut=True)``): each leaf
+the spec cuts over "data" (``spec_for_param`` under ``fsdp``, leaves
+below ``replicate_small_below`` staying whole) is cut again within the
+rank's model block, into that many equal blocks of the spec's dim (the
+odd vocabulary's d_model, which the spec folds as ("data", "model"):
+"model" first, then "data" within the block).  The model gathers each
+layer's leaves over "data" just before it runs them
+(``layers.gather_layer``) and reduce-scatters their gradients back.
+Which cuts a tree carries is read off its shapes under the grid it runs
+on (:func:`tree_cuts`, the one rule; :func:`tp_degree` is its model
+half).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Any, Dict, Optional, Sequence, Tuple, Union
+from typing import (Any, Dict, List, NamedTuple, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 
 from repro_torch.collectives.comm import GridComm
 from repro_torch.configs.base import ArchConfig
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 #: one dim's entry: an axis, a folded tuple of axes, or None
 AxisSpec = Union[str, Tuple[str, ...], None]
@@ -348,13 +374,30 @@ def _model_size(grid: GridLike, policy: Optional[ShardingPolicy]) -> int:
 
 def _refuse(cfg: ArchConfig, m: int, what: str) -> None:
     raise ValueError(f"{cfg.name}: the model axis of {m} cannot cut {what} "
-                     f"(no padding, no silent replication)")
+                     f"(no silent replication)")
+
+
+def padded_heads(cfg: ArchConfig, m: int) -> Tuple[int, int]:
+    """(q heads, kv heads) of the execution layout over a model axis of
+    ``m``: the config's where they divide it (or the kv heads are fewer
+    than the ranks, each rank's q heads in one group), else padded (the
+    module docstring); a shape neither cuts nor pads raises."""
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    if m == 1 or not h or (h % m == 0 and (kv % m == 0 or m % kv == 0)):
+        return h, kv
+    if h == kv:                                  # MHA: q and kv alike
+        hp = -(-h // m) * m
+        return hp, hp
+    if m % kv:
+        _refuse(cfg, m, f"{kv} kv heads")
+    per = m // kv                                # ranks a kv group spans
+    return -(-(h // kv) // per) * per * kv, kv
 
 
 def _kv_replicated(cfg: ArchConfig, m: int) -> bool:
-    """Whether ``wk`` / ``wv`` stay whole: fewer kv heads than ranks,
-    each rank's q heads in one kv head's group."""
-    return cfg.num_kv_heads % m != 0
+    """Whether ``wk`` / ``wv`` stay whole: fewer (padded) kv heads than
+    ranks, each rank's q heads in one kv head's group."""
+    return m > 1 and padded_heads(cfg, m)[1] % m != 0
 
 
 def _vocab_rows(cfg: ArchConfig, m: int) -> bool:
@@ -370,12 +413,8 @@ def exec_layout(cfg: ArchConfig, m: int) -> Dict[str, Any]:
         return {}
     out = dict(_EXEC_DIMS)
     if cfg.family in ("dense", "moe", "hybrid", "encdec"):
-        h, kv = cfg.num_heads, cfg.num_kv_heads
-        if h % m:
-            _refuse(cfg, m, f"{h} attention heads")
+        padded_heads(cfg, m)                     # raises by name
         if _kv_replicated(cfg, m):
-            if m % kv:
-                _refuse(cfg, m, f"{kv} kv heads")
             out.update(wk=None, wv=None, x_wk=None, x_wv=None)
         if cfg.family == "moe":
             if cfg.num_experts % m:
@@ -398,6 +437,97 @@ def exec_layout(cfg: ArchConfig, m: int) -> Dict[str, Any]:
     return out
 
 
+# ---------------------------------------------------------------------- #
+# padded heads: which of a rank's heads are real
+# ---------------------------------------------------------------------- #
+#: leaves whose model dim holds q heads / kv heads
+_Q_LEAVES = ("wq", "wo", "x_wq", "x_wo")
+_KV_LEAVES = ("wk", "wv", "x_wk", "x_wv")
+
+#: (first real head, real heads, pad heads) of one rank's block
+HeadBlock = Tuple[int, int, int]
+
+
+def _real_head(p: int, groups: int, g: int, gp: int) -> Optional[int]:
+    """The real head at padded position ``p`` (groups of ``g`` real heads
+    padded to ``gp``), or None for a pad head."""
+    if p % gp >= g or p // gp >= groups:
+        return None
+    return (p // gp) * g + p % gp
+
+
+def _padding(cfg: ArchConfig, m: int, kind: str) -> Tuple[int, int, int, int]:
+    """(padded heads, groups, g, gp) of the q ("q") or kv ("kv") heads."""
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    hp, kvp = padded_heads(cfg, m)
+    if kind == "q":
+        return hp, kv, h // kv, hp // kvp
+    return kvp, kv, 1, 1
+
+
+@functools.lru_cache(maxsize=256)
+def head_block(cfg: ArchConfig, m: int, r: int, kind: str = "q"
+               ) -> Optional[HeadBlock]:
+    """Rank ``r``'s block of the q ("q") or kv ("kv") heads over a model
+    axis of ``m`` where they are padded: its real heads (contiguous, from
+    the first) and then its pad heads; None where nothing is padded."""
+    if m == 1 or padded_heads(cfg, m) == (cfg.num_heads, cfg.num_kv_heads):
+        return None
+    total, groups, g, gp = _padding(cfg, m, kind)
+    n = total // m
+    real = [_real_head(p, groups, g, gp) for p in range(r * n, (r + 1) * n)]
+    k = sum(x is not None for x in real)
+    first = real[0] if k else 0
+    if real != list(range(first, first + k)) + [None] * (n - k):
+        raise AssertionError(f"{cfg.name}: rank {r}'s heads {real}")
+    return first, k, n - k
+
+
+def real_heads(cfg: ArchConfig, m: int, r: int) -> int:
+    """How many of rank ``r``'s q heads are real (the first ones)."""
+    blk = head_block(cfg, m, r)
+    return padded_heads(cfg, m)[0] // m if blk is None else blk[1]
+
+
+def _head_kind(cfg: ArchConfig, m: int, name: str) -> Optional[str]:
+    """"q" / "kv" for a leaf cut over padded heads, else None."""
+    if name in _Q_LEAVES:
+        return "q"
+    if name in _KV_LEAVES and not _kv_replicated(cfg, m):
+        return "kv"
+    return None
+
+
+def _cut_padded(x: torch.Tensor, dim: int, hd: int, blk: HeadBlock
+                ) -> torch.Tensor:
+    """A rank's block of a padded leaf: its real heads' slice of ``x``
+    along ``dim``, then zeros for its pad heads (a copy unless it has
+    none)."""
+    first, n_real, n_pad = blk
+    parts = []
+    if n_real:
+        parts.append(x.narrow(dim, first * hd, n_real * hd))
+    if n_pad:
+        shape = list(x.shape)
+        shape[dim] = n_pad * hd
+        parts.append(x.new_zeros(shape))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+
+
+def _strip_padding(x: torch.Tensor, dim: int, hd: int, cfg: ArchConfig,
+                   m: int, kind: str) -> torch.Tensor:
+    """A padded leaf gathered whole, its pad heads taken out."""
+    total, groups, g, gp = _padding(cfg, m, kind)
+    keep = [p for p in range(total) if _real_head(p, groups, g, gp)
+            is not None]
+    idx = (torch.tensor(keep, device=x.device)[:, None] * hd
+           + torch.arange(hd, device=x.device)).reshape(-1)
+    return x.index_select(dim, idx)
+
+
+# ---------------------------------------------------------------------- #
+# one rank's blocks
+# ---------------------------------------------------------------------- #
 def _cut(x: torch.Tensor, how: Any, m: int, r: int) -> torch.Tensor:
     if how == "pair":
         x_half, z_half = x.chunk(2, dim=-1)
@@ -426,64 +556,193 @@ def _map_named(fn, tree: Any, name: str = "") -> Any:
     return fn(name, tree)
 
 
-def shard_for_rank(params: Any, cfg: ArchConfig, m: int, r: int) -> Any:
-    """Rank ``r``'s tree of ``m`` model ranks under the execution layout:
-    views of ``params`` (``in_proj`` a copy of its two blocks); leaves
-    whole on every rank are the same tensors."""
+def _named_leaves(tree: Any, path: tuple = (), lead: tuple = ()) -> list:
+    """(path, stacked lead dims, leaf) in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _named_leaves(tree[k], path + (k,), lead)]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree)
+                for x in _named_leaves(v, path + (i,), lead + (len(tree),))]
+    if isinstance(tree, tuple):
+        return [x for i, v in enumerate(tree)
+                for x in _named_leaves(v, path + (i,), lead)]
+    return [(path, lead, tree)]
+
+
+def _leaf_name(path: tuple) -> str:
+    names = [k for k in path if isinstance(k, str)]
+    return names[-1] if names else ""
+
+
+def _model_dim(how: Any, ndim: int) -> Optional[int]:
+    return ndim - 1 if how == "pair" else how
+
+
+def _whole_meta(cfg: ArchConfig) -> Any:
+    from repro_torch.models.transformer import param_specs
+    return param_specs(cfg)
+
+
+@functools.lru_cache(maxsize=64)
+def _data_candidates(cfg: ArchConfig, m: int, n: int
+                     ) -> Tuple[Tuple[Optional[int], int], ...]:
+    """For each leaf of ``cfg``'s tree (leaf order): the dim of its model
+    block the data cut of ``n`` takes (the spec's "data" dim under
+    ``fsdp``; None where the spec has none or the block does not split
+    into n), and the leaf's stacked size (``replicate_small_below``
+    decides on it)."""
+    policy = ShardingPolicy(fsdp=True, axis_sizes=(("data", n), ("model", m)),
+                            replicate_small_below=0)
     layout = exec_layout(cfg, m)
-    return _map_named(lambda name, x: x if layout.get(name) is None
-                      else _cut(x, layout[name], m, r), params)
+    out = []
+    for path, lead, leaf in _named_leaves(_whole_meta(cfg)):
+        spec = spec_for_param(path, lead + tuple(leaf.shape), policy)
+        spec = spec[len(spec) - leaf.dim():] if len(spec) >= leaf.dim() \
+            else spec
+        dims = [i for i, a in enumerate(spec) if a == "data" or (
+            isinstance(a, tuple) and "data" in a)]
+        dim = None
+        if dims:
+            i = dims[0]
+            cut = _model_dim(layout.get(_leaf_name(path)), leaf.dim()) == i
+            local = leaf.shape[i] // (m if cut else 1)
+            dim = i if local % n == 0 else None
+        out.append((dim, math.prod(lead) * leaf.numel()))
+    return tuple(out)
+
+
+def data_cut_dims(cfg: ArchConfig, m: int, n: int,
+                  policy: Optional[ShardingPolicy] = None
+                  ) -> Tuple[Optional[int], ...]:
+    """For each leaf (leaf order): the dim the data cut of ``n`` takes in
+    the rank's model block, or None for a leaf whole over "data" (no
+    "data" in its spec, or a stacked size below the policy's
+    ``replicate_small_below``)."""
+    if n == 1:
+        return (None,) * len(_data_candidates(cfg, m, 1))
+    small = ShardingPolicy().replicate_small_below if policy is None \
+        else policy.replicate_small_below
+    return tuple(dim if size >= small else None
+                 for dim, size in _data_candidates(cfg, m, n))
+
+
+def shard_for_rank(params: Any, cfg: ArchConfig, m: int, r: int,
+                   n: int = 1, d: int = 0,
+                   policy: Optional[ShardingPolicy] = None) -> Any:
+    """Rank ``r``'s tree of ``m`` model ranks under the execution layout
+    and, with ``n`` > 1, data rank ``d``'s block of it (the data cut of
+    ``policy``): views of ``params`` (``in_proj`` and padded leaves
+    copies of their blocks); leaves whole on every rank are the same
+    tensors."""
+    layout = exec_layout(cfg, m)
+    hd = cfg.resolved_head_dim
+
+    def model_cut(name, x):
+        how = layout.get(name)
+        if how is None:
+            return x
+        kind = _head_kind(cfg, m, name)
+        blk = None if kind is None else head_block(cfg, m, r, kind)
+        if blk is not None:
+            return _cut_padded(x, how, hd, blk)
+        return _cut(x, how, m, r)
+
+    out = _map_named(model_cut, params)
+    if n == 1:
+        return out
+    dims = data_cut_dims(cfg, m, n, policy)
+    leaves = tree_leaves(out)
+    if len(leaves) != len(dims):
+        raise ValueError(f"{cfg.name}: a tree of {len(leaves)} leaves, not "
+                         f"the config's {len(dims)}")
+    return tree_unflatten(out, [
+        x if dim is None else x.narrow(dim, d * (x.shape[dim] // n),
+                                       x.shape[dim] // n)
+        for x, dim in zip(leaves, dims)])
+
+
+def _data_size(grid: GridComm) -> int:
+    return grid.axis_size("data") if "data" in grid.axis_names else 1
 
 
 def shard_params(params: Any, cfg: ArchConfig, grid: GridComm,
-                 policy: Optional[ShardingPolicy] = None) -> Any:
+                 policy: Optional[ShardingPolicy] = None,
+                 data_cut: bool = False) -> Any:
     """This rank's shards of the whole tree ``params`` over the grid's
     model axis (the policy's ``model_axis``, default "model"): the
-    execution layout of the module docstring.  Views where a block is
+    execution layout of the module docstring; with ``data_cut`` also
+    over the grid's "data" axis (ZeRO-3).  Views where a block is
     contiguous in memory or strided, so rank threads of one card share
     one weight set."""
     policy = for_grid(grid) if policy is None else policy
     m = _model_size(grid, policy)
-    if m == 1:
+    n = _data_size(grid) if data_cut else 1
+    if m == 1 and n == 1:
         return params
-    return shard_for_rank(params, cfg, m, grid.axis_index(policy.model_axis))
+    r = grid.axis_index(policy.model_axis) if m > 1 else 0
+    d = grid.axis_index("data") if n > 1 else 0
+    return shard_for_rank(params, cfg, m, r, n, d, policy)
 
 
 def unshard_params(params: Any, cfg: ArchConfig, grid: GridComm,
                    policy: Optional[ShardingPolicy] = None) -> Any:
-    """The whole tree on every rank, each sharded leaf gathered over the
-    model axis (every rank of it must call this): the inverse of
+    """The whole tree on every rank, each cut leaf gathered over "data"
+    (a tree cut over it, :func:`tree_cuts`) and over the model axis, the
+    pad heads taken out (every rank must call this): the inverse of
     :func:`shard_params`, exact."""
     policy = for_grid(grid) if policy is None else policy
+    cuts = tree_cuts(params, cfg, grid)
+    if cuts.data > 1:
+        comm = grid.sub("data")
+        leaves = tree_leaves(params)
+        params = tree_unflatten(params, [
+            x if dim is None else torch.cat(
+                list(comm.all_gather(x.contiguous()[None])), dim)
+            for x, dim in zip(leaves, cuts.data_dims)])
     m = _model_size(grid, policy)
     if m == 1:
         return params
     layout = exec_layout(cfg, m)
     comm = grid.sub(policy.model_axis)
+    hd = cfg.resolved_head_dim
 
     def gather(name, x):
         how = layout.get(name)
         if how is None:
             return x
-        parts = comm.all_gather(x.contiguous()[None])
-        return _join(list(parts), how)
+        whole = _join(list(comm.all_gather(x.contiguous()[None])), how)
+        kind = _head_kind(cfg, m, name)
+        if kind is not None and head_block(cfg, m, 0, kind) is not None:
+            whole = _strip_padding(whole, how, hd, cfg, m, kind)
+        return whole
 
     return _map_named(gather, params)
 
 
-def model_sharded_leaves(params: Any, cfg: ArchConfig) -> list:
-    """For each leaf in leaf order: whether a rank's tree holds only its
-    block of it (False for the leaves whole on every rank, and for every
-    leaf of a whole tree)."""
-    m = tp_degree(params, cfg)
-    layout = exec_layout(cfg, m)
-    return tree_leaves(_map_named(
-        lambda name, x: layout.get(name) is not None, params))
+# ---------------------------------------------------------------------- #
+# the one rule: which cuts a tree carries
+# ---------------------------------------------------------------------- #
+class Cuts(NamedTuple):
+    """The model axis size a tree was cut by, the data axis size (1: whole
+    over "data") and, for each leaf in leaf order, whether a rank holds
+    only its model block of it (all False for a whole tree) and its
+    data-cut dim (None: whole over "data"; all None without a data
+    cut)."""
+    model: int
+    data: int
+    model_cut: Tuple[bool, ...]
+    data_dims: Tuple[Optional[int], ...]
 
 
-def tp_degree(params: Any, cfg: ArchConfig) -> int:
-    """The one rule that says whether ``params`` is one rank's shards: the
-    model axis size its embedding was cut by (1 for a whole tree)."""
+@functools.lru_cache(maxsize=64)
+def _rank_shapes(cfg: ArchConfig, m: int) -> Tuple[Tuple[int, ...], ...]:
+    """Each leaf's shape in a rank's model-cut tree (every rank's)."""
+    return tuple(tuple(x.shape) for x in tree_leaves(
+        shard_for_rank(_whole_meta(cfg), cfg, m, 0)))
+
+
+def _embed_degree(params: Any, cfg: ArchConfig) -> int:
     shape = tuple(params["embed"].shape)
     v, d = cfg.vocab_size, cfg.d_model
     if shape == (v, d):
@@ -496,9 +755,89 @@ def tp_degree(params: Any, cfg: ArchConfig) -> int:
                      f"whole ({v}, {d}) nor a model-axis block of it")
 
 
-__all__ = ["AxisSpec", "ShardingPolicy", "Spec", "batch_sharding_specs",
-           "cache_specs", "exec_layout", "for_grid",
-           "grad_sync_axes_for_grid", "labels_spec",
+def _grid_cuts(leaves: list, cfg: ArchConfig, m: int, n: int
+               ) -> Optional[Tuple[Optional[int], ...]]:
+    """Each leaf's data-cut dim when ``leaves`` are a rank's tree over a
+    model axis of ``m`` cut (or not) over a data axis of ``n``; None when
+    they are not."""
+    try:
+        shapes = _rank_shapes(cfg, m)
+    except ValueError:
+        return None
+    if len(shapes) != len(leaves):
+        return None
+    cands = _data_candidates(cfg, m, n) if n > 1 else None
+    dims = []
+    for i, (x, want) in enumerate(zip(leaves, shapes)):
+        got = tuple(x.shape)
+        if got == want:
+            dims.append(None)
+            continue
+        dim = None if cands is None else cands[i][0]
+        if dim is None or got != want[:dim] + (want[dim] // n,) \
+                + want[dim + 1:]:
+            return None
+        dims.append(dim)
+    return tuple(dims)
+
+
+def _model_cut(params: Any, cfg: ArchConfig, m: int) -> Tuple[bool, ...]:
+    layout = exec_layout(cfg, m) if m > 1 else {}
+    return tuple(tree_leaves(_map_named(
+        lambda name, x: layout.get(name) is not None, params)))
+
+
+def tree_cuts(params: Any, cfg: ArchConfig, grid: Optional[GridComm] = None
+              ) -> Cuts:
+    """The one rule that says how ``params`` is cut: under ``grid`` (by
+    default the thread's ambient grid) its leaves' shapes are held
+    against a rank's tree of the grid's model axis, cut or not over its
+    "data" axis; without a grid, or where they are neither, the model
+    cut is read off the embedding (a whole tree, or one rank's model
+    block of it; anything else raises)."""
+    if grid is None:
+        from repro_torch.models.layers import _ambient_grid
+        grid = _ambient_grid()
+    leaves = None
+    if grid is not None:
+        names = grid.axis_names
+        m = grid.axis_size("model") if "model" in names else 1
+        n = _data_size(grid)
+        if m > 1 or n > 1:
+            leaves = tree_leaves(params)
+            dims = _grid_cuts(leaves, cfg, m, n)
+            if dims is not None:
+                cut = any(x is not None for x in dims)
+                return Cuts(m, n if cut else 1, _model_cut(params, cfg, m),
+                            dims)
+    m = _embed_degree(params, cfg)
+    n_leaves = len(leaves if leaves is not None else tree_leaves(params))
+    return Cuts(m, 1, _model_cut(params, cfg, m), (None,) * n_leaves)
+
+
+def tp_degree(params: Any, cfg: ArchConfig) -> int:
+    """The model axis size ``params`` was cut by (1 for a whole tree):
+    :func:`tree_cuts`' model half."""
+    return tree_cuts(params, cfg).model
+
+
+def model_sharded_leaves(params: Any, cfg: ArchConfig) -> List[bool]:
+    """For each leaf in leaf order: whether a rank's tree holds only its
+    model block of it (False for the leaves whole on every rank, and for
+    every leaf of a whole tree)."""
+    return list(tree_cuts(params, cfg).model_cut)
+
+
+def data_sharded_leaves(params: Any, cfg: ArchConfig) -> List[bool]:
+    """For each leaf in leaf order: whether it is cut over "data"."""
+    return [d is not None for d in tree_cuts(params, cfg).data_dims]
+
+
+__all__ = ["AxisSpec", "Cuts", "ShardingPolicy", "Spec",
+           "batch_sharding_specs", "cache_specs", "data_cut_dims",
+           "data_sharded_leaves", "exec_layout", "for_grid",
+           "grad_sync_axes_for_grid", "head_block", "labels_spec",
            "local_shard", "logits_spec", "model_sharded_leaves",
-           "param_sharding_tree", "shard_for_rank", "shard_params",
-           "spec_for_param", "tp_degree", "unshard_params"]
+           "padded_heads", "param_sharding_tree", "real_heads",
+           "shard_for_rank", "shard_params", "spec_for_param",
+           "tp_degree", "tree_cuts", "unshard_params"]

@@ -1,8 +1,8 @@
 """Train state and its sharding helpers (counterpart of
 ``repro/train/state.py``): the specs of a state over a grid, a state of
-meta tensors (nothing allocated), one rank's state over a model axis
-(``shard_train_state``) and its bytes, and the FSDP flat state back to
-the parameter tree."""
+meta tensors (nothing allocated), one rank's state over a model axis,
+and over "data" too (``shard_train_state``), and its bytes, and the FSDP
+flat state back to the parameter tree."""
 
 from __future__ import annotations
 
@@ -47,10 +47,13 @@ def abstract_train_state(cfg, master_weights: bool = False) -> TrainState:
 
 
 def shard_train_state(state: TrainState, cfg, grid,
-                      policy: Optional[ShardingPolicy] = None) -> TrainState:
-    """This rank's state over the grid's model axis: the parameters cut
-    by ``sharding.rules.shard_params``, the moments and the master copy
-    each inheriting its leaf's layout (tree-shaped state only)."""
+                      policy: Optional[ShardingPolicy] = None,
+                      data_cut: bool = False) -> TrainState:
+    """This rank's state over the grid's model axis, and with
+    ``data_cut`` over its "data" axis too (ZeRO-3): the parameters cut by
+    ``sharding.rules.shard_params``, the moments and the master copy each
+    inheriting its leaf's block, as the reference's
+    ``train_state_shardings`` (tree-shaped state only)."""
     opt = state.opt
     for x in (opt.mu, opt.nu):
         if torch.is_tensor(x):
@@ -59,24 +62,26 @@ def shard_train_state(state: TrainState, cfg, grid,
 
     def cut(tree):
         return None if tree is None else shard_params(tree, cfg, grid,
-                                                      policy)
+                                                      policy, data_cut)
 
     return TrainState(params=cut(state.params), opt=AdamWState(
         mu=cut(opt.mu), nu=cut(opt.nu), count=opt.count,
         master=cut(opt.master)))
 
 
-def rank_state_bytes(cfg, m: int, master_weights: bool = False) -> dict:
+def rank_state_bytes(cfg, m: int, master_weights: bool = False,
+                     n: int = 1) -> dict:
     """A rank's bytes of parameters and of optimizer state over a model
-    axis of ``m`` (``abstract_train_state`` cut on the meta device; rank
-    0's, every rank's are equal): {"params", "opt"}."""
+    axis of ``m`` (its padded heads included) and a data cut of ``n``
+    (``abstract_train_state`` cut on the meta device; rank 0's, every
+    rank's are equal): {"params", "opt"}."""
     state = abstract_train_state(cfg, master_weights)
 
     def nbytes(tree):
         if tree is None:
             return 0
-        return sum(x.numel() * x.element_size()
-                   for x in tree_leaves(shard_for_rank(tree, cfg, m, 0)))
+        return sum(x.numel() * x.element_size() for x in tree_leaves(
+            shard_for_rank(tree, cfg, m, 0, n)))
 
     opt = state.opt
     return {"params": nbytes(state.params),

@@ -26,7 +26,15 @@ the counterpart of ``repro/train/step.py`` for one device.
   forward is the tensor-parallel block, the cross entropy reduces the
   vocabulary's blocks over "model", each rank syncs its own leaves over
   the DP axes, and the clip's norm is the whole tree's
-  (``optim.adamw.global_norm``'s ``model_axis``).
+  (``optim.adamw.global_norm``'s ``model_axis``);
+* the data cut (ZeRO-3): on a rank's tree cut over "data" too
+  (``shard_params(..., data_cut=True)``) the forward gathers each layer
+  over "data" and the backward reduce-scatters its gradients, already
+  the mean over "data" (``layers.gather_layer``); only a "pod" axis is
+  left to allreduce them, while the leaves whole over "data" take the
+  bucketed AllReduce as before (``mode="allreduce"``; the flat
+  ``mode="fsdp"`` wants a tree whole over "data").  AdamW runs on the
+  blocks, the clip's norm summing each leaf over the axes that cut it.
 
 The gradient is taken with ``torch.autograd.grad`` on detached aliases of
 the parameters, so the parameter tensors themselves never carry
@@ -45,10 +53,10 @@ import torch
 from repro_torch.collectives.comm import GridComm
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer as tf
-from repro_torch.models.layers import bind_tp, reduce_from_model, tp_comm
+from repro_torch.models.layers import (bind_tp, model_parallel,
+                                      reduce_from_model, tree_comms)
 from repro_torch.optim.adamw import (AdamWConfig, AdamWState, ModelAxis,
                                      apply_updates, lr_at)
-from repro_torch.sharding.rules import model_sharded_leaves
 from repro_torch.train.state import TrainState
 from repro_torch.tree import (flatten_stacked, stacked_ndims, stacked_order,
                               tree_leaves, tree_map, tree_unflatten,
@@ -134,11 +142,12 @@ def loss_fn(params: Any, cfg: ArchConfig, batch: Batch, remat: bool = True,
             use_kernel: Optional[bool] = None
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     model_inputs = {k: v for k, v in batch.items() if k != "labels"}
-    logits, aux = tf.forward_train(params, cfg, model_inputs, remat=remat,
-                                   use_kernel=use_kernel)
-    comm = tp_comm(params, cfg)
-    vocab_cut = comm is not None and logits.shape[-1] != cfg.vocab_size
-    ce = cross_entropy(logits, batch["labels"], comm if vocab_cut else None)
+    with model_parallel(params, cfg) as comm:
+        logits, aux = tf.forward_train(params, cfg, model_inputs,
+                                       remat=remat, use_kernel=use_kernel)
+        vocab_cut = comm is not None and logits.shape[-1] != cfg.vocab_size
+        ce = cross_entropy(logits, batch["labels"],
+                           comm if vocab_cut else None)
     loss = ce + AUX_WEIGHT * aux
     return loss, {"ce": ce, "aux": aux}
 
@@ -306,6 +315,31 @@ def _dp_mean(x: Any, gs: Optional[GradSyncConfig]) -> Any:
     return total[0] / n
 
 
+def _sync_data_cut(grads: Any, cut: list, gs: GradSyncConfig) -> Any:
+    """The DP sync of a tree cut over "data": the leaves whole over it
+    through the bucketed AllReduce over ``gs.axes``, the cut ones (their
+    gradients already the mean over "data") over the other DP axes."""
+    from repro_torch.collectives.overlap import bucketed_allreduce
+
+    if "data" not in gs.axes:
+        raise ValueError(f"a tree cut over \"data\" syncs over it, not "
+                         f"over {gs.axes}")
+    leaves = tree_leaves(grads)
+    out = list(leaves)
+    rest = tuple(a for a in gs.axes if a != "data")
+    for flag, axes in ((False, tuple(gs.axes)), (True, rest)):
+        idx = [i for i, f in enumerate(cut) if f == flag]
+        if not idx or not axes:
+            continue
+        synced, _ = bucketed_allreduce(
+            [leaves[i] for i in idx], gs.grid, axes=axes,
+            algorithm=gs.algorithm, bucket_bytes=gs.bucket_bytes,
+            compress=gs.compress)
+        for i, g in zip(idx, synced):
+            out[i] = g
+    return tree_unflatten(grads, out)
+
+
 def _split_microbatches(batch: Batch, n: int):
     b = next(iter(batch.values())).shape[0]
     if b % n:
@@ -332,9 +366,16 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
     order."""
     def train_step(state: TrainState, batch: Batch):
         uk = tf.kernel_route(state.params, use_kernel)
-        comm = tp_comm(state.params, cfg)
-        model_axis = (None if comm is None else
-                      (comm, model_sharded_leaves(state.params, cfg)))
+        comm, data, cuts = tree_comms(state.params, cfg)
+        model_axis = None if comm is None else (comm, list(cuts.model_cut))
+        data_axis = (None if data is None else
+                     (data[0], [d is not None for d in cuts.data_dims]))
+        if data is not None and (grad_sync is None
+                                 or grad_sync.mode != "allreduce"):
+            raise ValueError(
+                "a tree cut over \"data\" trains with grad_sync "
+                "mode=\"allreduce\" over the DP axes (its cut leaves' "
+                "gradients are reduce-scattered in the backward)")
         if microbatches == 1:
             loss, metrics, grads = value_and_grad(
                 state.params, cfg, batch, remat=remat, use_kernel=uk)
@@ -364,7 +405,9 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
                 model_axis)
             return TrainState(params=params, opt=opt), {
                 "loss": loss, **metrics, **opt_metrics}
-        if grad_sync is not None:
+        if data_axis is not None:
+            grads = _sync_data_cut(grads, data_axis[1], grad_sync)
+        elif grad_sync is not None and grad_sync.axes:
             # explicit pure-DP sync: every gradient byte goes through the
             # engine's cached dispatch
             from repro_torch.collectives.overlap import bucketed_allreduce
@@ -375,7 +418,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
                 compress=grad_sync.compress)
         params, opt, opt_metrics = apply_updates(opt_cfg, state.params,
                                                  grads, state.opt,
-                                                 model_axis)
+                                                 model_axis, data_axis)
         return TrainState(params=params, opt=opt), {"loss": loss, **metrics,
                                                     **opt_metrics}
 

@@ -9,11 +9,15 @@ meta tensors, per (arch x shape x grid) cell.
 * the collectives counted on the meta step (calls and bytes, by op and
   by axis) equal those of the same step on 8 CPU rank threads, the same
   counter around ``LocalComm``;
-* FLOPs at 3 layer units equal the extrapolation from 1 and 2;
+* FLOPs at 3 layer units equal the extrapolation from 1 and 2, and the
+  peak at 4 units of a step whose largest statement changes with the
+  depth equals the extrapolation of each statement's peak;
 * every production ``ok`` cell does at least half the model FLOPs (the
   reference's ``test_dryrun_artifacts.py``); every other cell is
-  ``skipped`` as the reference skips it or ``refused`` exactly where
-  the execution layout cannot cut the model axis (ROADMAP C33);
+  ``skipped`` as the reference skips it; the cells whose heads the model
+  axis of 16 does not divide (refused until ROADMAP C33 closed) are
+  ``ok`` with their heads padded, a rank's bytes those of
+  ``rank_state_bytes`` with the data cut;
 * the records' keys are the reference's, and ``--scan`` is refused;
 * the counting comm, the kernels' meta bodies and the memory meter.
 """
@@ -32,7 +36,8 @@ from repro_torch.collectives import run_local, run_local_grid
 from repro_torch.collectives.comm import CountingComm, CountingGridComm
 from repro_torch.configs import SHAPES, all_configs, cell_is_runnable
 from repro_torch.configs import get_config
-from repro_torch.configs.base import layer_units, with_layer_units
+from repro_torch.configs.base import (ShapeSpec, layer_units,
+                                      with_layer_units)
 from repro_torch.kernels import ops
 from repro_torch.kernels import selective_scan as ss
 from repro_torch.kernels.flash_attention import FlashAttentionFn
@@ -54,8 +59,8 @@ FAMILIES = ("yi-34b", "olmoe-1b-7b", "falcon-mamba-7b", "recurrentgemma-9b",
             "whisper-medium")
 DEBUG_SHAPE = dataclasses.replace(SHAPES["train_4k"], seq_len=256,
                                   global_batch=4)
-#: the cells the execution layout refuses at the production model axis
-#: of 16 (ROADMAP C33): 56 heads and minicpm-2b's 36
+#: the archs whose heads the production model axis of 16 does not divide
+#: (56 heads and minicpm-2b's 36: padded, ROADMAP C33)
 C33 = ("arctic-480b", "llava-next-34b", "minicpm-2b", "yi-34b")
 
 
@@ -108,23 +113,20 @@ def _state_bytes(tree):
 def test_rank_bytes_equal_rank_state_bytes(arch):
     for cfg, grid in ((get_config(arch).reduced(), debug_grid()),
                       (get_config(arch), production_grid())):
-        m = dict(zip(grid[1], grid[0]))["model"]
-        try:
-            rules.exec_layout(cfg, m)
-        except ValueError:
-            assert arch in C33
-            continue
-        step = dryrun.RankStep(SHAPES["train_4k"], grid, fsdp=False,
-                               remat=True, microbatches=1)
-        _, (state, _), _ = step.build(cfg, use_kernel=True)
-        want = rank_state_bytes(cfg, m)
-        assert _state_bytes(state.params) == want["params"]
-        assert (_state_bytes(state.opt.mu) + _state_bytes(state.opt.nu)
-                == want["opt"])
-        # each shard a storage of its own: a rank holds its block only
-        for leaf in tree_leaves(state.params):
-            assert leaf.untyped_storage().nbytes() == (
-                leaf.numel() * leaf.element_size())
+        sizes = dict(zip(grid[1], grid[0]))
+        m = sizes["model"]
+        for fsdp in (False, True):
+            step = dryrun.RankStep(SHAPES["train_4k"], grid, fsdp=fsdp,
+                                   remat=True, microbatches=1)
+            _, (state, _), _ = step.build(cfg, use_kernel=True)
+            want = rank_state_bytes(cfg, m, n=sizes["data"] if fsdp else 1)
+            assert _state_bytes(state.params) == want["params"]
+            assert (_state_bytes(state.opt.mu) + _state_bytes(state.opt.nu)
+                    == want["opt"])
+            # each shard a storage of its own: a rank holds its block only
+            for leaf in tree_leaves(state.params):
+                assert leaf.untyped_storage().nbytes() == (
+                    leaf.numel() * leaf.element_size())
 
 
 # -------------------- collectives: meta vs 8 CPU ranks -------------------- #
@@ -140,10 +142,12 @@ def _real_counts(cfg, grid, mode):
     def fn(g):
         cg = CountingGridComm.around(g)
         policy = rules.for_grid(cg)
-        params = tree_map(lambda t: t.clone(),
-                          rules.shard_params(whole, cfg, cg))
+        # "fsdp": the reference's for_mesh(fsdp=True), the tree cut over
+        # "data" too, its whole leaves synced by the bucketed AllReduce
+        params = tree_map(lambda t: t.clone(), rules.shard_params(
+            whole, cfg, cg, data_cut=mode == "fsdp"))
         gs = GradSyncConfig(grid=cg, axes=rules.grad_sync_axes_for_grid(cg),
-                            mode=mode)
+                            mode="allreduce")
         step = make_train_step(cfg, AdamWConfig(), grad_sync=gs)
         rows = specs.rank_rows(policy, DEBUG_SHAPE.global_batch)
         first = cg.axes_index(policy.data_axes) * rows
@@ -185,18 +189,38 @@ def test_flops_at_three_units_equal_the_extrapolation(arch):
     assert f3 == f2 + (f2 - f1)
 
 
+@pytest.mark.parametrize("fsdp", [False, True],
+                         ids=["whole-over-data", "data-cut"])
+def test_peak_at_four_units_equals_the_extrapolation(fsdp):
+    # yi-34b at full width with 4 layers on a (data 2, model 2) grid:
+    # whole over "data", the step's largest statement at 1 and 2 units is
+    # AdamW's update (the widest leaf's float32 temporaries) and from 3
+    # units on the bucketed AllReduce (the flat float32 copy beside the
+    # gradients), so the max of the two depths extrapolates short of the
+    # peak; each statement extrapolated on its own gives the meter's peak
+    # at 4 units exactly
+    arch, grid = "yi-34b", ((2, 2), ("data", "model"))
+    cfg = with_layer_units(get_config(arch), 4)
+    shape = ShapeSpec("4x2048", 2048, 4, "train")
+    rec = dryrun.run_cell(arch, shape, "debug", fsdp=fsdp, save=False,
+                          grid=grid, levers={"num_layers": cfg.num_layers})
+    full = dryrun.card_pass(dryrun.RankStep(shape, grid, fsdp, True, 1),
+                            cfg, True)
+    assert rec["memory"]["peak_memory_in_bytes"] == full["peak"]
+
+
 def _ok_cells():
     out = []
     for arch in sorted(all_configs()):
         for shape in SHAPES:
-            if arch not in C33 and cell_is_runnable(get_config(arch),
-                                                    SHAPES[shape])[0]:
+            if cell_is_runnable(get_config(arch), SHAPES[shape])[0]:
                 out.append((arch, shape))
     return out
 
 
 def test_twenty_ok_cells():
-    assert len(_ok_cells()) == 20
+    """Twenty until the padded heads; thirty-two with them."""
+    assert len(_ok_cells()) == 32
 
 
 @pytest.mark.parametrize("arch,shape", _ok_cells())
@@ -217,17 +241,35 @@ def test_ok_cell_does_at_least_half_the_model_flops(arch, shape):
 
 @pytest.mark.parametrize("mesh", ["pod", "multipod"])
 def test_skipped_and_refused_cells(mesh):
+    """No cell is refused: the ones the model axis of 16 refused before
+    its heads were padded are ``ok`` (``train_4k`` here, the other shapes
+    in :func:`test_ok_cell_does_at_least_half_the_model_flops`), a rank's
+    state that of ``rank_state_bytes`` with the data cut."""
+    grid = dryrun.MESHES[mesh]()
+    sizes = dict(zip(grid[1], grid[0]))
     for arch in sorted(all_configs()):
         for shape in SHAPES:
             runnable = cell_is_runnable(get_config(arch), SHAPES[shape])[0]
-            if runnable and arch not in C33:
-                continue
-            rec = dryrun.run_cell(arch, shape, mesh, save=False)
             if not runnable:
+                rec = dryrun.run_cell(arch, shape, mesh, save=False)
                 assert rec["status"] == "skipped" and shape == "long_500k"
-            else:
-                assert rec["status"] == "refused", rec
-                assert "C33" in rec["reason"] and arch in rec["reason"]
+            elif arch in C33 and shape == "train_4k":
+                rec = dryrun.run_cell(arch, shape, mesh, save=False)
+                assert rec["status"] == "ok", rec
+                pad = rec["padding"]
+                assert pad["padded_heads"] != pad["heads"]
+                assert 0 < pad["pad_flops_share"] < 0.5
+                cfg = get_config(arch)
+                step = dryrun.RankStep(SHAPES[shape], grid, fsdp=True,
+                                       remat=True, microbatches=1)
+                _, (state, _), _ = step.build(cfg, use_kernel=True)
+                want = rank_state_bytes(cfg, sizes["model"],
+                                        n=sizes["data"])
+                assert _state_bytes(state.params) == want["params"]
+                assert _state_bytes(state.opt.mu) + _state_bytes(
+                    state.opt.nu) == want["opt"]
+                assert rec["memory"]["argument_size_in_bytes"] >= (
+                    want["params"] + want["opt"])
 
 
 # ------------------------------ the records ------------------------------ #
@@ -264,7 +306,7 @@ def test_records_keep_the_reference_keys():
     ok = dryrun.run_cell("mistral-nemo-12b", "train_4k", "pod")
     assert ok["status"] == "ok"
     port_only = {"grid", "route", "fits", "card_bytes",
-                 "collectives_by_axis_u2", "roofline_h100"}
+                 "collectives_by_axis_u2", "roofline_h100", "padding"}
     # "reason" is a skipped cell's, "error" a failed one's,
     # "memory_analysis_error" an XLA error's
     assert set(ok) == (ref - {"reason", "error", "memory_analysis_error"}
@@ -277,8 +319,12 @@ def test_records_keep_the_reference_keys():
     h = ok["roofline_h100"]
     assert h["bound_s"] == max(h["compute_s"], h["memory_s"])
     assert h["compute_s"] == ok["cost"]["flops"] / 989e12
-    refused = dryrun.run_cell("yi-34b", "train_4k", "pod")
+    # heads neither cut nor padded at 16 (12 over 3 kv heads)
+    refused = dryrun.run_cell("yi-34b", "train_4k", "pod",
+                              levers={"num_heads": 12, "num_kv_heads": 3})
     skipped = dryrun.run_cell("yi-34b", "long_500k", "pod")
+    assert refused["status"] == "refused"
+    assert "cannot cut 3 kv heads" in refused["reason"]
     assert set(refused) == set(skipped) == {
         "arch", "shape", "mesh", "microbatches", "fsdp", "remat", "tag",
         "notes", "status", "reason", "artifact"}

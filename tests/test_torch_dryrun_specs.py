@@ -128,7 +128,7 @@ def test_rank_cache_is_the_whole_one_cut(arch, shape):
         want = list(x.shape)
         want[1] = rows
         if key in ("k", "v", "enc_k", "enc_v"):
-            kv = cfg.num_kv_heads
+            kv = rules.padded_heads(cfg, m)[1]           # padded (C33)
             want[3] = kv // m if kv % m == 0 else 1      # C31: one kv head
         elif key == "conv":
             want[3] //= m

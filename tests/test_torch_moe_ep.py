@@ -269,9 +269,8 @@ def test_each_rank_holds_its_experts_only(inputs, grid_key):
         ep_axes = moe_ep._ep_axes_for(grid)
         n = math.prod(grid.axis_size(a) for a in ep_axes)
         spec = ep_axes if len(ep_axes) > 1 else ep_axes[0]
-        fsdp = "data" if "data" in names and "data" not in ep_axes else None
         ws = moe.expert_weights(grid, inputs["wg"], inputs["wu"],
-                                inputs["wd"], spec, fsdp)
+                                inputs["wd"], spec)
         lo = grid.axes_index(ep_axes) * (E // n)
         return n, [w.shape[0] for w in ws], torch.equal(
             ws[0], inputs["wg"][lo:lo + E // n])

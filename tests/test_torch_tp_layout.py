@@ -10,8 +10,9 @@ and the grids of ``launch/mesh.py``:
   (``spec_for_param``), shown against it: ``in_proj``'s channels of x and
   of z, MQA's whole kv projections; an odd vocabulary takes the spec's
   own move onto d_model;
-* the refusals name the config and m; the one rule (``tp_degree``) reads
-  a tree off its embedding; caches, page pools and train state follow
+* the refusals name the config and m (heads that do not divide m are
+  padded: ``test_torch_tp_padding.py``); the one rule (``tp_degree``)
+  reads a tree off its embedding; caches, page pools and train state follow
   the layout; ``params_from_jax(..., grid=)`` round-trips exactly;
 * the four grids equal the reference's meshes (``jax.make_mesh``
   replaced, so no 256-device mesh is built).
@@ -163,7 +164,6 @@ def test_odd_vocabulary_cuts_d_model_as_the_spec_does(arch):
 
 
 @pytest.mark.parametrize("arch,m,kw,what", [
-    ("minicpm-2b", 8, {}, "36 attention heads"),
     ("olmoe-1b-7b", 4, {"num_experts": 6}, "6 experts"),
     ("yi-34b", 4, {"d_ff": 130}, "a hidden dim of 130"),
     ("yi-34b", 4, {"num_heads": 12, "num_kv_heads": 3}, "3 kv heads"),

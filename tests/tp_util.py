@@ -23,7 +23,9 @@ from repro_torch.convert import params_from_jax
 from repro_torch.models import decode_step, forward_train, prefill
 from repro_torch.models.layers import ambient_grid
 from repro_torch.models.paged import forward_paged, init_pages
-from repro_torch.sharding.rules import shard_params, unshard_params
+from repro_torch.models.transformer import local_kv_heads
+from repro_torch.sharding.rules import (for_grid, shard_params,
+                                        unshard_params)
 from repro_torch.train.step import value_and_grad
 from repro_torch.tree import tree_leaves
 from torch_util import configs, jax_params_numpy
@@ -42,7 +44,7 @@ class Model:
     """A reduced float32 config's weights in both packages and one batch
     of inputs (numpy, from a seed)."""
 
-    def __init__(self, arch, seed=0, **overrides):
+    def __init__(self, arch, seed=0, batch=B, **overrides):
         self.jcfg, self.cfg = (dataclasses.replace(c, **overrides)
                                for c in configs(arch, "float32"))
         self.jp = jtf.init_params(jax.random.PRNGKey(seed), self.jcfg)
@@ -51,14 +53,15 @@ class Model:
         self._memo = {}
         s = PROMPT.get(self.cfg.family, 16)
         rng = np.random.default_rng(seed + 1)
-        tokens = rng.integers(0, self.cfg.vocab_size, (B, s)).astype(np.int32)
+        tokens = rng.integers(0, self.cfg.vocab_size,
+                              (batch, s)).astype(np.int32)
         self.batch = {"tokens": tokens, "labels": np.roll(tokens, -1, 1)}
         if self.cfg.family == "encdec":
             self.batch["frames"] = rng.normal(
-                size=(B, 16, self.cfg.d_model)).astype(np.float32)
+                size=(batch, 16, self.cfg.d_model)).astype(np.float32)
         if self.cfg.frontend == "vision":
             self.batch["soft_emb"] = rng.normal(
-                size=(B, 4, self.cfg.d_model)).astype(np.float32)
+                size=(batch, 4, self.cfg.d_model)).astype(np.float32)
 
     def memo(self, name, fn):
         """``fn()`` once per model (the reference's results are shared by
@@ -117,14 +120,27 @@ class Model:
         return np.concatenate([np.asarray(l1), np.asarray(l2)], 1)
 
     # ------------------------- the sharded port ------------------------ #
-    def on_ranks(self, fn, m):
+    def on_ranks(self, fn, m, n=1):
         """``fn(grid, rank's tree)`` on ``m`` model-rank threads under the
-        ambient grid; the results by rank."""
+        ambient grid, or with ``n`` > 1 on a (data n, model m) grid, the
+        tree cut over "data" too (every leaf the spec puts "data" on: the
+        reduced configs' leaves are all below ``replicate_small_below``);
+        the results by rank, row-major over (data, model)."""
         def rank(grid):
-            local = shard_params(self.params, self.cfg, grid)
+            if n == 1:
+                local = shard_params(self.params, self.cfg, grid)
+            else:
+                policy = dataclasses.replace(for_grid(grid),
+                                             replicate_small_below=0)
+                local = shard_params(self.params, self.cfg, grid, policy,
+                                     data_cut=True)
             with ambient_grid(grid):
                 return fn(grid, local)
-        return run_local_grid(rank, (m,), ("model",), "cpu", timeout=120)
+        if n == 1:
+            return run_local_grid(rank, (m,), ("model",), "cpu",
+                                  timeout=120)
+        return run_local_grid(rank, (n, m), ("data", "model"), "cpu",
+                              timeout=300)
 
     def tp_forward(self, m):
         """Per rank: (logits gathered over the vocabulary, loss)."""
@@ -145,12 +161,19 @@ class Model:
             return unshard_params(grads, self.cfg, grid)
         return self.on_ranks(fn, m)
 
-    def tp_greedy(self, m):
+    def tp_greedy(self, m, n=1):
         """Per rank: (tokens, logits of every step) of prefill and greedy
-        decode on the rank's tree."""
+        decode on the rank's tree (:meth:`on_ranks`), of its data rank's
+        rows of the batch."""
         def fn(grid, local):
+            batch = self.tbatch(False)
+            if n > 1:
+                per = len(self.batch["tokens"]) // n
+                d = grid.axis_index("data")
+                batch = {k: v[d * per:(d + 1) * per]
+                         for k, v in batch.items()}
             with torch.no_grad():
-                logits, cache = prefill(local, self.cfg, self.tbatch(False))
+                logits, cache = prefill(local, self.cfg, batch)
                 cache = pad_cache(self.cfg, cache, torch)
                 steps, toks = [logits], []
                 for _ in range(DECODE_STEPS):
@@ -160,7 +183,7 @@ class Model:
                                                 {"tokens": nxt})
                     steps.append(logits)
             return torch.cat(toks, 1).numpy(), torch.cat(steps, 1).numpy()
-        return self.on_ranks(fn, m)
+        return self.on_ranks(fn, m, n)
 
     def tp_paged(self, m):
         """Per rank: the paged chunk and decode step logits on the rank's
@@ -170,7 +193,7 @@ class Model:
         def fn(grid, local):
             pages = init_pages(self.cfg, PAGED["blocks"],
                                PAGED["block_size"], device="cpu", tp=m)
-            assert pages["k"].shape[3] * m == self.cfg.num_kv_heads
+            assert pages["k"].shape[3] == local_kv_heads(self.cfg, m)
             with torch.no_grad():
                 l1, pages = forward_paged(
                     local, self.cfg, pages,
@@ -234,12 +257,16 @@ def check_grads(model, m):
         assert_close_trees(grads, want, GRAD_TOL)
 
 
-def check_greedy(model, m):
+def check_greedy(model, m, n=1):
+    """Every rank's greedy stream against the reference's on its rows;
+    ``n`` > 1: the tree cut over a data axis of ``n`` too."""
     want_toks, want_logits = model.memo("ref_greedy", model.ref_greedy)
-    for toks, logits in model.tp_greedy(m):
-        np.testing.assert_array_equal(toks, want_toks)
-        np.testing.assert_allclose(logits, want_logits, rtol=LOGITS_TOL,
-                                   atol=LOGITS_TOL)
+    per = len(want_toks) // n
+    for r, (toks, logits) in enumerate(model.tp_greedy(m, n)):
+        rows = slice((r // m) * per, (r // m + 1) * per)
+        np.testing.assert_array_equal(toks, want_toks[rows])
+        np.testing.assert_allclose(logits, want_logits[rows],
+                                   rtol=LOGITS_TOL, atol=LOGITS_TOL)
 
 
 def check_paged(model, m):
