@@ -217,9 +217,11 @@
    of ``yi-34b`` TP-4 (8 steps, the GQA ``paged_mma`` at 14/2 heads a
    rank) and ``minicpm-2b`` TP-8 (4 steps, 5/5 heads a rank): a 2 x 512
    chunk, then ``decode_step_paged`` steps through the paged kernel,
-   per-rank pools; a no-grad ``forward_train`` of ``yi-34b`` TP-4 at 2 x
-   4096 (the loss through the vocabulary-parallel cross entropy, and
-   each rank's block of the logits).  Then float32 route checks of the
+   per-rank pools; a no-grad ``forward_train`` of ``yi-34b`` TP-4 and of
+   ``minicpm-2b`` TP-8 at 2 x 4096 (the loss through the
+   vocabulary-parallel cross entropy, and each rank's block of the
+   logits: minicpm-2b's 122753 words padded to 122760, 15345 a rank,
+   ``sharding.rules.padded_vocab``).  Then float32 route checks of the
    sharded block at TP-4 through the kernels against the single rank's
    plain route (1 x 4096, 1e-4): ``yi-34b`` at 2 layers, ``olmoe-1b-7b``
    (16 experts a rank), ``falcon-mamba-7b`` (di 2048 a rank, the scan
@@ -230,10 +232,10 @@
    every (arch x shape) cell of the 16 x 16 grid as one rank's sharded
    step on meta tensors, its tree cut over "data" too (8 processes, the
    host's cores), and one cell of the 2 x 16 x 16 grid: 32 ``ok`` (the
-   56- and 36-head archs with their heads padded), 8 ``skipped``
-   (``long_500k`` of the attention archs), none ``refused`` or
-   ``failed``, each ``ok`` cell's
-   predicted peak against the card, its H100 bound and its padding; then
+   56- and 36-head archs with their heads padded, the odd vocabularies
+   padded), 8 ``skipped`` (``long_500k`` of the attention archs), none
+   ``refused`` or ``failed``, each ``ok`` cell's predicted peak within
+   the card (every one ``fits``), its H100 bound and its padding; then
    its prediction of phase 11's step (one rank, the same depth, batch and
    sequence) is held against the peak phase 11 measured
    (``max_memory_allocated``): within 10 % or 1 GB.
@@ -242,14 +244,16 @@ Phase 10 (NCCL, two or more cards) also times neighbour shifts over
 NCCL and runs ``calibrate(grid=)`` one process a card (the NVLink
 constants, persisted in a cache directory of the phase's own), trains
 the sharded block one process a card (``--tp-train-worker``: ``yi-34b``
-at full width, 4 layers, 2 steps: TP over the four cards on the 4 x
-2048 global batch, then on a (data 2, model 2) grid, 2 x 2048 rows a
-data rank, the tree whole over "data" and then cut over it (ZeRO-3);
-the loss and the leaves whole on every rank bitwise equal across the
-ranks, the loss within 2e-2 of the single rank's step on the 4 x 2048
-batch, each peak against the reckoning and the dry-run's prediction for
-that grid within 10 % or 1 GB, the data cut's below the other's), and
-ends
+and then ``minicpm-2b``, its vocabulary padded to the model axis, at
+full width, 4 layers, 2 steps: TP over the four cards on the 4 x 2048
+global batch, then on a (data 2, model 2) grid, 2 x 2048 rows a data
+rank, the tree whole over "data" and then cut over it (ZeRO-3); the
+loss and the leaves whole on every rank bitwise equal across the ranks,
+the loss within 2e-2 of the single rank's step on the 4 x 2048 batch,
+each peak against the reckoning and the dry-run's prediction for that
+grid within 10 % or 1 GB, the data cut's below the other's; for
+``minicpm-2b`` the dry-run's peak of the same run with whole logits on
+every rank is printed beside it), and ends
 with the trainer under torchrun with ``--arch olmoe-1b-7b --reduced
 --dp --moe-ep`` (EP with a backward), the loss equal on both ranks.
 
@@ -340,8 +344,9 @@ from repro_torch.serving.fleet import (AdmissionConfig,  # noqa: E402
 from repro_torch.serving.telemetry import export_to_registry  # noqa: E402
 from repro_torch.models.transformer import local_kv_heads  # noqa: E402
 from repro_torch.sharding.rules import (grad_sync_axes_for_grid,  # noqa
-                                        padded_heads, shard_for_rank,
-                                        shard_params, tree_cuts)
+                                        padded_heads, padded_vocab,
+                                        shard_for_rank, shard_params,
+                                        tree_cuts, vocab_block)
 from repro_torch.train.state import (init_train_state,  # noqa: E402
                                      rank_state_bytes)
 from repro_torch.train.step import (GradSyncConfig,  # noqa: E402
@@ -619,13 +624,13 @@ MM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 #: a chunk's logits), then decode steps through the paged kernel.  The
 #: greedy and paged steps are few where many threads decode (8 threads
 #: take ~4.8 s a step on the card's host: the phase's wall)
-TP_ARCH = "yi-34b"
 TP_BLOCK = dict(batch=2, prompt=4096, headroom=16, paged_prompt=512,
                 block_size=16)
 #: (arch, model axis, layers or None: full depth, greedy steps, paged
-#: route steps or 0: none, the no-grad ``forward_train`` too)
+#: route steps or 0: none, the no-grad ``forward_train`` too: minicpm-2b's
+#: with its vocabulary padded to the model axis, 122753 to 122760 words)
 TP_CASES = (("yi-34b", 4, 30, 16, 8, True),
-            ("minicpm-2b", 8, None, 4, 4, False),
+            ("minicpm-2b", 8, None, 4, 4, True),
             ("yi-34b", 16, 8, 4, 0, False))
 #: the sharded route's bf16 logits against the single rank's: 2 bf16 ulps
 #: of the largest logit at one layer (the tp decode phase's bound), the
@@ -644,21 +649,28 @@ TP_ROUTE = (("yi-34b", 2), ("olmoe-1b-7b", 2), ("falcon-mamba-7b", 2),
             ("recurrentgemma-9b", 1), ("whisper-medium", 2))
 TP_ROUTE_TP = 4
 TP_ROUTE_TOL = 1e-4
-#: the sharded train step one process a card over NCCL: yi-34b at full
-#: width with 4 layers, 2 steps, on a ("model",) grid of every card (the 4
-#: x 2048 global batch on each) and on a ("data", "model") grid of (2,
-#: cards / 2) (2 x 2048 rows a data rank), the tree whole over "data" and
-#: then cut over it (ZeRO-3), each held to the single rank's step on the
-#: global batch and its peak to the dry-run's prediction
+#: the sharded train step one process a card over NCCL: yi-34b and then
+#: minicpm-2b (its vocabulary padded to the model axis: 122756 words at
+#: TP-4, 61378 at 2) at full width with 4 layers, 2 steps, on a
+#: ("model",) grid of every card (the 4 x 2048 global batch on each) and
+#: on a ("data", "model") grid of (2, cards / 2) (2 x 2048 rows a data
+#: rank), the tree whole over "data" and then cut over it (ZeRO-3), each
+#: held to the single rank's step on the global batch and its peak to the
+#: dry-run's prediction
 TP_TRAIN = dict(layers=4, batch=2, seq=2048, steps=2, lr=3e-4)
+TP_TRAIN_ARCHS = ("yi-34b", "minicpm-2b")
 #: the dry-run's sweep of the 16 x 16 grid: its status counts (the archs
 #: whose heads the model axis of 16 does not divide padded, ``DRYRUN_
 #: PADDED``: none refused), the processes it runs in (host work on meta
 #: tensors) and one cell of the 2 x 16 x 16 grid
 DRYRUN_COUNTS = {"ok": 32, "skipped": 8, "refused": 0, "failed": 0}
 DRYRUN_PADDED = ("arctic-480b", "llava-next-34b", "minicpm-2b", "yi-34b")
+#: the archs whose vocabulary the model axis of 16 does not divide, padded
+#: (``padded_vocab``); every ``ok`` cell fits the card
+DRYRUN_VOCAB_PADDED = ("minicpm-2b", "whisper-medium")
 DRYRUN_WORKERS = 8
-DRYRUN_MULTIPOD = ("mistral-nemo-12b", "train_4k")
+DRYRUN_MULTIPOD = (("mistral-nemo-12b", "train_4k"),
+                   ("minicpm-2b", "train_4k"))
 #: a predicted peak against the card's measured one: 10 % or 1 GB
 DRYRUN_TOL = (0.10, 1e9)
 
@@ -1959,10 +1971,16 @@ def dryrun_phase(dense: dict) -> None:
         f"{DRYRUN_WORKERS} host processes (the tree cut over \"data\" too)")
     assert counts == DRYRUN_COUNTS, counts
     padded = sorted({r["arch"] for r in records if r["status"] == "ok"
-                     and r["padding"] is not None
-                     and r["padding"]["heads"] != r["padding"][
-                         "padded_heads"]})
+                     and r["padding"].get("heads") != r["padding"].get(
+                         "padded_heads")})
     assert padded == sorted(DRYRUN_PADDED), padded
+    vocab = sorted({r["arch"] for r in records if r["status"] == "ok"
+                    and r["padding"]["vocab"] != r["padding"][
+                        "padded_vocab"]})
+    assert vocab == sorted(DRYRUN_VOCAB_PADDED), vocab
+    too_big = [(r["arch"], r["shape"]) for r in records
+               if r["status"] == "ok" and not r["fits"]]
+    assert not too_big, too_big
     for r in records:
         if r["status"] == "ok":
             h, pad = r["roofline_h100"], r["padding"]
@@ -1972,18 +1990,27 @@ def dryrun_phase(dense: dict) -> None:
                 f"bound {h['bound_s'] * 1e3:.3f} ms ({h['bound_by']}): "
                 f"{r['cost']['flops']:.4e} FLOP, "
                 f"{r['cost']['bytes accessed']:.4e} bytes"
-                + ("" if pad is None or pad["heads"] == pad["padded_heads"]
+                + ("" if pad.get("heads") == pad.get("padded_heads")
                    else f" | heads {pad['heads']} padded to "
                    f"{pad['padded_heads']}: {pad['pad_flops_share']:.1%} of "
                    f"the attention FLOPs, {pad['pad_bytes_share']:.1%} of "
-                   f"its bytes on pad heads"))
+                   f"its bytes on pad heads")
+                + ("" if pad["vocab"] == pad["padded_vocab"]
+                   else f" | vocabulary {pad['vocab']} padded to "
+                   f"{pad['padded_vocab']}: "
+                   f"{pad['pad_vocab_flops_share']:.4%} of the head's FLOPs "
+                   f"and bytes on pad ids"))
     t1 = time.perf_counter()
-    (mp,) = dryrun.run_cells([DRYRUN_MULTIPOD], "multipod", log=log,
-                             save=False)
-    assert mp["status"] == "ok", mp
-    log(f"dryrun multipod (2 x 16 x 16) {DRYRUN_MULTIPOD}: peak "
-        f"{mp['memory']['peak_memory_in_bytes'] / 1e9:.3f} GB in "
-        f"{time.perf_counter() - t1:.1f} s")
+    for mp in dryrun.run_cells(DRYRUN_MULTIPOD, "multipod", log=log,
+                               save=False):
+        assert mp["status"] == "ok", mp
+        log(f"dryrun multipod (2 x 16 x 16) {mp['arch']} x {mp['shape']}: "
+            f"peak {mp['memory']['peak_memory_in_bytes'] / 1e9:.3f} GB (fits "
+            f"{mp['fits']}), collective bytes a rank "
+            f"{mp['collective_bytes_per_device'] / 1e9:.3f} GB, H100 bound "
+            f"{mp['roofline_h100']['bound_s'] * 1e3:.3f} ms")
+        assert mp["fits"], mp["memory"]
+    log(f"dryrun multipod cells in {time.perf_counter() - t1:.1f} s")
     total = torch.cuda.get_device_properties(0).total_memory
     t2 = time.perf_counter()
     rec = dryrun_prediction(DENSE_ARCH, DENSE_TRAIN["layers"],
@@ -3710,7 +3737,8 @@ def tp_route_check(seed: int, arch: str, units: int, tp: int) -> str:
     """A float32 ``arch`` at full width and ``units`` layer units: the
     sharded block on ``tp`` threads through the kernels against the single
     rank's plain route, forward only (no grad), 1 x 4096 positions; each
-    rank's block of the logits against the single rank's."""
+    rank's block of the padded vocabulary's logits against the single
+    rank's, its pad columns exactly zero."""
     cfg = dataclasses.replace(with_layer_units(get_config(arch), units),
                               dtype="float32")
     params = init_params(cfg, seed=seed, device="cuda")
@@ -3725,10 +3753,9 @@ def tp_route_check(seed: int, arch: str, units: int, tp: int) -> str:
         with torch.no_grad(), ambient_grid(grid):
             logits, _ = forward_train(shard_params(params, cfg, grid), cfg,
                                       inputs)
-        v = logits.shape[-1]
-        block = want if v == cfg.vocab_size else want[
-            ..., grid.rank * v:(grid.rank + 1) * v]
-        return _rel_err(logits, block)
+        first, real, _ = vocab_block(cfg, tp, grid.rank)
+        assert not logits[..., real:].any(), "a pad column's logit"
+        return _rel_err(logits[..., :real], want[..., first:first + real])
 
     errs = _tp_threads(rank, tp)
     torch.cuda.synchronize()
@@ -3880,13 +3907,15 @@ def tp_forward_train_case(rows: dict, params, cfg, tp: int,
                           seed: int) -> None:
     """``forward_train`` without grad on each rank's tree of :func:`tp_case`
     (the vocabulary-parallel cross entropy of ``loss_fn`` too): the loss
-    and each rank's block of the logits against the single rank's."""
+    and each rank's block of the padded vocabulary's logits against the
+    single rank's, its pad columns exactly zero."""
     b, s = TP_BLOCK["batch"], TP_BLOCK["prompt"]
     batch = lm_batch(cfg, b, s, 4, seed)
     inputs = {"tokens": batch["tokens"]}
     with torch.no_grad():
         want_loss = float(loss_fn(params, cfg, batch)[0])
         want_logits, _ = forward_train(params, cfg, inputs)
+    vp = padded_vocab(cfg, tp)
     ops.reset_launch_counts()
 
     def rank(grid):
@@ -3894,10 +3923,12 @@ def tp_forward_train_case(rows: dict, params, cfg, tp: int,
         with torch.no_grad(), ambient_grid(grid):
             loss = float(loss_fn(local, cfg, batch)[0])
             logits, _ = forward_train(local, cfg, inputs)
-        v = logits.shape[-1]
-        err = float((logits.float() - want_logits[
-            ..., grid.rank * v:(grid.rank + 1) * v].float()).abs().max())
-        return loss, err
+        first, real, pad = vocab_block(cfg, tp, grid.rank)
+        assert logits.shape == (b, s, vp // tp), logits.shape
+        assert not logits[..., real:].any(), "a pad column's logit"
+        err = float((logits[..., :real].float() - want_logits[
+            ..., first:first + real].float()).abs().max())
+        return loss, err, logits.numel() * logits.element_size()
 
     out = _tp_threads(rank, tp)
     counts = ops.launch_counts()
@@ -3912,7 +3943,11 @@ def tp_forward_train_case(rows: dict, params, cfg, tp: int,
         f"loss {losses[0]:.6f} on every rank vs the single rank's "
         f"{want_loss:.6f} (|diff| {d_loss:.3e}, tol {2 * tol:.3e}: twice "
         f"the logits' tol) | each rank's block of the vocabulary's logits "
-        f"max_abs_err {max(o[1] for o in out):.3e} (tol {tol:.3e}) | flash "
+        f"({cfg.vocab_size} words padded to {vp}: {vp // tp} a rank, "
+        f"{out[0][2] / 1e9:.3f} GB {want_logits.dtype} a rank vs the single "
+        f"rank's {want_logits.numel() * want_logits.element_size() / 1e9:.3f}"
+        f" GB; pad columns zero) max_abs_err {max(o[1] for o in out):.3e} "
+        f"(tol {tol:.3e}) | flash "
         f"launches {counts['flash_attention']} (loss and logits: 2 forwards "
         f"x {tp} ranks x {cfg.num_layers} layers)")
     del want_logits, out
@@ -4622,8 +4657,23 @@ def nccl_worker(rank: int, world: int, init: str, seed: int) -> int:
 
 
 def tp_train_worker(rank: int, world: int, init: str, seed: int) -> int:
-    """One rank of the sharded train step over NCCL, on card ``rank``:
-    rank 0 first runs the single-rank step on the whole tree over the
+    """One rank of the sharded train step over NCCL, on card ``rank``, for
+    each of ``TP_TRAIN_ARCHS`` (:func:`tp_train_arch`)."""
+    torch.distributed.init_process_group("nccl", init_method=init,
+                                         rank=rank, world_size=world)
+    dev = torch.device(f"cuda:{rank}")
+    torch.cuda.set_device(dev)
+    results = [(arch, tp_train_arch(arch, rank, world, dev, seed))
+               for arch in TP_TRAIN_ARCHS]
+    torch.distributed.destroy_process_group()
+    for arch, res in results:
+        tp_train_report(arch, rank, world, res)
+    return 0
+
+
+def tp_train_arch(arch: str, rank: int, world: int, dev, seed: int
+                  ) -> list:
+    """``arch``'s sharded train steps on this rank: rank 0 first runs the single-rank step on the whole tree over the
     global batch; then every rank runs the step on its shards of the same
     weights (``ProcessGroupGrid``), on a ("model",) grid of every card
     (the global batch on each) and, with 4 cards or more, on a ("data",
@@ -4632,13 +4682,10 @@ def tp_train_worker(rank: int, world: int, init: str, seed: int) -> int:
     equal on every rank and within the bf16 tolerance of the single
     rank's, the leaves whole on every rank bitwise equal across the
     ranks, each run's peak within 10 % or 1 GB of the dry-run's
-    prediction for its grid, the data cut's below the peak of the step
-    whole over "data"."""
-    torch.distributed.init_process_group("nccl", init_method=init,
-                                         rank=rank, world_size=world)
-    dev = torch.device(f"cuda:{rank}")
-    torch.cuda.set_device(dev)
-    cfg = with_layer_units(get_config(TP_ARCH), TP_TRAIN["layers"])
+    prediction for its grid (:func:`tp_train_report`), the data cut's
+    below the peak of the step whole over "data".  Returns each run's
+    figures."""
+    cfg = with_layer_units(get_config(arch), TP_TRAIN["layers"])
     opt_cfg = AdamWConfig(lr=TP_TRAIN["lr"], warmup_steps=1, total_steps=10)
     n_global = 2 if world >= 4 else 1
     batches = [lm_batch(cfg, TP_TRAIN["batch"] * n_global, TP_TRAIN["seq"],
@@ -4710,33 +4757,41 @@ def tp_train_worker(rank: int, world: int, init: str, seed: int) -> int:
         del state, metrics
         torch.cuda.empty_cache()
         results.append((shape, names, data_cut, rows, peak, reckoned,
-                        losses, walls, run_s, d_loss, tol, n_whole, held))
-    torch.distributed.destroy_process_group()
+                        losses, walls, run_s, d_loss, tol, n_whole, held,
+                        single.tolist()))
+    return results
+
+
+def tp_train_report(arch: str, rank: int, world: int, results: list
+                    ) -> None:
+    """Prints :func:`tp_train_arch`'s runs, each peak held to the
+    dry-run's prediction for its grid."""
+    cfg = with_layer_units(get_config(arch), TP_TRAIN["layers"])
     peaks = {}
     for (shape, names, data_cut, rows, peak, reckoned, losses, walls, run_s,
-         d_loss, tol, n_whole, held) in results:
+         d_loss, tol, n_whole, held, single) in results:
         n_data = dict(zip(names, shape)).get("data", 1)
         rec = dryrun_prediction(
-            TP_ARCH, TP_TRAIN["layers"], rows * n_data, TP_TRAIN["seq"],
+            arch, TP_TRAIN["layers"], rows * n_data, TP_TRAIN["seq"],
             (shape, names), fsdp=data_cut)["memory"]
         predicted = rec["peak_memory_in_bytes"]
         grid_s = " x ".join(f"{k} {v}" for k, v in zip(names, shape))
         what = ("cut over data (ZeRO-3)" if data_cut else
                 "whole over data" if n_data > 1 else "cut over model only")
         peaks[(shape, data_cut)] = peak
-        print(f"tp train rank {rank}/{world}: ({grid_s}) the tree {what}: "
-              f"peak {peak / 1e9:.3f} GB vs the dry-run's "
+        print(f"tp train rank {rank}/{world}: {arch} ({grid_s}) the tree "
+              f"{what}: peak {peak / 1e9:.3f} GB vs the dry-run's "
               f"{predicted / 1e9:.3f} GB: "
               f"{(predicted - peak) / peak * 100:+.2f} % (tolerance 10 % or "
               f"1 GB) | the state before the step {held / 1e9:.3f} GB vs "
               f"the dry-run's arguments "
               f"{rec['argument_size_in_bytes'] / 1e9:.3f} GB", flush=True)
-        print(f"tp train rank {rank}/{world}: {TP_ARCH} at full width, "
+        print(f"tp train rank {rank}/{world}: {arch} at full width, "
               f"{cfg.num_layers} layers, a ({grid_s}) grid one process a "
               f"card over NCCL, the tree {what}, {TP_TRAIN['steps']} steps "
               f"of {rows} x {TP_TRAIN['seq']} a rank: losses {losses} "
               f"(single rank on the {rows * n_data} x {TP_TRAIN['seq']} "
-              f"batch {[round(x, 6) for x in single.tolist()]}, max |diff| "
+              f"batch {[round(x, 6) for x in single]}, max |diff| "
               f"{d_loss:.3e}, tol {tol:.3e}: 2e-2 of the loss, ~5 bf16 "
               f"ulps) | loss on every rank and {n_whole} leaves whole on "
               f"every rank bitwise equal across the {world} ranks | step "
@@ -4745,10 +4800,10 @@ def tp_train_worker(rank: int, world: int, init: str, seed: int) -> int:
               f"memory {peak / 1e9:.2f} GB vs reckoned {reckoned / 1e9:.2f} "
               f"GB of params, grads and moments a rank (+ activations and "
               f"gathered layers)", flush=True)
-        assert dryrun_within(predicted, peak), (what, predicted, peak)
+        assert dryrun_within(predicted, peak), (arch, what, predicted, peak)
     if world >= 4:
-        assert peaks[(grid2[0], True)] < peaks[(grid2[0], False)], peaks
-    return 0
+        assert peaks[((2, world // 2), True)] < peaks[
+            ((2, world // 2), False)], peaks
 
 
 def nccl_calibrate(rank: int, world: int, comm, grid) -> None:
@@ -4789,7 +4844,8 @@ def nccl_phase(seed: int) -> None:
             f"and MoE EP trainers under torchrun (need 2); the NVLink half "
             f"of the calibration (measure_ppermute and calibrate(grid=) "
             f"over NCCL, one process a card) was not run; nor the sharded "
-            f"train step of {TP_ARCH} one process a card (needs 2)")
+            f"train step of {', '.join(TP_TRAIN_ARCHS)} one process a "
+            f"card (needs 2)")
         return
     world = 1 << (cards.bit_length() - 1)   # a power of two (tree, doubling)
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)

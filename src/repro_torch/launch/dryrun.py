@@ -12,8 +12,9 @@ on the host, as the reference's does:
   grid, data_cut=fsdp)``: under ``fsdp`` (the default, the reference's
   ``for_mesh(fsdp=True)``) the tree, its gradients and its moments are
   cut over "data" too (ZeRO-3), for prefill and decode the tree too;
-  ``--no-fsdp`` keeps the tree whole over "data".  Heads the model axis
-  does not divide are padded (``sharding.rules.padded_heads``).  The
+  ``--no-fsdp`` keeps the tree whole over "data".  Heads and a
+  vocabulary the model axis does not divide are padded
+  (``sharding.rules.padded_heads``, ``padded_vocab``).  The
   batch and the decode cache are a rank's rows (``launch.specs``);
 * the step is ``make_train_step(..., grad_sync=GradSyncConfig(grid,
   axes=grad_sync_axes_for_grid(grid), mode="allreduce"))``,
@@ -26,9 +27,11 @@ on the host, as the reference's does:
   operator returns a new storage, rounded up to the CUDA caching
   allocator's 512-byte blocks; dropped when the storage is freed) on
   the card's route, where each kernel is its shape-only body
-  (``kernels.ops``): the outputs and saved tensors the card holds.  The
-  reference's ``memory`` keys: the arguments (state, batch, cache), the
-  outputs not among them, the peak, and the temporaries between;
+  (``kernels.ops``): the outputs and saved tensors the card holds; the
+  backward's gradient sums and scatters, which autograd runs out of
+  place under a Python mode only, counted in place.  The reference's
+  ``memory`` keys: the arguments (state, batch, cache), the outputs not
+  among them, the peak, and the temporaries between;
 * **cost**: ``bytes accessed`` is the sum of every operator's input and
   output bytes on that route (views and allocations excluded; a kernel
   body counts what the kernel reads and writes): what eager execution
@@ -45,9 +48,11 @@ The record keeps the reference's keys.  ``roofline`` is priced by
 ``roofline_h100`` is the data-sheet bound on one H100, max(FLOPs / 989e12,
 bytes / 3.35e12), with no collective term (no NVLink fit ships: C8).
 ``fits`` holds the peak against one H100 80GB HBM3.  ``padding`` holds
-the real and padded heads and the share of the attention's FLOPs and
-bytes a rank spends on pad heads (the reference's roofline shows
-GSPMD's padding as HLO FLOPs over model FLOPs).  ``lower_s`` is
+the real and padded vocabulary and the share of the head's FLOPs and
+bytes spent on pad ids, and, for an attention config, the real and
+padded heads and the share of the attention's FLOPs and bytes a rank
+spends on pad heads (the reference's roofline shows GSPMD's padding as
+HLO FLOPs over model FLOPs).  ``lower_s`` is
 the wall of building the full-depth arguments, ``compile_s`` of the
 card-route passes, ``measure_s`` of the FLOP passes; keys without a
 counterpart (XLA's scan-once cost, the HLO's size) are null.  A cell
@@ -134,6 +139,20 @@ def art_dir() -> str:
                           os.path.join(_REPO, "var", "dryrun_torch"))
 
 
+#: the out-of-place scatters of backward formulas under a dispatch mode
+#: (``gather_backward``, ``index_backward``, ``index_select_backward``)
+_SCATTERS = {torch.ops.aten.scatter_add.default,
+             torch.ops.aten.index_put.default,
+             torch.ops.aten.index_add.default}
+
+
+def _backward_node() -> Optional[Tuple[str, int]]:
+    """The backward node running now, as (name, sequence number), or
+    None: its Python object is made anew on some calls (torch 2.11)."""
+    node = torch._C._current_autograd_node()
+    return None if node is None else (node.name(), node._sequence_nr())
+
+
 def _alloc_bytes(n: int) -> int:
     return -(-n // ALLOC_BLOCK) * ALLOC_BLOCK
 
@@ -149,13 +168,23 @@ class _Meter(TorchDispatchMode):
     from the start (the step's arguments).  With ``run`` (the code of the
     function that calls the step) the peak is also kept for each
     statement of the step that runs the operator (``phase_peaks``, by
-    line): each is linear in the depth, their max is not."""
+    line): each is linear in the depth, their max is not.
+
+    A Python dispatch mode makes every tensor "subclass-like" to
+    PyTorch's C++ autograd, which then takes out-of-place branches the
+    card does not: the engine sums two gradients of one tensor into a new
+    one (without a mode it adds the second into the first, whose storage
+    it holds alone), and the gather and index backward formulas scatter
+    into a copy of the zeros they just made.  Those operators
+    (:meth:`_in_place`) are counted in place, as the card runs them."""
 
     def __init__(self, args: Any, run: Any = None):
         super().__init__()
         self.live = 0
         self.accessed = 0
         self._sizes: Dict[int, int] = {}
+        #: storage -> the autograd node that made it (None: no node)
+        self._made_by: Dict[int, Optional[Tuple[str, int]]] = {}
         self.arguments = set()
         for t in _meta_tensors(args):
             self.arguments.add(self._track(t))
@@ -178,12 +207,41 @@ class _Meter(TorchDispatchMode):
         if key not in self._sizes:
             n = _alloc_bytes(st.nbytes())
             self._sizes[key] = n
+            self._made_by[key] = _backward_node()
             self.live += n
             weakref.finalize(st, self._free, key)
         return key
 
     def _free(self, key: int) -> None:
         self.live -= self._sizes.pop(key)
+        self._made_by.pop(key, None)
+
+    def _in_place(self, func, args, kwargs, out) -> bool:
+        """Whether ``func`` runs in place on the card: inside a backward
+        node, the engine summing the gradient the node just made
+        (``args[1]``) into the one an earlier node left (``args[0]``), or
+        a scatter into the zeros the node itself made (``args[0]``)."""
+        node = _backward_node()
+        if (node is None or torch.is_grad_enabled() or not args
+                or not torch.is_tensor(out)):
+            return False
+        first = args[0]
+        if not (torch.is_tensor(first) and first.is_meta
+                and first.shape == out.shape and first.dtype == out.dtype
+                and first.is_contiguous()):
+            return False
+        made = self._made_by.get
+        by_node = made(id(first.untyped_storage())) == node
+        if func in _SCATTERS:
+            return by_node
+        if func is not torch.ops.aten.add.Tensor or kwargs or \
+                len(args) != 2:
+            return False
+        new = args[1]
+        return (not by_node and made(id(first.untyped_storage())) is not None
+                and torch.is_tensor(new) and new.is_meta
+                and new.shape == out.shape and new.dtype == out.dtype
+                and made(id(new.untyped_storage())) == node)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
@@ -192,11 +250,16 @@ class _Meter(TorchDispatchMode):
                                  _meta_tensors((args, kwargs, out)))
         for t in _meta_tensors(out):
             self._track(t)
-        self.peak = max(self.peak, self.live)
+        # an in-place sum holds no new storage: the engine drops the old
+        # gradient as soon as this returns
+        live = self.live
+        if self._in_place(func, args, kwargs, out):
+            live -= self._sizes[id(out.untyped_storage())]
+        self.peak = max(self.peak, live)
         if self._run is not None:
             line = self._phase()
             self.phase_peaks[line] = max(self.phase_peaks.get(line, 0),
-                                         self.live)
+                                         live)
         return out
 
     def outputs(self, out: Any) -> Tuple[int, int]:
@@ -283,15 +346,22 @@ def _own_state(state: TrainState) -> TrainState:
 
 
 def padding_record(cfg: ArchConfig, shape: ShapeSpec, m: int
-                   ) -> Optional[Dict[str, Any]]:
-    """The heads of an attention config and what padding them to a model
-    axis of ``m`` costs: the share of a layer's attention FLOPs (the four
-    projections, 2 D hd a head a token each, and the core, 4 hd a head a
-    (query, key) pair: half the context causal, all of it in decode) and
-    of its attention bytes (the projections' weights, and a decode cell's
-    KV cache) that a rank spends on pad heads."""
+                   ) -> Dict[str, Any]:
+    """What padding to a model axis of ``m`` costs.  The vocabulary
+    (``rules.padded_vocab``): the share of the head's FLOPs (2 D a word a
+    token) and of its and the embedding's bytes that the ranks spend on
+    pad ids, (Vp - V) / Vp of each.  The heads of an attention config:
+    the share of a layer's attention FLOPs (the four projections, 2 D hd
+    a head a token each, and the core, 4 hd a head a (query, key) pair:
+    half the context causal, all of it in decode) and of its attention
+    bytes (the projections' weights, and a decode cell's KV cache) that a
+    rank spends on pad heads."""
+    v, vp = cfg.vocab_size, rules.padded_vocab(cfg, m)
+    rec: Dict[str, Any] = {"model_axis": m, "vocab": v, "padded_vocab": vp,
+                           "pad_vocab_flops_share": 1 - v / vp,
+                           "pad_vocab_bytes_share": 1 - v / vp}
     if not cfg.num_heads:
-        return None
+        return rec
     h, kv = cfg.num_heads, cfg.num_kv_heads
     hp, kvp = rules.padded_heads(cfg, m)
     d, hd, s = cfg.d_model, cfg.resolved_head_dim, shape.seq_len
@@ -304,9 +374,10 @@ def padding_record(cfg: ArchConfig, shape: ShapeSpec, m: int
         cache = 2 * s * k * hd if shape.step == "decode" else 0
         return d * hd * (2 * q + 2 * k) + cache
 
-    return {"heads": [h, kv], "padded_heads": [hp, kvp], "model_axis": m,
-            "pad_flops_share": 1 - flops(h, kv) / flops(hp, kvp),
-            "pad_bytes_share": 1 - nbytes(h, kv) / nbytes(hp, kvp)}
+    rec.update({"heads": [h, kv], "padded_heads": [hp, kvp],
+                "pad_flops_share": 1 - flops(h, kv) / flops(hp, kvp),
+                "pad_bytes_share": 1 - nbytes(h, kv) / nbytes(hp, kvp)})
+    return rec
 
 
 def card_pass(cell: RankStep, cfg: ArchConfig, use_kernel: bool
@@ -509,10 +580,12 @@ def _one_cell(arch: str, shape: str, mesh_kind: str, skip_existing: bool,
         r, h = rec["roofline"], rec["roofline_h100"]
         gb = rec["memory"]["peak_memory_in_bytes"] / 1e9
         pad = rec["padding"]
-        padded = ("" if pad is None or pad["heads"] == pad["padded_heads"]
+        padded = ("" if pad.get("heads") == pad.get("padded_heads")
                   else f" heads {pad['heads']} -> {pad['padded_heads']} "
                   f"(pad {pad['pad_flops_share'] * 100:.1f} % of attention "
                   f"FLOPs)")
+        if pad["vocab"] != pad["padded_vocab"]:
+            padded += f" vocab {pad['vocab']} -> {pad['padded_vocab']}"
         lines.append(
             f"  ok: peak {gb:.3f} GB (fits {rec['fits']}){padded} "
             f"compute={r['compute_s']:.4f}s memory={r['memory_s']:.4f}s "

@@ -64,12 +64,13 @@ entry point binds that axis (``layers.model_parallel``), attention runs
 on the rank's heads, the FFN on its hidden block, the MoE on its
 experts, the SSM on its channels, the RG-LRU on its blocks, each block's
 two row-parallel outputs reduced over "model" through the engine.  The
-embedding is vocab-parallel (or cut over d_model for an odd vocabulary,
-its lookup gathered); ``forward_train`` then returns this rank's block
-of the vocabulary's logits (whole logits for an odd vocabulary), which
-``train.step.cross_entropy`` reduces over "model", while ``prefill`` and
-``decode_step`` return whole logits.  Their caches hold the rank's kv
-heads (``init_cache(..., tp=m)``, ``shard_decode_cache``), channels and
+embedding is vocab-parallel over the vocabulary padded to the model axis
+(``sharding.rules.padded_vocab``); ``forward_train`` then returns this
+rank's block [B, S, Vp / m] of the padded vocabulary's logits (a pad
+column's logit is 0), which ``train.step.cross_entropy`` reduces over
+"model" without the pad columns, while ``prefill`` and ``decode_step``
+return whole logits over the V real ids.  Their caches hold the rank's
+kv heads (``init_cache(..., tp=m)``, ``shard_decode_cache``), channels and
 blocks.  Where the heads are padded to the model axis
 (``sharding.rules.padded_heads``) a rank's pad heads attend like the
 others and their output is multiplied by zero before ``wo``
@@ -273,16 +274,13 @@ def param_specs(cfg: ArchConfig) -> Params:
     return init_params(cfg, device="meta")
 
 
-def _lookup(emb: torch.Tensor, cfg: ArchConfig, tokens: torch.Tensor
-            ) -> torch.Tensor:
+def _lookup(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """The embedding rows of ``tokens``; on a rank's tree the
-    vocab-parallel lookup (its rows, zeros elsewhere, reduced over
-    "model") or, cut over d_model, its columns gathered."""
+    vocab-parallel lookup: its rows, zeros elsewhere, reduced over
+    "model" (ids are below V, so no pad row is read)."""
     comm = _tp()
     if comm is None:
         return emb[tokens]
-    if emb.shape[1] != cfg.d_model:
-        return gather_from_model(emb[tokens])
     n = emb.shape[0]
     local = tokens.long() - comm.rank * n
     mine = (local >= 0) & (local < n)
@@ -295,7 +293,7 @@ def _embed(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
            soft_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Scaled token embeddings, after the vision soft tokens [B, n_soft,
     D] when given (cast to the embeddings' dtype)."""
-    x = _lookup(gather_leaf(params["embed"]), cfg, tokens)
+    x = _lookup(gather_leaf(params["embed"]), tokens)
     # the sqrt(d_model) scale is rounded to the activation dtype first
     scale = torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
     x = x * scale
@@ -307,30 +305,21 @@ def _embed(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
 def _unembed(params: Params, cfg: ArchConfig,
              x: torch.Tensor) -> torch.Tensor:
     """Logits in the output dtype; on a rank's tree its block of the
-    vocabulary's (a head cut over d_model: the partial logits reduced,
-    whole)."""
+    padded vocabulary's."""
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     head = gather_leaf(params["head"])
     # head matmul in the activation dtype, then the cast (inputs are not
     # upcast first)
     out_dtype = torch.bfloat16 if cfg.logits_bf16 else torch.float32
-    x = copy_to_model(x)
-    comm = _tp()
-    if comm is not None and head.shape[0] != cfg.d_model:
-        # the head cut over d_model: this rank's columns of x, a partial
-        # product reduced over "model"
-        n = head.shape[0]
-        x = x.narrow(-1, comm.rank * n, n)
-        return reduce_from_model(x @ head).to(out_dtype)
-    return (x @ head).to(out_dtype)
+    return (copy_to_model(x) @ head).to(out_dtype)
 
 
 def _whole_logits(cfg: ArchConfig, logits: torch.Tensor) -> torch.Tensor:
-    """A rank's block of the vocabulary's logits gathered over "model"
-    (whole logits pass)."""
-    if _tp() is not None and logits.shape[-1] != cfg.vocab_size:
-        return gather_from_model(logits)
-    return logits
+    """On a rank's tree, the ranks' blocks of the padded vocabulary's
+    logits gathered over "model", the pad columns dropped: [..., V]."""
+    if _tp() is None:
+        return logits
+    return gather_from_model(logits).narrow(-1, 0, cfg.vocab_size)
 
 
 def _ffn_sublayer(cfg: ArchConfig, x: torch.Tensor, p: Params
@@ -764,9 +753,9 @@ def forward_train(params: Params, cfg: ArchConfig, batch: Dict[str, Any],
                   ) -> Tuple[torch.Tensor, Any]:
     """Returns (logits [B, S, V] over the token positions, aux_loss: the
     MoE layers' load-balance losses summed, 0.0 for the other families);
-    on a rank's tree its block [B, S, V / m] of the logits where the
-    vocabulary is cut (the module docstring).  See :func:`_forward_train`
-    for the rest."""
+    on a rank's tree its block [B, S, Vp / m] of the padded vocabulary's
+    logits (the module docstring).  See :func:`_forward_train` for the
+    rest."""
     with model_parallel(params, cfg):
         return _forward_train(params, cfg, batch, remat, use_kernel)
 

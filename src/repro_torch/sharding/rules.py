@@ -41,14 +41,21 @@ the block would not compute on its own:
   ``wk`` / ``wv`` whole on every rank, and each rank attends with the
   kv heads its q heads use;
 * a vocabulary "model" does not divide (``minicpm-2b``, ``whisper-
-  medium``): the spec moves "model" onto d_model, and so does the
-  execution: the embedding is column-sharded (its lookup gathered over
-  "model"), the head row-sharded (its partial logits reduced).  With a
-  vocabulary "model" divides, the embedding is vocab-parallel (rows) and
-  the head's columns give each rank its block of the logits.
+  medium``): the spec moves "model" onto d_model (``spec_for_param``
+  mirrors the reference's specs), but the execution pads the vocabulary
+  instead (:func:`padded_vocab`), where the reference lets GSPMD pad it.
 
 Norm weights, the MoE router and those whole ``wk`` / ``wv`` stay
 replicated.
+
+The embedding is always vocab-parallel (rows) and the head's columns give
+each rank its block of the logits: rank r holds the ids [r Vp / m,
+(r + 1) Vp / m) of the vocabulary padded to Vp, the next multiple of m.
+The pad ids (>= V) have zero embedding rows and head columns; token ids
+are below V, so no lookup reads a pad row, and the cross entropy masks the
+pad columns out (``train.step.cross_entropy``), so their every gradient
+is exactly zero.  The last ranks' blocks are copies (their real ids, then
+zeros); ``unshard_params`` strips the padding.
 
 Heads that do not divide the model axis are padded, where the reference
 lets GSPMD pad them (:func:`padded_heads`): multi-head attention pads
@@ -67,10 +74,11 @@ silently replicated.
 The data cut (ZeRO-3, ``shard_params(..., data_cut=True)``): each leaf
 the spec cuts over "data" (``spec_for_param`` under ``fsdp``, leaves
 below ``replicate_small_below`` staying whole) is cut again within the
-rank's model block, into that many equal blocks of the spec's dim (the
-odd vocabulary's d_model, which the spec folds as ("data", "model"):
-"model" first, then "data" within the block).  The model gathers each
-layer's leaves over "data" just before it runs them
+rank's model block, into that many equal blocks of the spec's dim
+(``embed`` and ``head`` under the spec of their padded shapes, whose
+"model" cuts the vocabulary: d_model over "data" within the rank's
+vocabulary block).  The model gathers each layer's leaves over "data"
+just before it runs them
 (``layers.gather_layer``) and reduce-scatters their gradients back.
 Which cuts a tree carries is read off its shapes under the grid it runs
 on (:func:`tree_cuts`, the one rule; :func:`tp_degree` is its model
@@ -364,6 +372,7 @@ _EXEC_DIMS: Dict[str, Any] = {
     "in_proj": "pair", "conv_w": 1, "x_proj": 0, "dt_w": 1, "dt_b": 0,
     "a_log": 0, "d_skip": 0, "out_proj": 0,
     "w_x": 1, "w_y": 1, "w_a": 0, "w_i": 0, "lam": 0, "out": 0,
+    "embed": 0, "head": 1,
 }
 
 
@@ -400,9 +409,25 @@ def _kv_replicated(cfg: ArchConfig, m: int) -> bool:
     return m > 1 and padded_heads(cfg, m)[1] % m != 0
 
 
-def _vocab_rows(cfg: ArchConfig, m: int) -> bool:
-    """The embedding vocab-parallel (True) or cut over d_model (False)."""
-    return cfg.vocab_size % m == 0
+def padded_vocab(cfg: ArchConfig, m: int) -> int:
+    """The vocabulary of the execution layout over a model axis of ``m``:
+    the next multiple of ``m`` (the config's where ``m`` divides it)."""
+    return -(-cfg.vocab_size // m) * m
+
+
+#: leaves whose model dim holds the vocabulary
+_VOCAB_LEAVES = ("embed", "head")
+
+
+def _exec_shape(cfg: ArchConfig, m: int, name: str, shape: Sequence[int]
+                ) -> Tuple[int, ...]:
+    """A leaf's whole shape in the execution layout: ``embed`` / ``head``
+    with the padded vocabulary."""
+    shape = tuple(shape)
+    if name not in _VOCAB_LEAVES:
+        return shape
+    dim = _EXEC_DIMS[name]
+    return shape[:dim] + (padded_vocab(cfg, m),) + shape[dim + 1:]
 
 
 def exec_layout(cfg: ArchConfig, m: int) -> Dict[str, Any]:
@@ -427,13 +452,6 @@ def exec_layout(cfg: ArchConfig, m: int) -> Dict[str, Any]:
         _refuse(cfg, m, f"{cfg.d_inner} SSM channels")
     if cfg.family == "hybrid" and cfg.d_model % m:
         _refuse(cfg, m, f"an RG-LRU width of {cfg.d_model}")
-    if _vocab_rows(cfg, m):
-        out.update(embed=0, head=1)
-    elif cfg.d_model % m == 0:
-        out.update(embed=1, head=0)
-    else:
-        _refuse(cfg, m, f"a vocabulary of {cfg.vocab_size} or d_model "
-                        f"{cfg.d_model}")
     return out
 
 
@@ -481,6 +499,15 @@ def head_block(cfg: ArchConfig, m: int, r: int, kind: str = "q"
     if real != list(range(first, first + k)) + [None] * (n - k):
         raise AssertionError(f"{cfg.name}: rank {r}'s heads {real}")
     return first, k, n - k
+
+
+def vocab_block(cfg: ArchConfig, m: int, r: int) -> HeadBlock:
+    """Rank ``r``'s block of the padded vocabulary over a model axis of
+    ``m``: (its first id, its real ids, its pad ids), the real ones
+    first."""
+    n = padded_vocab(cfg, m) // m
+    real = min(n, max(0, cfg.vocab_size - r * n))
+    return r * n, real, n - real
 
 
 def real_heads(cfg: ArchConfig, m: int, r: int) -> int:
@@ -597,7 +624,9 @@ def _data_candidates(cfg: ArchConfig, m: int, n: int
     layout = exec_layout(cfg, m)
     out = []
     for path, lead, leaf in _named_leaves(_whole_meta(cfg)):
-        spec = spec_for_param(path, lead + tuple(leaf.shape), policy)
+        name = _leaf_name(path)
+        shape = _exec_shape(cfg, m, name, leaf.shape)
+        spec = spec_for_param(path, lead + shape, policy)
         spec = spec[len(spec) - leaf.dim():] if len(spec) >= leaf.dim() \
             else spec
         dims = [i for i, a in enumerate(spec) if a == "data" or (
@@ -605,8 +634,8 @@ def _data_candidates(cfg: ArchConfig, m: int, n: int
         dim = None
         if dims:
             i = dims[0]
-            cut = _model_dim(layout.get(_leaf_name(path)), leaf.dim()) == i
-            local = leaf.shape[i] // (m if cut else 1)
+            cut = _model_dim(layout.get(name), leaf.dim()) == i
+            local = shape[i] // (m if cut else 1)
             dim = i if local % n == 0 else None
         out.append((dim, math.prod(lead) * leaf.numel()))
     return tuple(out)
@@ -642,6 +671,8 @@ def shard_for_rank(params: Any, cfg: ArchConfig, m: int, r: int,
         how = layout.get(name)
         if how is None:
             return x
+        if name in _VOCAB_LEAVES:
+            return _cut_padded(x, how, 1, vocab_block(cfg, m, r))
         kind = _head_kind(cfg, m, name)
         blk = None if kind is None else head_block(cfg, m, r, kind)
         if blk is not None:
@@ -712,6 +743,8 @@ def unshard_params(params: Any, cfg: ArchConfig, grid: GridComm,
         if how is None:
             return x
         whole = _join(list(comm.all_gather(x.contiguous()[None])), how)
+        if name in _VOCAB_LEAVES:
+            return whole.narrow(how, 0, cfg.vocab_size)
         kind = _head_kind(cfg, m, name)
         if kind is not None and head_block(cfg, m, 0, kind) is not None:
             whole = _strip_padding(whole, how, hd, cfg, m, kind)
@@ -743,14 +776,16 @@ def _rank_shapes(cfg: ArchConfig, m: int) -> Tuple[Tuple[int, ...], ...]:
 
 
 def _embed_degree(params: Any, cfg: ArchConfig) -> int:
+    """The model axis whose rank holds ``params["embed"]``: its rows are
+    the padded vocabulary's 1 / m (:func:`padded_vocab`)."""
     shape = tuple(params["embed"].shape)
     v, d = cfg.vocab_size, cfg.d_model
     if shape == (v, d):
         return 1
-    if shape[1] == d and shape[0] and v % shape[0] == 0:
-        return v // shape[0]
-    if shape[0] == v and shape[1] and d % shape[1] == 0:
-        return d // shape[1]
+    if shape[1] == d and shape[0]:
+        m = -(-v // shape[0])
+        if m > 1 and padded_vocab(cfg, m) == m * shape[0]:
+            return m
     raise ValueError(f"{cfg.name}: an embedding of {shape} is neither "
                      f"whole ({v}, {d}) nor a model-axis block of it")
 
@@ -838,6 +873,6 @@ __all__ = ["AxisSpec", "Cuts", "ShardingPolicy", "Spec",
            "data_sharded_leaves", "exec_layout", "for_grid",
            "grad_sync_axes_for_grid", "head_block", "labels_spec",
            "local_shard", "logits_spec", "model_sharded_leaves",
-           "padded_heads", "param_sharding_tree", "real_heads",
-           "shard_for_rank", "shard_params", "spec_for_param",
-           "tp_degree", "tree_cuts", "unshard_params"]
+           "padded_heads", "padded_vocab", "param_sharding_tree",
+           "real_heads", "shard_for_rank", "shard_params", "spec_for_param",
+           "tp_degree", "tree_cuts", "unshard_params", "vocab_block"]

@@ -72,9 +72,9 @@ def shard_train_state(state: TrainState, cfg, grid,
 def rank_state_bytes(cfg, m: int, master_weights: bool = False,
                      n: int = 1) -> dict:
     """A rank's bytes of parameters and of optimizer state over a model
-    axis of ``m`` (its padded heads included) and a data cut of ``n``
-    (``abstract_train_state`` cut on the meta device; rank 0's, every
-    rank's are equal): {"params", "opt"}."""
+    axis of ``m`` (its padded heads and vocabulary included) and a data
+    cut of ``n`` (``abstract_train_state`` cut on the meta device; rank
+    0's, every rank's are equal): {"params", "opt"}."""
     state = abstract_train_state(cfg, master_weights)
 
     def nbytes(tree):

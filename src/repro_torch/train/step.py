@@ -109,30 +109,39 @@ class GradSyncConfig:
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  comm=None) -> torch.Tensor:
+                  comm=None, vocab: Optional[int] = None) -> torch.Tensor:
     """logits [B, S, V]; labels [B, S] int -> mean of (logsumexp - gold)
     in float32.  With ``comm`` (a model axis of m ranks) ``logits`` is
-    this rank's block [B, S, V / m] of the vocabulary, rank r's the ids
-    [r V / m, (r + 1) V / m): the max is taken over the ranks' maxima,
-    the sum of exponentials reduced over the axis, and the target's
-    logit comes from the rank that holds it."""
+    this rank's block [B, S, Vp / m] of the vocabulary padded to Vp
+    (``sharding.rules.padded_vocab``), rank r's the ids [r Vp / m,
+    (r + 1) Vp / m): the max is taken over the ranks' maxima, the sum of
+    exponentials reduced over the axis, and the target's logit comes from
+    the rank that holds it.  The ids from ``vocab`` (V, required with
+    ``comm``) up are pad ids: left out of the max and of the sum, so they
+    add exactly 0 and their gradient is exactly 0."""
     logits = logits.float()
     if comm is None:
         lse = torch.logsumexp(logits, dim=-1)
         gold = logits.gather(-1, labels.long()[..., None])[..., 0]
         return (lse - gold).mean()
+    if vocab is None:
+        raise TypeError("cross_entropy over a model axis needs vocab: "
+                        "without it the pad columns enter the loss")
     from repro_torch.collectives.api import get_engine
 
     n = logits.shape[-1]
+    real = min(n, max(0, vocab - comm.rank * n))
+    ids = logits.narrow(-1, 0, real)
     eng = get_engine(device=comm.device)
-    peak = eng.allgather(logits.detach().amax(-1)[None].contiguous(),
-                         comm).amax(0)
+    local_peak = ids.detach().amax(-1) if real else logits.new_full(
+        logits.shape[:-1], -math.inf)
+    peak = eng.allgather(local_peak[None].contiguous(), comm).amax(0)
     local = labels.long() - comm.rank * n
     mine = (local >= 0) & (local < n)
     gold = logits.gather(-1, local.clamp(0, n - 1)[..., None])[..., 0]
     with bind_tp(comm):
         sum_exp = reduce_from_model(
-            torch.exp(logits - peak[..., None]).sum(-1))
+            torch.exp(ids - peak[..., None]).sum(-1))
         gold = reduce_from_model(torch.where(mine, gold,
                                              torch.zeros_like(gold)))
     return (torch.log(sum_exp) + peak - gold).mean()
@@ -141,13 +150,14 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 def loss_fn(params: Any, cfg: ArchConfig, batch: Batch, remat: bool = True,
             use_kernel: Optional[bool] = None
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """The loss and its metrics; on a rank's tree (a model axis bound by
+    ``model_parallel``) over its block of the padded vocabulary's
+    logits."""
     model_inputs = {k: v for k, v in batch.items() if k != "labels"}
     with model_parallel(params, cfg) as comm:
         logits, aux = tf.forward_train(params, cfg, model_inputs,
                                        remat=remat, use_kernel=use_kernel)
-        vocab_cut = comm is not None and logits.shape[-1] != cfg.vocab_size
-        ce = cross_entropy(logits, batch["labels"],
-                           comm if vocab_cut else None)
+        ce = cross_entropy(logits, batch["labels"], comm, cfg.vocab_size)
     loss = ce + AUX_WEIGHT * aux
     return loss, {"ce": ce, "aux": aux}
 

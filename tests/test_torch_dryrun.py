@@ -426,3 +426,61 @@ def test_meter_counts_live_rounded_storages():
     assert meter.live == 4096 + 512 + 512
     assert meter.outputs((x, w, s)) == (1024, 4096)
     assert meter.accessed == 4000 * 2 + 12 + 4000 + 4
+
+
+def _gather_ce(x, w, idx):
+    """A vocab-parallel cross entropy's pieces: its backward sums two
+    gradients of the logits and scatters the gather's."""
+    logits = (x @ w).float()
+    peak = logits.detach().amax(-1)
+    gold = logits.gather(-1, idx[..., None])[..., 0]
+    lse = torch.log(torch.exp(logits - peak[..., None]).sum(-1)) + peak
+    return (lse - gold).mean()
+
+
+def _lookup(x, w, idx):
+    """An embedding lookup: its backward puts the rows' gradients into
+    the zeros it makes."""
+    return (w.T[idx % w.shape[1]] * x).sum()
+
+
+def _eager_cpu_peak(fn, shapes):
+    """Peak bytes the CPU allocator holds above the arguments while
+    ``fn``'s forward and backward run eagerly (no dispatch mode), from the
+    profiler's allocation events."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator().manual_seed(0)
+    x, w = (torch.randn(s, generator=gen, requires_grad=True)
+            for s in shapes[:2])
+    idx = torch.randint(0, shapes[1][1], shapes[2], generator=gen)
+    with profile(activities=[ProfilerActivity.CPU],
+                 profile_memory=True) as prof:
+        torch.autograd.grad(fn(x, w, idx), (x, w))
+    events = sorted((e for e in prof.profiler.kineto_results.events()
+                     if e.name() == "[memory]"), key=lambda e: e.start_ns())
+    live = peak = 0
+    for e in events:
+        live += e.nbytes()
+        peak = max(peak, live)
+    return peak
+
+
+@pytest.mark.parametrize("fn", [_gather_ce, _lookup],
+                         ids=["gather_ce", "lookup"])
+def test_meter_peak_equals_eager_allocations(fn):
+    """Under its dispatch mode autograd takes out-of-place branches (the
+    engine's gradient sum, the gather and index backward's scatters);
+    the meter counts them in place, as eager execution without a mode
+    allocates: the peak equals the CPU allocator's within the 512-byte
+    rounding of the few live tensors."""
+    shapes = ((2, 64, 32), (32, 1000), (2, 64))
+    want = _eager_cpu_peak(fn, shapes)
+    x, w = (torch.empty(s, device="meta", requires_grad=True)
+            for s in shapes[:2])
+    idx = torch.zeros(shapes[2], dtype=torch.int64, device="meta")
+    meter = dryrun._Meter((x, w, idx))
+    with meter:
+        torch.autograd.grad(fn(x, w, idx), (x, w))
+    got = meter.peak - meter.argument_bytes
+    assert want >= 128_000                    # a [32, 1000] float32 leaf
+    assert 0 <= got - want <= 16 * dryrun.ALLOC_BLOCK, (got, want)

@@ -5,8 +5,8 @@ package's single-device results from the same weights and inputs
 loss within 1e-5, the gradients gathered by ``unshard_params`` within
 1e-4 of ``jax.grad``, prefill + greedy decode (identical tokens, logits
 within 1e-5), the paged chunk and decode step, at m 2 and 4, with vision
-soft tokens (``llava-next-34b``) and an odd vocabulary (the embedding cut
-over d_model).
+soft tokens (``llava-next-34b``) and an odd vocabulary (padded to the
+model axis, ``test_torch_vocab_padding.py``).
 
 Then the train step: a (data 2, model 2) grid of rank threads against
 the reference's one-device step over 2 steps in both sync modes, the

@@ -8,8 +8,8 @@ and the grids of ``launch/mesh.py``:
   di / m) and the other leaves whole;
 * where the layout leaves the spec's contiguous block
   (``spec_for_param``), shown against it: ``in_proj``'s channels of x and
-  of z, MQA's whole kv projections; an odd vocabulary takes the spec's
-  own move onto d_model;
+  of z, MQA's whole kv projections; an odd vocabulary, which the spec
+  moves onto d_model, padded and kept vocab-parallel;
 * the refusals name the config and m (heads that do not divide m are
   padded: ``test_torch_tp_padding.py``); the one rule (``tp_degree``)
   reads a tree off its embedding; caches, page pools and train state follow
@@ -70,6 +70,10 @@ def test_full_width_rank_holds_one_mth_of_each_cut_leaf(arch, m):
     whole = init_params(cfg, device="meta")
     local = rules.shard_for_rank(whole, cfg, m, 1)
     flags = rules.model_sharded_leaves(local, cfg)
+    # the embedding and the head over the padded vocabulary
+    vp, d = rules.padded_vocab(cfg, m), cfg.d_model
+    whole = dict(whole, embed=whole["embed"].new_empty(vp, d),
+                 head=whole["head"].new_empty(d, vp))
     assert any(flags)
     for w, x, cut in zip(tree_leaves(whole), tree_leaves(local), flags):
         assert x.numel() * (m if cut else 1) == w.numel()
@@ -149,6 +153,8 @@ def test_mqa_keeps_the_kv_projections_whole():
 
 @pytest.mark.parametrize("arch", ["minicpm-2b", "whisper-medium"])
 def test_odd_vocabulary_cuts_d_model_as_the_spec_does(arch):
+    """The spec moves "model" onto d_model, as the reference's does; the
+    execution pads the vocabulary instead and keeps it vocab-parallel."""
     cfg = get_config(arch)
     m = 2
     assert cfg.vocab_size % m
@@ -158,9 +164,18 @@ def test_odd_vocabulary_cuts_d_model_as_the_spec_does(arch):
     assert rules.spec_for_param(("head",), (d, v), _policy(m)) == ("model",
                                                                  None)
     layout = rules.exec_layout(cfg, m)
-    assert (layout["embed"], layout["head"]) == (1, 0)
+    assert (layout["embed"], layout["head"]) == (0, 1)
     even = rules.exec_layout(get_config("yi-34b"), m)
     assert (even["embed"], even["head"]) == (0, 1)
+    n = rules.padded_vocab(cfg, m) // m
+    assert n * m == v + 1
+    whole = init_params(cfg, device="meta")
+    for r in range(m):
+        local = rules.shard_for_rank(whole, cfg, m, r)
+        assert local["embed"].shape == (n, d)
+        assert local["head"].shape == (d, n)
+        assert rules.vocab_block(cfg, m, r) == (r * n, n - r, r)
+        assert rules.tp_degree(local, cfg) == m
 
 
 @pytest.mark.parametrize("arch,m,kw,what", [

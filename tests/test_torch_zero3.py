@@ -229,18 +229,27 @@ def _spec_leaves(specs):
 
 
 def test_odd_vocabulary_cuts_model_first_then_data_within():
+    """The vocabulary padded to 258 over "model" (129 ids a rank, the last
+    rank's last one a zero pad row / column), d_model over "data" within
+    the rank's block."""
     cfg = dataclasses.replace(get_config("minicpm-2b").reduced(),
                               vocab_size=257, dtype="float32")
+    d_model = cfg.d_model
     policy = rules.ShardingPolicy(replicate_small_below=0)
-    tree = dict(rules._whole_meta(cfg), embed=torch.arange(
-        257 * 64, dtype=torch.float32).reshape(257, 64))
-    assert rules.data_cut_dims(cfg, 2, 2, policy)[0] == 1
+    emb = torch.arange(257 * d_model, dtype=torch.float32).reshape(
+        257, d_model) + 1
+    tree = dict(rules._whole_meta(cfg), embed=emb, head=emb.T)
+    dims = rules.data_cut_dims(cfg, 2, 2, policy)
+    assert (dims[0], dims[1]) == (1, 0)        # embed, head: d_model
+    n, w = 129, d_model // 2
     for r in range(2):
+        real = min(n, 257 - r * n)
         for d in range(2):
             block = rules.shard_for_rank(tree, cfg, 2, r, 2, d, policy)
-            cols = block["embed"][0].long().tolist()
-            # "model" first (32 columns a rank), then "data" within it
-            assert cols == list(range(r * 32 + d * 16, r * 32 + d * 16 + 16))
+            want = torch.zeros(n, w)
+            want[:real] = emb[r * n:r * n + real, d * w:(d + 1) * w]
+            assert torch.equal(block["embed"], want)
+            assert torch.equal(block["head"], want.T)
 
 
 def test_existing_callers_get_the_model_only_tree():

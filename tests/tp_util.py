@@ -143,14 +143,14 @@ class Model:
                               timeout=300)
 
     def tp_forward(self, m):
-        """Per rank: (logits gathered over the vocabulary, loss)."""
+        """Per rank: (logits gathered over the padded vocabulary, the pad
+        columns dropped, loss)."""
         def fn(grid, local):
             logits, _ = forward_train(local, self.cfg, self.tbatch(False),
                                       remat=False)
             loss, _, _ = value_and_grad(local, self.cfg, self.tbatch())
             parts = grid.sub("model").all_gather(logits[None])
-            whole = (torch.cat(list(parts), -1)
-                     if logits.shape[-1] != self.cfg.vocab_size else logits)
+            whole = torch.cat(list(parts), -1)[..., :self.cfg.vocab_size]
             return whole.numpy(), float(loss)
         return self.on_ranks(fn, m)
 
