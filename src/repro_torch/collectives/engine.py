@@ -65,7 +65,11 @@ opens a collective span that ``_resolve`` / ``plan_multi`` annotate with
 the decision, and a multi-axis plan's phases nest as phase spans inside
 ``torch.profiler.record_function`` scopes.  Every rank's span carries
 its ``rank``; a port span is always ``mode="eager"`` (ROADMAP C22).
-With tracing off each op is a call of the plain function.
+Each op and phase is also a ``repro_torch.collective.<op>[.<phase>]``
+profiler range whenever ``torch.profiler`` records, with tracing on or
+off (``obs.trace.region``), so a profiler trace times the collectives
+from the device without the tracer's synchronising ``measure`` mode.
+With both off each op is a call of the plain function.
 """
 
 from __future__ import annotations
@@ -885,16 +889,23 @@ class CollectiveEngine:
         bypasses the model: :meth:`_finish_collective` fills the rest).
         ``where`` is the comm of a single-axis op, or the grid of a
         multi-axis one over ``axes``; ``decided`` annotates the span
-        before the run (a decision made outside ``_resolve``)."""
+        before the run (a decision made outside ``_resolve``).  The
+        call is a ``repro_torch.collective.<op>`` region: a profiler
+        range whenever the profiler records, with or without the span;
+        with both off, ``run()`` alone."""
+        scope = f"repro_torch.collective.{op}"
+        if not obs_trace.get_tracer().enabled:
+            with obs_trace.region(scope):
+                return run()
         if axes is None:
             names, sizes, rank = self._comm_axes(where)
         else:
             names = axes
             sizes = tuple(where.axis_size(a) for a in axes)
             rank = where.rank
-        with obs_trace.get_tracer().span(
-                name, cat=obs_trace.CAT_COLLECTIVE, op=op, axes=names,
-                axis_sizes=sizes, bytes=int(nbytes),
+        with obs_trace.region(
+                scope, label=name, cat=obs_trace.CAT_COLLECTIVE, op=op,
+                axes=names, axis_sizes=sizes, bytes=int(nbytes),
                 requested=str(algorithm), plan=None, algorithm=None,
                 cache=None, predicted=None, measured_s=None, mode=None,
                 rank=rank) as sp:
@@ -918,8 +929,6 @@ class CollectiveEngine:
     def reduce_inside(self, x: torch.Tensor, comm: Comm,
                       algorithm: str = "auto") -> torch.Tensor:
         """Paper Reduce: the full sum lands on rank 0 of the axis."""
-        if not obs_trace.get_tracer().enabled:
-            return self._reduce_inside(x, comm, algorithm)
         return self._traced("reduce_inside", "reduce", comm, None,
                             self._nbytes(x), algorithm,
                             lambda: self._reduce_inside(x, comm, algorithm))
@@ -944,8 +953,6 @@ class CollectiveEngine:
 
     def allreduce_inside(self, x: torch.Tensor, comm: Comm,
                          algorithm: str = "auto") -> torch.Tensor:
-        if not obs_trace.get_tracer().enabled:
-            return self._allreduce_inside(x, comm, algorithm)
         return self._traced(
             "allreduce_inside", "allreduce", comm, None, self._nbytes(x),
             algorithm, lambda: self._allreduce_inside(x, comm, algorithm))
@@ -974,8 +981,6 @@ class CollectiveEngine:
         """Sum over the axis, shard the result: rank i gets chunk i
         (``lax.psum_scatter(..., tiled=True)`` semantics; leading dim
         divisible by P)."""
-        if not obs_trace.get_tracer().enabled:
-            return self._reduce_scatter_inside(x, comm, algorithm)
         return self._traced(
             "reduce_scatter_inside", "reduce_scatter", comm, None,
             self._nbytes(x), algorithm,
@@ -1003,8 +1008,6 @@ class CollectiveEngine:
                          algorithm: str = "auto") -> torch.Tensor:
         """Gather shards along the axis into the leading dim
         (``lax.all_gather(..., tiled=True)`` semantics)."""
-        if not obs_trace.get_tracer().enabled:
-            return self._allgather_inside(x, comm, algorithm)
         # the span (like the cost model) records the GLOBAL gathered
         # bytes, shard * P -- the replayer relies on this convention
         return self._traced(
@@ -1040,8 +1043,6 @@ class CollectiveEngine:
         axis, split_axis=0, concat_axis=0, tiled=True)`` semantics.
         ``algorithm``: ``lax`` (the native), ``ring`` (pairwise
         exchange), ``halving`` (Bruck), or ``auto`` (model argmin)."""
-        if not obs_trace.get_tracer().enabled:
-            return self._all_to_all_inside(x, comm, algorithm)
         return self._traced(
             "all_to_all_inside", "all_to_all", comm, None, self._nbytes(x),
             algorithm, lambda: self._all_to_all_inside(x, comm, algorithm))
@@ -1066,8 +1067,6 @@ class CollectiveEngine:
 
     def broadcast_inside(self, x: torch.Tensor, comm: Comm, root: int = 0,
                          algorithm: str = "auto") -> torch.Tensor:
-        if not obs_trace.get_tracer().enabled:
-            return self._broadcast_inside(x, comm, root, algorithm)
         return self._traced(
             "broadcast_inside", "broadcast", comm, None, self._nbytes(x),
             algorithm,
@@ -1141,12 +1140,11 @@ class CollectiveEngine:
         the calls but does not overlap them.  With a single chunk the
         phases run back to back.
 
-        With tracing on each phase call runs inside a
-        ``torch.profiler.record_function`` scope named after its phase
-        (the reference's ``jax.named_scope``) and a nested CAT_PHASE
-        span; phase spans never synchronise, whatever the tracer's
+        Each phase call is a ``repro_torch.collective.<op>.<phase>``
+        region (the reference's ``jax.named_scope``): a profiler range
+        whenever the profiler records and, with tracing on, a nested
+        CAT_PHASE span; neither ever synchronises, whatever the tracer's
         measurement mode."""
-        tracer = obs_trace.get_tracer()
         chunks = list(chunks)
         n = len(phase_fns)
         for wave in range(n + len(chunks) - 1):
@@ -1154,17 +1152,14 @@ class CollectiveEngine:
                 r = wave - k
                 if not 0 <= r < n:
                     continue
-                if not tracer.enabled:
-                    chunks[k] = phase_fns[r](chunks[k])
-                    continue
                 label = (phase_names[r]
                          if phase_names and r < len(phase_names)
                          else f"phase{r}")
-                scope = f"{op or 'collective'}.{label}".replace(":", "_")
-                with torch.profiler.record_function(scope), \
-                        tracer.span(label, cat=obs_trace.CAT_PHASE,
-                                    op=op, phase=r, chunk=k,
-                                    wave=wave) as sp:
+                scope = ".".join(filter(None, (
+                    "repro_torch.collective", op, label.replace(":", "_"))))
+                with obs_trace.region(scope, label=label,
+                                      cat=obs_trace.CAT_PHASE, op=op,
+                                      phase=r, chunk=k, wave=wave) as sp:
                     chunks[k] = phase_fns[r](chunks[k])
                     sp.finish_result(chunks[k], block=False)
         return chunks
@@ -1214,8 +1209,6 @@ class CollectiveEngine:
         axes = self._grid_axes(grid, axes)[0]
         if len(axes) == 1:
             return self.allreduce_inside(x, grid.sub(axes), algorithm)
-        if not obs_trace.get_tracer().enabled:
-            return self._allreduce_multi(x, grid, axes, algorithm)
         return self._traced(
             "allreduce_multi", "allreduce", grid, axes, self._nbytes(x),
             algorithm, lambda: self._allreduce_multi(x, grid, axes,
@@ -1319,8 +1312,6 @@ class CollectiveEngine:
         axes = self._grid_axes(grid, axes)[0]
         if len(axes) == 1:
             return self.reduce_scatter_inside(x, grid.sub(axes), algorithm)
-        if not obs_trace.get_tracer().enabled:
-            return self._reduce_scatter_multi(x, grid, axes, algorithm)
         return self._traced(
             "reduce_scatter_multi", "reduce_scatter", grid, axes,
             self._nbytes(x), algorithm,
@@ -1380,8 +1371,6 @@ class CollectiveEngine:
         axes, _, p = self._grid_axes(grid, axes)
         if len(axes) == 1:
             return self.allgather_inside(x, grid.sub(axes), algorithm)
-        if not obs_trace.get_tracer().enabled:
-            return self._allgather_multi(x, grid, axes, algorithm)
         # global gathered bytes, matching the model's B and the replayer
         return self._traced(
             "allgather_multi", "allgather", grid, axes,
@@ -1453,8 +1442,6 @@ class CollectiveEngine:
             if algorithm in planner.ALL_TO_ALL_SHAPES:
                 algorithm = "auto"
             return self.all_to_all_inside(x, grid.sub(axes), algorithm)
-        if not obs_trace.get_tracer().enabled:
-            return self._all_to_all_multi(x, grid, axes, algorithm)
         return self._traced(
             "all_to_all_multi", "all_to_all", grid, axes, self._nbytes(x),
             algorithm, lambda: self._all_to_all_multi(x, grid, axes,
@@ -1619,8 +1606,6 @@ class CollectiveEngine:
                 return impl.fused_matmul_rs(x, w, comm)
             return impl.matmul_then_rs(x, w, comm)
 
-        if not obs_trace.get_tracer().enabled:
-            return run()
         # the span's decision is the model's fused-vs-serial price
         return self._traced(
             "fused_matmul_rs", "fused_matmul_rs", comm, None,

@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import flash_attention_bwd_ref
+from repro_torch.obs.trace import region
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 96, 128, 160, 256)
@@ -158,7 +159,9 @@ def _(q, k, v, causal, window):
 class FlashAttentionFn(torch.autograd.Function):
     """The kernel forward, saving q, k, v, o and lse; the backward is the
     plain flash backward (``ref.flash_attention_bwd_ref``), each gradient
-    cast to its input's dtype.  On meta tensors the forward is
+    cast to its input's dtype, as one ``repro_torch.attn.backward``
+    region (``obs.trace.region``: it stays on this function whatever
+    computes the backward).  On meta tensors the forward is
     :func:`flash_attention_meta`, saving the same tensors."""
 
     @staticmethod
@@ -171,10 +174,12 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd_ref(q, k, v, o, lse, do,
-                                             ctx.causal, ctx.window)
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+        with region("repro_torch.attn.backward"):
+            q, k, v, o, lse = ctx.saved_tensors
+            dq, dk, dv = flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                                 ctx.causal, ctx.window)
+            return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None,
+                    None)
 
 
 __all__ = ["FlashAttentionFn", "HEAD_DIMS", "VARIANTS", "flash_attention_cuda",

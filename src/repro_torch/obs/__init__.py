@@ -5,7 +5,8 @@ monitoring, and a unified metrics registry (the counterpart of
 * :mod:`repro_torch.obs.trace` -- every engine collective emits a
   structured span (op, axes, bytes, chosen plan, cache status,
   predicted cost, measured wall time, rank) exportable as
-  Chrome-trace/Perfetto JSON.
+  Chrome-trace/Perfetto JSON; ``region`` marks the train step's own
+  work (``repro_torch.*`` profiler ranges, step spans).
 * :mod:`repro_torch.obs.model_error` -- an online aggregator binning
   spans by (op, topology, bytes-decile) and flagging drift of predicted
   vs measured time past the paper's 4% bound, with a recalibration
@@ -31,8 +32,9 @@ from repro_torch.obs.registry import (Counter, Gauge,  # noqa: F401
                                       export_engine_stats)
 from repro_torch.obs.trace import (Span, Tracer,  # noqa: F401
                                    TRACE_SCHEMA, CAT_COLLECTIVE, CAT_PHASE,
-                                   get_tracer, set_tracer, enable_tracing,
-                                   disable_tracing, load_chrome_trace,
+                                   CAT_STEP, region, get_tracer, set_tracer,
+                                   enable_tracing, disable_tracing,
+                                   load_chrome_trace,
                                    collective_spans, validate_spans)
 from repro_torch.obs.model_error import (ModelErrorMonitor,  # noqa: F401
                                          ErrorBin, bytes_decile,
@@ -42,7 +44,8 @@ __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "REGISTRY",
     "EXPORT_SCHEMA", "validate_export", "export_engine_stats",
     "Span", "Tracer", "TRACE_SCHEMA", "CAT_COLLECTIVE", "CAT_PHASE",
-    "get_tracer", "set_tracer", "enable_tracing", "disable_tracing",
+    "CAT_STEP", "region", "get_tracer", "set_tracer", "enable_tracing",
+    "disable_tracing",
     "load_chrome_trace", "collective_spans", "validate_spans",
     "ModelErrorMonitor", "ErrorBin", "bytes_decile", "DEFAULT_THRESHOLD",
 ]

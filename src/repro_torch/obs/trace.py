@@ -26,6 +26,19 @@ count calls (the model-error monitor, the replay) read rank 0's.  The
 span stack is thread-local: rank threads sharing one tracer each nest
 their phases under their own collective span.
 
+Regions.  :func:`region` marks a piece of the program's own work (the
+train step, its forward and backward, the attention backward, the
+optimizer update, the gradient sync, each collective and phase): a
+``torch.profiler.record_function`` range while the profiler records,
+which Kineto stamps on the clock of the device's kernel records, and a
+never-synchronising span while the tracer is enabled.  Every range name
+starts with ``repro_torch.``.  No switch turns regions on: they follow
+the profiler and the tracer, and with both off a region costs two flag
+checks and the shared no-op.  Step spans (CAT_STEP) nest among
+themselves on a stack of their own, so a collective span's parent is a
+collective or phase span or none, as without them: the consumers that
+take a parentless collective span for one call see the same tree.
+
 Export is Chrome-trace JSON (``chrome://tracing`` / Perfetto: complete
 ``"X"`` events with span/parent ids in ``args``), loadable back into
 :class:`Span` objects via :func:`load_chrome_trace`.
@@ -45,6 +58,8 @@ import torch
 #: span categories (the ``cat`` field of the Chrome events)
 CAT_COLLECTIVE = "collective"
 CAT_PHASE = "phase"
+#: a region of the training step (:func:`region`)
+CAT_STEP = "step"
 
 #: schema tag written into the trace metadata (the reference's: a port
 #: trace loads in the reference's tools and back)
@@ -172,23 +187,29 @@ class Tracer:
         self._local = threading.local()
         self._spans: List[Span] = []
         self._next_id = 0
+        #: the optimizer count of the train step running now, which
+        #: every CAT_STEP span carries as ``step``
+        self.step: Optional[int] = None
 
     # ------------------------------------------------------------------ #
     def _now(self) -> float:
         return self._clock() - self._epoch
 
-    def _stack(self) -> List[Span]:
-        st = getattr(self._local, "stack", None)
+    def _stack(self, cat: str = CAT_COLLECTIVE) -> List[Span]:
+        """This thread's open spans: the step regions on a stack of
+        their own, every other category on the other."""
+        key = "steps" if cat == CAT_STEP else "stack"
+        st = getattr(self._local, key, None)
         if st is None:
             st = []
-            self._local.stack = st
+            setattr(self._local, key, st)
         return st
 
     def _push(self, span: Span) -> None:
-        self._stack().append(span)
+        self._stack(span.cat).append(span)
 
     def _pop(self, span: Span) -> None:
-        st = self._stack()
+        st = self._stack(span.cat)
         if st and st[-1] is span:
             st.pop()
 
@@ -204,7 +225,7 @@ class Tracer:
                 return NULL_SPAN
             sid = self._next_id
             self._next_id += 1
-            st = self._stack()
+            st = self._stack(cat)
             parent = st[-1].span_id if st else None
             sp = Span(span_id=sid, parent_id=parent, name=name, cat=cat,
                       t0=self._now(), tid=threading.get_ident() & 0xFFFF,
@@ -213,9 +234,9 @@ class Tracer:
         return _SpanContext(self, sp)
 
     def current_span(self):
-        """The innermost live span on this thread (the one a nested
-        resolution step should annotate), or the no-op when tracing is
-        off / no span is open."""
+        """The innermost live collective or phase span on this thread
+        (the one a nested resolution step should annotate), or the
+        no-op when tracing is off / no such span is open."""
         if not self.enabled:
             return NULL_SPAN
         st = self._stack()
@@ -353,8 +374,66 @@ def disable_tracing() -> None:
     get_tracer().enabled = False
 
 
+# ---------------------------------------------------------------------- #
+# regions: profiler ranges and step spans
+# ---------------------------------------------------------------------- #
+_autograd_profiler = torch.autograd.profiler
+
+
+class _Region:
+    """A profiler range (when the profiler records) around a span (when
+    the tracer is enabled); entering it gives the span's context, or the
+    no-op."""
+
+    __slots__ = ("_range", "_span")
+
+    def __init__(self, name: str, span: Any, profiling: bool):
+        self._range = (torch.profiler.record_function(name) if profiling
+                       else None)
+        self._span = span
+
+    def __enter__(self):
+        if self._range is not None:
+            self._range.__enter__()
+        return self._span.__enter__()
+
+    def __exit__(self, *exc: Any) -> None:
+        try:
+            self._span.__exit__(*exc)
+        finally:
+            if self._range is not None:
+                self._range.__exit__(*exc)
+
+
+def region(name: str, label: Optional[str] = None, cat: str = CAT_STEP,
+           **args: Any):
+    """A region of the program's work, as a context manager.
+
+    While ``torch.profiler`` records, a ``record_function`` range
+    ``name`` (``repro_torch.<layer>.<what>``): Kineto stamps it on the
+    clock of the device's kernel records and ties each kernel launched
+    inside it to it.  While the tracer is enabled, also a span of ``cat``
+    labelled ``label`` (default ``name``) with ``args``; a CAT_STEP span
+    carries the optimizer count as ``step`` (a region given ``step``
+    sets it for the regions after it) and never synchronises.  Entering
+    gives the span's context (``set``, ``finish_result``) or the no-op.
+    With both off: the shared no-op."""
+    profiling = _autograd_profiler._is_profiler_enabled
+    tracer = _TRACER
+    if not tracer.enabled:
+        return _Region(name, NULL_SPAN, True) if profiling else NULL_SPAN
+    if cat == CAT_STEP:
+        if "step" in args:
+            tracer.step = args["step"]
+        else:
+            args["step"] = tracer.step
+    return _Region(name, tracer.span(label or name, cat=cat, **args),
+                   profiling)
+
+
 __all__ = ["Span", "Tracer", "NULL_SPAN", "TRACE_SCHEMA",
-           "CAT_COLLECTIVE", "CAT_PHASE", "REQUIRED_COLLECTIVE_ARGS",
-           "get_tracer", "set_tracer", "enable_tracing", "disable_tracing",
+           "CAT_COLLECTIVE", "CAT_PHASE", "CAT_STEP",
+           "REQUIRED_COLLECTIVE_ARGS", "get_tracer", "set_tracer",
+           "enable_tracing", "disable_tracing", "region",
            "load_chrome_trace", "spans_from_events", "collective_spans",
            "validate_spans", "synchronize_result"]

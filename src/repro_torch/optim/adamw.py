@@ -34,6 +34,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.obs.trace import region
 from repro_torch.tree import stacked_ndims, tree_leaves, tree_map
 
 
@@ -144,36 +145,38 @@ def apply_updates(cfg: AdamWConfig, params: Any, grads: Any,
                   ) -> Tuple[Any, AdamWState, Dict[str, Any]]:
     """One AdamW step with global-norm clipping, in place (see the module
     docstring; ``model_axis`` and ``data_axis`` as :func:`global_norm`'s),
-    on whatever blocks the leaves are.  Returns (params, state,
+    on whatever blocks the leaves are, as one ``repro_torch.optim.update``
+    region (``obs.trace.region``).  Returns (params, state,
     {"grad_norm", "lr"})."""
-    count = state.count + 1
-    gnorm = global_norm(grads, model_axis, data_axis)
-    scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
-    lr = lr_at(cfg, count)
-    f32 = np.float32
-    b1c = float(1 - f32(cfg.b1) ** f32(count))
-    b2c = float(1 - f32(cfg.b2) ** f32(count))
-    use_master = state.master is not None
-    flat_p = tree_leaves(params)
-    flat_w = tree_leaves(state.master) if use_master else flat_p
-    for p, g, m, v, w, rank in zip(flat_p, tree_leaves(grads),
-                                   tree_leaves(state.mu),
-                                   tree_leaves(state.nu), flat_w,
-                                   stacked_ndims(params)):
-        g = g.float() * scale
-        m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
-        v.mul_(cfg.b2).add_((1 - cfg.b2) * g.square())
-        step = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
-        w32 = w.float()
-        if rank >= 2:   # decoupled weight decay on (stacked) matrices
-            step = step + cfg.weight_decay * w32
-        w32_new = w32 - lr * step
-        if use_master:
-            w.copy_(w32_new)
-        p.copy_(w32_new)
-    opt = AdamWState(mu=state.mu, nu=state.nu, count=count,
-                     master=state.master)
-    return params, opt, {"grad_norm": gnorm, "lr": lr}
+    with region("repro_torch.optim.update"):
+        count = state.count + 1
+        gnorm = global_norm(grads, model_axis, data_axis)
+        scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+        lr = lr_at(cfg, count)
+        f32 = np.float32
+        b1c = float(1 - f32(cfg.b1) ** f32(count))
+        b2c = float(1 - f32(cfg.b2) ** f32(count))
+        use_master = state.master is not None
+        flat_p = tree_leaves(params)
+        flat_w = tree_leaves(state.master) if use_master else flat_p
+        for p, g, m, v, w, rank in zip(flat_p, tree_leaves(grads),
+                                       tree_leaves(state.mu),
+                                       tree_leaves(state.nu), flat_w,
+                                       stacked_ndims(params)):
+            g = g.float() * scale
+            m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+            v.mul_(cfg.b2).add_((1 - cfg.b2) * g.square())
+            step = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
+            w32 = w.float()
+            if rank >= 2:   # decoupled weight decay on (stacked) matrices
+                step = step + cfg.weight_decay * w32
+            w32_new = w32 - lr * step
+            if use_master:
+                w.copy_(w32_new)
+            p.copy_(w32_new)
+        opt = AdamWState(mu=state.mu, nu=state.nu, count=count,
+                         master=state.master)
+        return params, opt, {"grad_norm": gnorm, "lr": lr}
 
 
 __all__ = ["AdamWConfig", "AdamWState", "apply_updates", "global_norm",

@@ -55,6 +55,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (bind_tp, model_parallel,
                                       reduce_from_model, tree_comms)
+from repro_torch.obs.trace import region
 from repro_torch.optim.adamw import (AdamWConfig, AdamWState, ModelAxis,
                                      apply_updates, lr_at)
 from repro_torch.train.state import TrainState
@@ -154,11 +155,12 @@ def loss_fn(params: Any, cfg: ArchConfig, batch: Batch, remat: bool = True,
     ``model_parallel``) over its block of the padded vocabulary's
     logits."""
     model_inputs = {k: v for k, v in batch.items() if k != "labels"}
-    with model_parallel(params, cfg) as comm:
+    with region("repro_torch.train.forward"), \
+            model_parallel(params, cfg) as comm:
         logits, aux = tf.forward_train(params, cfg, model_inputs,
                                        remat=remat, use_kernel=use_kernel)
         ce = cross_entropy(logits, batch["labels"], comm, cfg.vocab_size)
-    loss = ce + AUX_WEIGHT * aux
+        loss = ce + AUX_WEIGHT * aux
     return loss, {"ce": ce, "aux": aux}
 
 
@@ -171,7 +173,8 @@ def value_and_grad(params: Any, cfg: ArchConfig, batch: Batch,
     aliases = [p.detach().requires_grad_() for p in tree_leaves(params)]
     loss, metrics = loss_fn(tree_unflatten(params, aliases), cfg, batch,
                             remat=remat, use_kernel=use_kernel)
-    grads = torch.autograd.grad(loss, aliases)
+    with region("repro_torch.train.backward"):
+        grads = torch.autograd.grad(loss, aliases)
     metrics = {k: v.detach() if torch.is_tensor(v) else v
                for k, v in metrics.items()}
     return loss.detach(), metrics, tree_unflatten(params, list(grads))
@@ -235,81 +238,83 @@ def fsdp_sync_apply(opt_cfg: AdamWConfig, params: Any, grads: Any,
     returned.  On a rank's tree of a model axis (``model_axis``, as
     ``optim.adamw.global_norm``'s) the flat vector is of the rank's
     leaves and the clip's squares of the leaves cut over "model" are
-    summed over that axis too."""
+    summed over that axis too.  The sync and the update are one
+    ``repro_torch.optim.update`` region."""
     from repro_torch.collectives.api import get_engine
 
     axes = tuple(gs.axes)
     if not axes:
         # no DP axes (a single rank): nothing to scatter or gather
         return apply_updates(opt_cfg, params, grads, opt, model_axis)
-    grid = gs.grid
-    engine = get_engine(device=grid.device)
-    n_world, n, pad, shard = fsdp_layout(params, gs)
-    use_master = opt.master is not None
-    leaves = tree_leaves(params)
-    lo = grid.axes_index(axes) * shard
-    hi = lo + shard
+    with region("repro_torch.optim.update"):
+        grid = gs.grid
+        engine = get_engine(device=grid.device)
+        n_world, n, pad, shard = fsdp_layout(params, gs)
+        use_master = opt.master is not None
+        leaves = tree_leaves(params)
+        lo = grid.axes_index(axes) * shard
+        hi = lo + shard
 
-    def local(state: Any) -> torch.Tensor:
-        """This rank's float32 shard of a flat or tree-shaped state."""
-        if torch.is_tensor(state) and state.dim() == 1 \
-                and state.numel() == shard:
-            return state
-        return flatten_stacked(state, pad=pad, span=(lo, hi))
+        def local(state: Any) -> torch.Tensor:
+            """This rank's float32 shard of a flat or tree-shaped state."""
+            if torch.is_tensor(state) and state.dim() == 1 \
+                    and state.numel() == shard:
+                return state
+            return flatten_stacked(state, pad=pad, span=(lo, hi))
 
-    mu, nu = local(opt.mu), local(opt.nu)
-    # the float32 working copy the update runs against: the persistent
-    # master when enabled, else this step's cast of the params
-    w32 = local(opt.master) if use_master else local(params)
-    decay = _decay_shard(params, lo, hi, w32.device)
-    # allgather in the model dtype when the params share one: the full
-    # float32 master never needs to cross the wire
-    dtypes = {leaf.dtype for leaf in leaves}
-    gather_dtype = dtypes.pop() if len(dtypes) == 1 else torch.float32
+        mu, nu = local(opt.mu), local(opt.nu)
+        # the float32 working copy the update runs against: the persistent
+        # master when enabled, else this step's cast of the params
+        w32 = local(opt.master) if use_master else local(params)
+        decay = _decay_shard(params, lo, hi, w32.device)
+        # allgather in the model dtype when the params share one: the full
+        # float32 master never needs to cross the wire
+        dtypes = {leaf.dtype for leaf in leaves}
+        gather_dtype = dtypes.pop() if len(dtypes) == 1 else torch.float32
 
-    count = opt.count + 1
-    lr = lr_at(opt_cfg, count)
-    f32 = np.float32
-    b1c = float(1 - f32(opt_cfg.b1) ** f32(count))
-    b2c = float(1 - f32(opt_cfg.b2) ** f32(count))
+        count = opt.count + 1
+        lr = lr_at(opt_cfg, count)
+        f32 = np.float32
+        b1c = float(1 - f32(opt_cfg.b1) ** f32(count))
+        b2c = float(1 - f32(opt_cfg.b2) ** f32(count))
 
-    flat_g = flatten_stacked(grads, pad=pad)
-    if gs.fused:
-        g_s = engine.fused_matmul_reduce_scatter(
-            flat_g, None, grid, axes=axes, algorithm=gs.algorithm)
-    else:
-        g_s = engine.reduce_scatter_multi(flat_g, grid, axes,
-                                          algorithm=gs.algorithm)
-    del flat_g
-    g_s = g_s / float(n_world)          # mean over the DP world
-    if model_axis is None:
-        sq = engine.allreduce_multi(g_s.square().sum().reshape(1), grid,
-                                    axes, algorithm=gs.algorithm)
-        gnorm = torch.sqrt(sq[0])
-    else:
-        comm, sharded = model_axis
-        cut = _mask_shard(params, sharded, lo, hi, g_s.device)
-        g2 = g_s.square()
-        sq = engine.allreduce_multi(
-            torch.stack([(g2 * cut).sum(), (g2 * (1.0 - cut)).sum()]),
-            grid, axes, algorithm=gs.algorithm)
-        cut_sq = engine.allreduce(sq[:1].contiguous(), comm)[0]
-        gnorm = torch.sqrt(cut_sq + sq[1])
-    gg = g_s * torch.clamp(opt_cfg.grad_clip / (gnorm + 1e-9), max=1.0)
-    mu.mul_(opt_cfg.b1).add_((1 - opt_cfg.b1) * gg)
-    nu.mul_(opt_cfg.b2).add_((1 - opt_cfg.b2) * gg.square())
-    step = (mu / b1c) / (torch.sqrt(nu / b2c) + opt_cfg.eps)
-    step = step + (opt_cfg.weight_decay * decay) * w32
-    w2 = w32 - lr * step
-    del step, gg, g_s
-    w_full = engine.allgather_multi(w2.to(gather_dtype), grid, axes,
-                                    algorithm=gs.algorithm)
-    new = unflatten_stacked(params, w_full[:n])
-    for p, q in zip(leaves, tree_leaves(new)):
-        p.copy_(q)
-    opt2 = AdamWState(mu=mu, nu=nu, count=count,
-                      master=w2 if use_master else None)
-    return params, opt2, {"grad_norm": gnorm, "lr": lr}
+        flat_g = flatten_stacked(grads, pad=pad)
+        if gs.fused:
+            g_s = engine.fused_matmul_reduce_scatter(
+                flat_g, None, grid, axes=axes, algorithm=gs.algorithm)
+        else:
+            g_s = engine.reduce_scatter_multi(flat_g, grid, axes,
+                                              algorithm=gs.algorithm)
+        del flat_g
+        g_s = g_s / float(n_world)          # mean over the DP world
+        if model_axis is None:
+            sq = engine.allreduce_multi(g_s.square().sum().reshape(1), grid,
+                                        axes, algorithm=gs.algorithm)
+            gnorm = torch.sqrt(sq[0])
+        else:
+            comm, sharded = model_axis
+            cut = _mask_shard(params, sharded, lo, hi, g_s.device)
+            g2 = g_s.square()
+            sq = engine.allreduce_multi(
+                torch.stack([(g2 * cut).sum(), (g2 * (1.0 - cut)).sum()]),
+                grid, axes, algorithm=gs.algorithm)
+            cut_sq = engine.allreduce(sq[:1].contiguous(), comm)[0]
+            gnorm = torch.sqrt(cut_sq + sq[1])
+        gg = g_s * torch.clamp(opt_cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+        mu.mul_(opt_cfg.b1).add_((1 - opt_cfg.b1) * gg)
+        nu.mul_(opt_cfg.b2).add_((1 - opt_cfg.b2) * gg.square())
+        step = (mu / b1c) / (torch.sqrt(nu / b2c) + opt_cfg.eps)
+        step = step + (opt_cfg.weight_decay * decay) * w32
+        w2 = w32 - lr * step
+        del step, gg, g_s
+        w_full = engine.allgather_multi(w2.to(gather_dtype), grid, axes,
+                                        algorithm=gs.algorithm)
+        new = unflatten_stacked(params, w_full[:n])
+        for p, q in zip(leaves, tree_leaves(new)):
+            p.copy_(q)
+        opt2 = AdamWState(mu=mu, nu=nu, count=count,
+                          master=w2 if use_master else None)
+        return params, opt2, {"grad_norm": gnorm, "lr": lr}
 
 
 def _dp_mean(x: Any, gs: Optional[GradSyncConfig]) -> Any:
@@ -373,64 +378,73 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
     With ``grad_sync`` the step runs on this rank's rows of the global
     batch and syncs through the engine over ``grad_sync.axes``: every
     rank of the grid must call it, with the same shapes, in the same
-    order."""
+    order.  Each call is a ``repro_torch.train.step`` region carrying
+    the optimizer count (``obs.trace.region``)."""
     def train_step(state: TrainState, batch: Batch):
-        uk = tf.kernel_route(state.params, use_kernel)
-        comm, data, cuts = tree_comms(state.params, cfg)
-        model_axis = None if comm is None else (comm, list(cuts.model_cut))
-        data_axis = (None if data is None else
-                     (data[0], [d is not None for d in cuts.data_dims]))
-        if data is not None and (grad_sync is None
-                                 or grad_sync.mode != "allreduce"):
-            raise ValueError(
-                "a tree cut over \"data\" trains with grad_sync "
-                "mode=\"allreduce\" over the DP axes (its cut leaves' "
-                "gradients are reduce-scattered in the backward)")
-        if microbatches == 1:
-            loss, metrics, grads = value_and_grad(
-                state.params, cfg, batch, remat=remat, use_kernel=uk)
-        else:
-            g_acc = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device),
-                state.params)
-            loss = 0.0
-            for mb in _split_microbatches(batch, microbatches):
-                l_i, _, g = value_and_grad(state.params, cfg, mb,
-                                           remat=remat, use_kernel=uk)
-                for acc, gi in zip(tree_leaves(g_acc), tree_leaves(g)):
-                    acc.add_(gi)
-                loss = loss + l_i
-                del g
-            inv = 1.0 / microbatches
-            grads = tree_map(lambda g: g.mul_(inv), g_acc)
-            loss = loss * inv
-            metrics = {}
-        loss = _dp_mean(loss, grad_sync)
-        metrics = {k: _dp_mean(v, grad_sync) for k, v in metrics.items()}
-        if grad_sync is not None and grad_sync.mode == "fsdp":
-            # ZeRO-style pair: reduce-scatter grads, update the flat
-            # shard, allgather params -- all through the engine
-            params, opt, opt_metrics = fsdp_sync_apply(
-                opt_cfg, state.params, grads, state.opt, grad_sync,
-                model_axis)
+        # the region wraps the statements in place: the dry-run's meter
+        # keeps a peak for each statement of this frame
+        with region("repro_torch.train.step", step=state.opt.count + 1):
+            uk = tf.kernel_route(state.params, use_kernel)
+            comm, data, cuts = tree_comms(state.params, cfg)
+            model_axis = (None if comm is None
+                          else (comm, list(cuts.model_cut)))
+            data_axis = (None if data is None else
+                         (data[0], [d is not None for d in cuts.data_dims]))
+            if data is not None and (grad_sync is None
+                                     or grad_sync.mode != "allreduce"):
+                raise ValueError(
+                    "a tree cut over \"data\" trains with grad_sync "
+                    "mode=\"allreduce\" over the DP axes (its cut leaves' "
+                    "gradients are reduce-scattered in the backward)")
+            if microbatches == 1:
+                loss, metrics, grads = value_and_grad(
+                    state.params, cfg, batch, remat=remat, use_kernel=uk)
+            else:
+                g_acc = tree_map(lambda p: torch.zeros(
+                    p.shape, dtype=torch.float32, device=p.device),
+                    state.params)
+                loss = 0.0
+                for mb in _split_microbatches(batch, microbatches):
+                    l_i, _, g = value_and_grad(state.params, cfg, mb,
+                                               remat=remat, use_kernel=uk)
+                    for acc, gi in zip(tree_leaves(g_acc), tree_leaves(g)):
+                        acc.add_(gi)
+                    loss = loss + l_i
+                    del g
+                inv = 1.0 / microbatches
+                grads = tree_map(lambda g: g.mul_(inv), g_acc)
+                loss = loss * inv
+                metrics = {}
+            loss = _dp_mean(loss, grad_sync)
+            metrics = {k: _dp_mean(v, grad_sync)
+                       for k, v in metrics.items()}
+            if grad_sync is not None and grad_sync.mode == "fsdp":
+                # ZeRO-style pair: reduce-scatter grads, update the flat
+                # shard, allgather params -- all through the engine
+                params, opt, opt_metrics = fsdp_sync_apply(
+                    opt_cfg, state.params, grads, state.opt, grad_sync,
+                    model_axis)
+                return TrainState(params=params, opt=opt), {
+                    "loss": loss, **metrics, **opt_metrics}
+            if data_axis is not None:
+                with region("repro_torch.train.grad_sync"):
+                    grads = _sync_data_cut(grads, data_axis[1], grad_sync)
+            elif grad_sync is not None and grad_sync.axes:
+                # explicit pure-DP sync: every gradient byte goes through
+                # the engine's cached dispatch
+                from repro_torch.collectives.overlap import \
+                    bucketed_allreduce
+                with region("repro_torch.train.grad_sync"):
+                    grads, _ = bucketed_allreduce(
+                        grads, grad_sync.grid, axes=grad_sync.axes,
+                        algorithm=grad_sync.algorithm,
+                        bucket_bytes=grad_sync.bucket_bytes,
+                        compress=grad_sync.compress)
+            params, opt, opt_metrics = apply_updates(
+                opt_cfg, state.params, grads, state.opt, model_axis,
+                data_axis)
             return TrainState(params=params, opt=opt), {
                 "loss": loss, **metrics, **opt_metrics}
-        if data_axis is not None:
-            grads = _sync_data_cut(grads, data_axis[1], grad_sync)
-        elif grad_sync is not None and grad_sync.axes:
-            # explicit pure-DP sync: every gradient byte goes through the
-            # engine's cached dispatch
-            from repro_torch.collectives.overlap import bucketed_allreduce
-            grads, _ = bucketed_allreduce(
-                grads, grad_sync.grid, axes=grad_sync.axes,
-                algorithm=grad_sync.algorithm,
-                bucket_bytes=grad_sync.bucket_bytes,
-                compress=grad_sync.compress)
-        params, opt, opt_metrics = apply_updates(opt_cfg, state.params,
-                                                 grads, state.opt,
-                                                 model_axis, data_axis)
-        return TrainState(params=params, opt=opt), {"loss": loss, **metrics,
-                                                    **opt_metrics}
 
     return train_step
 

@@ -1107,6 +1107,46 @@ def test_reduced_dense_train_step_kernel_route_matches_plain(cuda_device):
         torch.testing.assert_close(a_, b_, rtol=0, atol=1e-5)
 
 
+@pytest.mark.gpu
+def test_dense_step_attention_backward_ranges_on_the_card(cuda_device):
+    """Reduced minicpm-2b (2 layers, bf16, 2 x 4096) through the flash
+    kernel, one step under ``torch.profiler`` after a warm-up step: one
+    ``repro_torch.train.step``, ``train.forward``, ``train.backward`` and
+    ``optim.update``, and a ``repro_torch.attn.backward`` range a layer,
+    each with the device time of the kernels launched inside it."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.state import init_train_state
+    from repro_torch.train.step import make_train_step
+    cfg = get_config("minicpm-2b").reduced()
+    batch = {k: torch.from_numpy(v).to(cuda_device) for k, v in
+             SyntheticLMDataset(DataConfig(cfg.vocab_size, 4096, 2))
+             .batch(0).items()}
+    state = init_train_state(init_params(cfg, seed=0, device=cuda_device))
+    step = make_train_step(cfg, AdamWConfig(warmup_steps=1, total_steps=4))
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 2 * cfg.num_layers
+    assert torch.isfinite(metrics["loss"])
+    ranges = {}
+    for e in prof.events():
+        if e.name.startswith("repro_torch.") and \
+                e.device_type == torch.autograd.DeviceType.CPU:
+            ranges.setdefault(e.name, []).append(e)
+    assert {n: len(v) for n, v in ranges.items()} == {
+        "repro_torch.train.step": 1, "repro_torch.train.forward": 1,
+        "repro_torch.train.backward": 1, "repro_torch.optim.update": 1,
+        "repro_torch.attn.backward": cfg.num_layers}
+    for e in ranges["repro_torch.attn.backward"]:
+        assert e.device_time_total > 0, e
+
+
 def _reduced_hybrid():
     """Reduced recurrentgemma-9b in float32 with 5 layers (one rglru,
     rglru, local cycle and a 2-block RG-LRU tail) at the full config's
